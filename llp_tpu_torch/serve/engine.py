@@ -1,0 +1,166 @@
+"""Link-prediction serving: node encoding, pair scoring and top-K partner
+retrieval (counterpart of ``llp_tpu/serve/engine.py``).
+
+* :func:`load_serving_artifacts` reads a training checkpoint (written by
+  either package) into modules on the requested device.
+* :func:`encode_nodes` embeds features with an MLP (student) encoder;
+  :func:`encode_graph_nodes` runs a GNN teacher's full-graph forward, whose
+  mean aggregations are the segment-sum kernel on the card.
+* :func:`score_pairs` scores (src, dst) pairs; on the card a supported 'mlp'
+  head goes through the fused SDDMM kernel.
+* :func:`top_k_partners` is the exact blocked top-K over the whole table.
+
+Not ported yet: quantized tables (ROADMAP A13, ``serve/quant.py``), the
+fused 'mlp' retrieval kernel (ROADMAP B4) and the sharded serving state
+(ROADMAP A14).
+"""
+
+from __future__ import annotations
+
+import copy
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from llp_tpu_torch.core.graph import Graph
+from llp_tpu_torch.models.encoder import apply_encoder
+from llp_tpu_torch.models.predictor import LinkPredictor
+from llp_tpu_torch.ops.edge_score import score_edges
+from llp_tpu_torch.ops.sddmm import fused_supported, head_weights, sddmm_mlp_score
+from llp_tpu_torch.utils.checkpoint import load_checkpoint
+from llp_tpu_torch.utils.device import setup_device
+from llp_tpu_torch.utils.params import from_jax
+
+# Bytes allowed for one retrieval block's largest intermediate (the (Q, B, H)
+# Hadamard tile of an 'mlp' head, or the (Q, B) scores of 'inner'): the
+# default block size follows from it and the request's shape.
+TOPK_BLOCK_BYTES = 256 << 20
+
+
+def load_serving_artifacts(path: str, *, device="cuda") -> Tuple[
+        Dict[str, nn.Module], Optional[torch.Tensor], Dict[str, Any]]:
+    """``({"encoder", "predictor"} modules, features or None, meta)``.
+
+    Teacher checkpoints carry best-val node features; student (MLP)
+    checkpoints encode fresh features on demand.  The modules are in eval
+    mode on ``device``: the card unless ``device="cpu"``; with no card
+    visible anything else raises ``SystemExit``."""
+    device = setup_device(device)
+    ckpt, meta = load_checkpoint(path)
+    tree = ckpt["params"] if "params" in ckpt else ckpt
+    feats = ckpt.get("features") if "params" in ckpt else None
+    modules = {
+        "encoder": from_jax(tree["encoder"], conv=meta.get("conv", "sage")).to(device),
+        "predictor": from_jax(tree["predictor"]).to(device),
+    }
+    if feats is not None:
+        feats = torch.from_numpy(np.asarray(feats, np.float32)).to(device)
+    return modules, feats, meta
+
+
+@torch.no_grad()
+def encode_nodes(encoder: nn.Module, x: torch.Tensor, *, block: int = 8192) -> torch.Tensor:
+    """(N, D) features -> (N, H) embeddings with a graph-free (MLP) encoder,
+    ``block`` rows at a time so peak memory is bounded by the block."""
+    if x.shape[0] == 0:
+        return apply_encoder(encoder, None, x)
+    return torch.cat([apply_encoder(encoder, None, x[i:i + block])
+                      for i in range(0, x.shape[0], block)])
+
+
+@torch.no_grad()
+def encode_graph_nodes(encoder: nn.Module, graph: Graph, x: torch.Tensor) -> torch.Tensor:
+    """GNN-encoder serving: embed every node with a full-graph forward — the
+    production-setting re-encode over the current edge set."""
+    return apply_encoder(encoder, graph, x)
+
+
+@torch.no_grad()
+def score_pairs(predictor: LinkPredictor, h: torch.Tensor, src, dst, *,
+                block: int = 131072, fused: Optional[bool] = None) -> torch.Tensor:
+    """Probabilities (B,) for candidate (src, dst) pairs of rows of ``h``.
+
+    ``fused=None`` takes the fused SDDMM kernel for a supported 'mlp' head
+    when ``h`` lies on the card, and the unfused PyTorch expression
+    otherwise; ``fused=False`` always takes the unfused expression.  (The
+    JAX package defaults to unfused from a TPU measurement that does not
+    carry over; PERF.md records both times on the H100.)  The kernel scores
+    all pairs in one launch, since it keeps nothing per pair in memory; the
+    unfused expression runs ``block`` pairs at a time."""
+    src = torch.as_tensor(src, dtype=torch.int64, device=h.device)
+    dst = torch.as_tensor(dst, dtype=torch.int64, device=h.device)
+    if fused is None:
+        fused = h.is_cuda
+    lins = predictor.lins if predictor.mode == "mlp" else None
+    if fused and lins is not None and fused_supported(lins, h):
+        return sddmm_mlp_score(h, h, src, dst, *head_weights(lins))
+    parts = [score_edges(h, src[i:i + block], dst[i:i + block],
+                         mode=predictor.mode, lins=lins)
+             for i in range(0, src.shape[0], block)]
+    if not parts:
+        return torch.zeros((0,), dtype=torch.float32, device=h.device)
+    return torch.cat(parts)
+
+
+def auto_topk_block(predictor: LinkPredictor, q_count: int, width: int) -> int:
+    """Candidates per retrieval block such that the block's largest
+    intermediate fits :data:`TOPK_BLOCK_BYTES`."""
+    per_candidate = 4 * max(1, q_count)
+    if predictor.mode == "mlp":
+        per_candidate *= max(width, predictor.lins[0].out_features)
+    return max(1, TOPK_BLOCK_BYTES // per_candidate)
+
+
+@torch.no_grad()
+def top_k_partners(predictor: LinkPredictor, h: torch.Tensor, query_ids, *,
+                   k: int = 10, block: Optional[int] = None,
+                   exclude_self: bool = True, compute_dtype=None,
+                   approx: bool = False,
+                   mlp_fused: Optional[bool] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """For each query node, the K nodes with the highest link probability:
+    ``(scores, node_ids)``, each (Q, K), sorted descending.
+
+    Candidates are scored a block at a time and merged into a running top-K,
+    exactly.  ``approx=True`` is accepted for the JAX signature's sake and
+    retrieves exactly (torch has no approximate top-k; the JAX package is
+    exact on the CPU too).  ``compute_dtype`` (e.g. ``torch.bfloat16``)
+    scores in that type and merges in fp32."""
+    del approx
+    if mlp_fused:
+        raise NotImplementedError(
+            "mlp_fused retrieval kernel is not ported yet (ROADMAP B4)"
+        )
+    query_ids = torch.as_tensor(query_ids, dtype=torch.int64, device=h.device)
+    n = h.shape[0]
+    q = query_ids.shape[0]
+    k = min(k, n - 1 if exclude_self else n)
+    if block is None:
+        block = auto_topk_block(predictor, q, h.shape[1])
+    block = max(1, min(block, n))
+    if compute_dtype is not None and compute_dtype != h.dtype:
+        h = h.to(compute_dtype)
+        predictor = copy.deepcopy(predictor).to(compute_dtype)
+    inner = predictor.mode == "inner"
+    q_h = h.index_select(0, query_ids)
+    vals = torch.full((q, k), -torch.inf, dtype=torch.float32, device=h.device)
+    ids = torch.full((q, k), -1, dtype=torch.int64, device=h.device)
+    for b0 in range(0, n, block):
+        cand = h[b0:b0 + block]
+        cand_ids = torch.arange(b0, b0 + cand.shape[0], device=h.device)
+        if inner:
+            # sigmoid is monotone: rank raw dots, squash the K winners last
+            scores = (q_h @ cand.T).float()
+        else:
+            scores = predictor(q_h[:, None, :], cand[None, :, :]).float()
+        if exclude_self:
+            scores = scores.masked_fill(cand_ids[None, :] == query_ids[:, None],
+                                        -torch.inf)
+        all_vals = torch.cat([vals, scores], dim=1)
+        all_ids = torch.cat([ids, cand_ids[None, :].expand(q, -1)], dim=1)
+        vals, pos = torch.topk(all_vals, k, dim=1)
+        ids = torch.gather(all_ids, 1, pos)
+    if inner:
+        vals = torch.where(torch.isfinite(vals), torch.sigmoid(vals), vals)
+    return vals, ids
