@@ -12,9 +12,12 @@ failure exits non-zero.
 2. build        -- compiles every kernel of ``llp_tpu_torch/csrc`` (one
                    ``nvcc`` per source, all started together).
 3. kernel_check -- each kernel against its plain PyTorch version on the card,
-                   at stated tolerances. With more than one card visible
-                   (other_card), both kernels run again on the last card
-                   while card 0 stays current.
+                   at stated tolerances: segsum in its three instances
+                   (fp32, bf16 -> fp32, bf16 -> bf16), the spmm backward
+                   (``torch.autograd.grad`` through the kernel route against
+                   the plain backward), and SDDMM. With more than one card
+                   visible (other_card), the forward kernels run again on
+                   the last card while card 0 stays current.
 4. serve        -- the serving CLI (``llp_tpu_torch.cli.serve.main``) at full
                    width: a 2-layer GraphSAGE teacher, hidden 256, with a
                    2-layer mlp head. It runs with random weights from a seed
@@ -22,8 +25,18 @@ failure exits non-zero.
                    student runs on ``collab``. Launch counters show that the
                    kernels served. The same requests run again on the CPU
                    with the plain versions, and the results must agree.
-5. kernels      -- one JSON line: each kernel's launches on the serving path,
-                   its time at the collab serving shapes, the plain
+5. train        -- the training CLI (``llp_tpu_torch.cli.train_teacher.main``)
+                   at full width (hidden 256, 2 layers, mlp head, batch
+                   65,536, dropout 0.5): 20 epochs on ``cora``, whose
+                   artifact the serving CLI then serves, and 2 epochs each at
+                   fp32 and bf16 on ``collab``. Launch counters show the
+                   segsum kernel in both directions on every step and the
+                   SDDMM kernel in eval. Then 3 steps on ``cora`` with
+                   dropout 0 and fixed negatives, on the card and on the
+                   CPU, whose losses must agree, and a profiled collab epoch
+                   at each type (where the time goes).
+6. kernels      -- one JSON line: each kernel's launches on the serving and
+                   training paths, its time at the collab shapes, the plain
                    version's time, a library call's time where one exists,
                    and the least time the card could take.
 
@@ -53,6 +66,12 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 
 SEGSUM_TOL = dict(rtol=1e-5, atol=1e-5)   # fp32, another summation order
+# bf16 results: one bf16 ulp of the reference value, as two summation orders
+# can round to neighbouring bf16 values; the floor covers sums that cancel
+# to near zero, where fp32 reassociation error outgrows the ulp.
+BF16_TOL = dict(ulps=1, atol=1e-5)
+LOSS_RTOL = 1e-4                          # card vs CPU losses, 3 steps, fp32
+BF16_LOSS_RTOL = 2e-2                     # bf16 vs fp32 losses, 3 steps
 SDDMM_TOL = dict(rtol=1e-5, atol=1e-6)    # as tests/test_sddmm.py
 H_TOL = dict(rtol=1e-4, atol=1e-4)        # encode: two layers of cuBLAS vs CPU GEMMs
 SCORE_ATOL = 1e-5
@@ -79,6 +98,28 @@ def compare(got, ref, *, rtol: float, atol: float, what: str) -> dict:
     used = float((err / (atol + rtol * ref.abs())).max())
     if used > 1.0:
         raise AssertionError(f"{what}: past rtol={rtol} atol={atol} "
+                             f"(max abs {float(err.max()):.3g}, {used:.3g}x the tolerance)")
+    return {"max_abs": float(err.max()), "tol_used": used}
+
+
+def compare_bf16(got, ref, *, ulps: int, atol: float, what: str) -> dict:
+    """As :func:`compare`, with the tolerance ``ulps`` bf16 ulps of ``ref``
+    plus ``atol``."""
+    import torch
+
+    if got.shape != ref.shape:
+        raise AssertionError(f"{what}: shape {tuple(got.shape)} != {tuple(ref.shape)}")
+    got, ref = got.detach().double(), ref.detach().double()
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: non-finite values")
+    if not got.numel():
+        return {"max_abs": 0.0, "tol_used": 0.0}
+    # bf16 keeps 8 significant bits: its ulp in [2^k, 2^(k+1)) is 2^(k-7).
+    ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp(min=2.0 ** -126))) - 7)
+    err = (got - ref).abs()
+    used = float((err / (ulps * ulp + atol)).max())
+    if used > 1.0:
+        raise AssertionError(f"{what}: past {ulps} bf16 ulp + {atol} "
                              f"(max abs {float(err.max()):.3g}, {used:.3g}x the tolerance)")
     return {"max_abs": float(err.max()), "tol_used": used}
 
@@ -146,7 +187,7 @@ def _check_graph(n: int, e: int, hub_deg: int, isolated: int, seed: int):
 
 def phase_kernel_check(gen) -> dict:
     """Each kernel against its plain version on the card; returns the
-    largest abs error per kernel."""
+    largest abs error per kernel, instance and direction."""
     import numpy as np
     import torch
 
@@ -155,40 +196,81 @@ def phase_kernel_check(gen) -> dict:
     from llp_tpu_torch.models.predictor import LinkPredictor
     from llp_tpu_torch.ops.sddmm import head_weights, sddmm_mlp_score, sddmm_mlp_score_plain
     from llp_tpu_torch.ops.segsum import segsum, segsum_plain
+    from llp_tpu_torch.ops.spmm import spmm, spmm_backward_plain
 
-    worst = {"segsum": 0.0, "sddmm": 0.0}
+    worst = dict.fromkeys(("segsum", "segsum_bf16_f32", "segsum_bf16", "spmm_bwd",
+                           "spmm_bwd_bf16", "sddmm"), 0.0)
 
     def segsum_case(label, graph, x):
+        xb = x.bfloat16()
         for reduce in ("sum", "mean"):
-            scale = (1.0 / graph.in_degree.clamp(min=1).float()) if reduce == "mean" else None
-            before = segsum.launches
-            got = segsum(x, graph.senders, graph.in_ptr, scale)
-            torch.cuda.synchronize()
-            if graph.num_edges and segsum.launches != before + 1:
-                raise AssertionError(f"segsum {label}: the kernel did not launch")
-            err = compare(got, segsum_plain(x, graph.senders, graph.in_ptr, scale),
-                          **SEGSUM_TOL, what=f"segsum {label} {reduce}")
-            worst["segsum"] = max(worst["segsum"], err["max_abs"])
-            log("kernel_check", {"kernel": "segsum", "case": label, "reduce": reduce,
-                                 "n": graph.num_nodes, "e": graph.num_edges,
-                                 "d": x.shape[1], **err, **SEGSUM_TOL})
+            scale = graph.inv_in_degree if reduce == "mean" else None
+            # (key, input, out_dtype, reference, comparison)
+            ref32 = segsum_plain(x, graph.senders, graph.in_ptr, scale)
+            refb = segsum_plain(xb.float(), graph.senders, graph.in_ptr, scale)
+            cases = (
+                ("segsum", x, None, ref32, lambda g, r, w: compare(g, r, **SEGSUM_TOL, what=w)),
+                ("segsum_bf16_f32", xb, torch.float32, refb,
+                 lambda g, r, w: compare(g, r, **SEGSUM_TOL, what=w)),
+                ("segsum_bf16", xb, None, refb.bfloat16(),
+                 lambda g, r, w: compare_bf16(g, r, **BF16_TOL, what=w)),
+            )
+            for key, inp, out_dtype, ref, check in cases:
+                before = segsum.launches
+                got = segsum(inp, graph.senders, graph.in_ptr, scale, out_dtype=out_dtype)
+                torch.cuda.synchronize()
+                if graph.num_edges and segsum.launches != before + 1:
+                    raise AssertionError(f"{key} {label}: the kernel did not launch")
+                if got.dtype != ref.dtype:
+                    raise AssertionError(f"{key} {label}: {got.dtype} out, expected {ref.dtype}")
+                err = check(got, ref, f"{key} {label} d={x.shape[1]} {reduce}")
+                worst[key] = max(worst[key], err["max_abs"])
+                log("kernel_check", {"kernel": key, "case": label, "reduce": reduce,
+                                     "n": graph.num_nodes, "e": graph.num_edges,
+                                     "d": x.shape[1], **err})
+
+    def backward_case(label, graph, d):
+        for dtype, key in ((torch.float32, "spmm_bwd"), (torch.bfloat16, "spmm_bwd_bf16")):
+            x = torch.randn(graph.num_nodes, d, generator=gen, device="cuda").to(dtype)
+            g = torch.randn(graph.num_nodes, d, generator=gen, device="cuda").to(dtype)
+            for reduce in ("sum", "mean"):
+                x.requires_grad_(True)
+                before = spmm.backward_launches
+                (got,) = torch.autograd.grad(spmm(graph, x, reduce), x, g)
+                torch.cuda.synchronize()
+                if graph.num_edges and spmm.backward_launches != before + 1:
+                    raise AssertionError(f"{key} {label}: the backward kernel did not launch")
+                ref = spmm_backward_plain(graph, g, reduce)
+                what = f"{key} {label} d={d} {reduce}"
+                err = (compare(got, ref, **SEGSUM_TOL, what=what) if dtype == torch.float32
+                       else compare_bf16(got, ref, **BF16_TOL, what=what))
+                worst[key] = max(worst[key], err["max_abs"])
+                log("kernel_check", {"kernel": key, "case": label, "reduce": reduce,
+                                     "n": graph.num_nodes, "e": graph.num_edges, "d": d,
+                                     **err})
 
     # Hub row of degree 12,000 and isolated receivers. The features are
-    # multiples of 1/256 in [-4, 4], so every partial sum is exact in fp32
-    # and the hub row's 12,000-term sum agrees in any order.
+    # multiples of 1/256 in [-4, 4] (and so are their bf16 roundings), so
+    # every partial sum is exact in fp32 and the hub row's 12,000-term sum
+    # agrees in any order.
     g = _check_graph(50_000, 200_000, 12_000, 5_000, seed=0)
     for d in (8, 100, 128, 256, 1433):
         x = torch.randint(-1024, 1025, (g.num_nodes, d), generator=gen,
                           device="cuda").float() / 256
         segsum_case("hub+isolated", g, x)
+        backward_case("hub+isolated", g, d)
     empty = build_graph(np.zeros((2, 0), np.int64), 100, device="cuda")
     segsum_case("E=0", empty, torch.randn(100, 64, generator=gen, device="cuda"))
-    # The serving graphs with Gaussian features at the widths the encode runs.
+    backward_case("E=0", empty, 64)
+    # The serving and training graphs with Gaussian features at the widths
+    # the encode runs.
     for name, widths in (("cora", (1433, 256)), ("collab", (128, 256))):
         ds = get_dataset(STANDINS, name)
         gs = build_graph(ds.edge_index, ds.num_nodes, device="cuda")
         for d in widths:
             segsum_case(name, gs, torch.randn(gs.num_nodes, d, generator=gen, device="cuda"))
+        if name == "collab":
+            backward_case(name, gs, 256)
 
     def sddmm_case(n, d, hid, b):
         head = LinkPredictor("mlp", d, hid, generator=torch.Generator().manual_seed(d + hid))
@@ -433,35 +515,264 @@ def phase_serve() -> dict:
     return launches
 
 
-def phase_kernels(gen, launches: dict, worst: dict) -> list:
-    """Times at the collab serving shapes; returns the kernels line's entries."""
+def _train(argv) -> tuple[dict, dict, list]:
+    """Run the training CLI; returns its stats, its report and its stdout."""
+    from llp_tpu_torch.cli.train_teacher import main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        stats, report = main(argv)
+    return stats, report, buf.getvalue().splitlines()
+
+
+def _counts() -> dict:
+    """A snapshot of every launch counter."""
+    from llp_tpu_torch.ops.sddmm import sddmm_mlp_score
+    from llp_tpu_torch.ops.segsum import segsum
+    from llp_tpu_torch.ops.spmm import spmm
+
+    return {"segsum": segsum.launches, "by_shape": dict(segsum.launch_counts),
+            "backward": spmm.backward_launches, "sddmm": sddmm_mlp_score.launches}
+
+
+def _delta(after: dict, before: dict) -> dict:
+    shapes = {f"{inst} d={d}": n - before["by_shape"].get((inst, d), 0)
+              for (inst, d), n in after["by_shape"].items()}
+    return {"segsum": after["segsum"] - before["segsum"],
+            "backward": after["backward"] - before["backward"],
+            "sddmm": after["sddmm"] - before["sddmm"],
+            "by_shape": {k: v for k, v in shapes.items() if v}}
+
+
+TRAIN_FLAGS = ["--hidden_channels=256", "--num_layers=2", "--predictor=mlp",
+               "--batch_size=65536", "--dropout=0.5", "--runs=1", "--eval_steps=1",
+               "--log_steps=1", "--patience=100"]
+
+
+def _train_line(name: str, dtype: str, stats: dict, report: dict, counts: dict) -> dict:
+    import statistics
+
+    metric = "Hits@50" if name == "collab" else "Hits@20"
+    steady = report["epoch_s"][1:] or report["epoch_s"]
+    line = {"dataset": name, "compute_dtype": dtype, "epochs": len(report["epoch_s"]),
+            "steps_per_epoch": report["steps_per_epoch"],
+            "epoch_s": statistics.median(steady), "epoch_s_all": report["epoch_s"],
+            "eval_s": report["perf"]["mean_eval_s"],
+            "edges_per_s": report["perf"]["edges_per_sec"],
+            "losses": report["losses"][0], "final_loss": report["losses"][0][-1],
+            "metric": metric, "valid": stats[metric]["valid"][0],
+            "test": stats[metric]["test"][0], "launches": counts}
+    log("train", line)
+    return line
+
+
+def _parity_losses(device: str, compute_dtype: str, steps: int = 3) -> list:
+    """``steps`` steps of the teacher on cora at full width, dropout 0, with
+    fixed negatives drawn by numpy: one step per epoch, since the batch
+    holds every positive."""
+    import numpy as np
+    import torch
+
+    from llp_tpu_torch.train.loop import prepare_transductive
+    from llp_tpu_torch.train.teacher import TeacherTrainer, init_teacher
+    from llp_tpu_torch.utils.config import TeacherConfig
+
+    cfg = TeacherConfig(datasets="cora", dataset_dir=STANDINS)
+    data = prepare_transductive(cfg, torch.device(device))
+    n, d = data["x"].shape
+    model = init_teacher(encoder="sage", in_channels=d, hidden_channels=256, num_layers=2,
+                         predictor_mode="mlp", generator=torch.Generator().manual_seed(0))
+    trainer = TeacherTrainer(model.to(device), data["graph"], data["x"], data["pos_edges"],
+                             batch_size=65536, neg_keys=data["neg_keys"],
+                             compute_dtype=compute_dtype)
+    if trainer.steps != 1:
+        raise AssertionError(f"cora: {trainer.steps} steps per epoch, expected 1")
+    negatives = np.random.default_rng(7).integers(0, n, (steps, 1, 2, trainer.batch))
+    gen = torch.Generator(device=device).manual_seed(0)
+    return [float(trainer.epoch(gen, negatives=torch.from_numpy(negatives[i]).to(device)))
+            for i in range(steps)]
+
+
+def _profile_epoch(compute_dtype: str) -> dict:
+    """One collab epoch under ``torch.profiler`` after a warm-up epoch: the
+    device time by kernel, the epoch's wall time and its launches."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from llp_tpu_torch.train.loop import prepare_transductive
+    from llp_tpu_torch.train.teacher import TeacherTrainer, init_teacher
+    from llp_tpu_torch.utils.config import TeacherConfig
+
+    cfg = TeacherConfig(datasets="collab", dataset_dir=STANDINS)
+    data = prepare_transductive(cfg, torch.device("cuda"))
+    model = init_teacher(encoder="sage", in_channels=data["x"].shape[1], hidden_channels=256,
+                         num_layers=2, predictor_mode="mlp", dropout=0.5,
+                         generator=torch.Generator().manual_seed(0)).cuda()
+    trainer = TeacherTrainer(model, data["graph"], data["x"], data["pos_edges"],
+                             batch_size=65536, neg_mode=cfg.neg_mode,
+                             compute_dtype=compute_dtype)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    trainer.epoch(gen)
+    torch.cuda.synchronize()
+    before = _counts()
+    t0 = time.perf_counter()
+    trainer.epoch(gen)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = _delta(_counts(), before)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.epoch(gen)
+        torch.cuda.synchronize()
+    # Kernels only: a CPU op's entry, and a user annotation's device span,
+    # repeat the device time of the kernels inside them.
+    by_kernel = {ev.key: ev.self_device_time_total / 1e3 for ev in prof.key_averages()
+                 if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
+                 and not getattr(ev, "is_user_annotation", False)}
+    device_ms = sum(by_kernel.values())
+    segsum_ms = sum(v for k, v in by_kernel.items() if "segsum_kernel" in k)
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    out = {"compute_dtype": compute_dtype, "steps": trainer.steps, "epoch_s": wall_s,
+           "launches": counts,
+           "launches_per_step": {k: v / trainer.steps for k, v in counts["by_shape"].items()},
+           "device_ms": device_ms if device_ms else "not measured",
+           "segsum_ms": segsum_ms if device_ms else "not measured",
+           # the unprofiled epoch's wall time against the profiled one's kernels
+           "device_idle_share": 1 - device_ms / (wall_s * 1e3) if device_ms else "not measured",
+           "top_kernels_ms": top}
+    log("train_profile", out)
+    return out
+
+
+def phase_train() -> dict:
+    """Drive the training CLI on the card, serve what it wrote, hold 3 steps
+    against the CPU; returns each run's launches and the profiles."""
+    import numpy as np
+
+    from llp_tpu_torch.ops.segsum import segsum
+    from llp_tpu_torch.ops.sddmm import sddmm_mlp_score
+    from llp_tpu_torch.ops.spmm import spmm
+
+    saved, results = WORK / "saved", WORK / "results"
+    common = [f"--dataset_dir={STANDINS}", f"--save_dir={saved}",
+              f"--results_dir={results}", *TRAIN_FLAGS]
+    runs = {}
+    # the training path starts here
+    segsum.launches = spmm.backward_launches = sddmm_mlp_score.launches = 0
+    segsum.launch_counts.clear()
+    for name, epochs, dtype in (("cora", 20, "float32"), ("collab", 2, "float32"),
+                                ("collab", 2, "bfloat16")):
+        before = _counts()
+        stats, report, _ = _train([f"--datasets={name}", f"--epochs={epochs}",
+                                   f"--compute_dtype={dtype}", *common])
+        counts = _delta(_counts(), before)
+        line = _train_line(name, dtype, stats, report, counts)
+        steps = report["steps_per_epoch"] * len(report["epoch_s"])
+        if line["losses"][-1] >= line["losses"][0]:
+            raise AssertionError(f"{name} {dtype}: the loss did not fall: {line['losses']}")
+        if counts["backward"] < steps:
+            raise AssertionError(f"{name} {dtype}: {counts['backward']} backward segsum "
+                                 f"launches in {steps} steps")
+        if counts["segsum"] - counts["backward"] < steps:
+            raise AssertionError(f"{name} {dtype}: {counts['segsum'] - counts['backward']} "
+                                 f"forward segsum launches in {steps} steps")
+        if counts["sddmm"] == 0:
+            raise AssertionError(f"{name} {dtype}: eval did not launch the sddmm kernel")
+        if dtype == "bfloat16":
+            cast = counts["by_shape"].get("bfloat16->bfloat16 d=256", 0)
+            if cast < 2 * steps:
+                raise AssertionError(f"{name} bf16: {cast} bf16->bf16 launches at d=256 in "
+                                     f"{steps} steps (one forward and one backward each)")
+        runs[(name, dtype)] = {"line": line, "counts": counts, "steps": steps}
+    launches = _counts()
+
+    ckpt = saved / "cora-sage_transductive"
+    if not all(Path(f"{ckpt}{ext}").exists() for ext in (".npz", ".json")):
+        raise AssertionError(f"the cora teacher artifact {ckpt} was not written")
+    queries, pairs = _requests(2708, seed=3)
+    summary, lines = _serve([f"--checkpoint={ckpt}", "--datasets=cora",
+                             f"--dataset_dir={STANDINS}", "--reencode", "--topk=10",
+                             f"--queries={queries}", f"--pairs={pairs}"])
+    scores = [v for x in lines for v in x["scores"]]
+    if summary["nodes"] != 2708 or summary["dim"] != 256 or not np.isfinite(scores).all():
+        raise AssertionError(f"serving the trained cora artifact: {summary}")
+    if sum("query" in x for x in lines) != 16:
+        raise AssertionError("serving the trained cora artifact: expected 16 top-k lines")
+    log("serve_trained", {"checkpoint": str(ckpt), **summary})
+
+    gpu = _parity_losses("cuda", "float32")
+    cpu = _parity_losses("cpu", "float32")
+    bf16 = _parity_losses("cuda", "bfloat16")
+    gap = float(np.max(np.abs(np.array(gpu) - cpu) / np.abs(cpu)))
+    bgap = float(np.max(np.abs(np.array(bf16) - gpu) / np.abs(gpu)))
+    log("train_vs_cpu", {"gpu": gpu, "cpu": cpu, "bf16": bf16, "rel_gap": gap,
+                         "bf16_rel_gap": bgap, "rtol": LOSS_RTOL,
+                         "bf16_rtol": BF16_LOSS_RTOL})
+    if gap > LOSS_RTOL:
+        raise AssertionError(f"card vs CPU losses differ by {gap:.3g} > {LOSS_RTOL}")
+    if bgap > BF16_LOSS_RTOL:
+        raise AssertionError(f"bf16 vs fp32 losses differ by {bgap:.3g} > {BF16_LOSS_RTOL}")
+
+    profiles = {dtype: _profile_epoch(dtype) for dtype in ("float32", "bfloat16")}
+    return {"runs": runs, "launches": launches, "profiles": profiles}
+
+
+def _segsum_timing(x, senders, in_ptr, scale, adj, out_dtype=None) -> dict:
+    """Kernel, plain and library times of one segsum at these inputs, and the
+    bytes it must move: x once, the index arrays (and scale) once, out once."""
+    import torch
+
+    from llp_tpu_torch.ops.segsum import segsum, segsum_plain
+
+    n = in_ptr.numel() - 1
+    out_dtype = out_dtype or x.dtype
+    t = {"ms": time_ms(lambda: segsum(x, senders, in_ptr, scale, out_dtype=out_dtype)),
+         "plain_ms": time_ms(lambda: segsum_plain(x, senders, in_ptr, scale,
+                                                  out_dtype=out_dtype))}
+    if out_dtype != x.dtype:
+        t["library_ms"] = None
+        t["library_note"] = f"no single PyTorch call takes {x.dtype} in and gives {out_dtype}"
+    else:
+        try:  # does torch.sparse.mm take this type?
+            adj = adj.to(x.dtype)
+            t["library_ms"] = time_ms(lambda: torch.sparse.mm(adj, x))
+        except RuntimeError as exc:
+            t["library_ms"] = None
+            t["library_note"] = f"torch.sparse.mm refuses {x.dtype} here: {str(exc)[:120]}"
+    out_bytes = torch.empty((), dtype=out_dtype).element_size()
+    t["bytes"] = (n * x.shape[1] * (x.element_size() + out_bytes) + senders.numel() * 8
+                  + in_ptr.numel() * 8 + (0 if scale is None else n * 4))
+    t["bound_ms"] = t["bytes"] / HBM_BYTES_PER_S * 1e3
+    return t
+
+
+def phase_kernels(gen, launches: dict, train: dict, worst: dict) -> list:
+    """Times at the collab serving and training shapes; returns the kernels
+    line's entries."""
     import torch
 
     from llp_tpu_torch.core.graph import build_graph
     from llp_tpu_torch.data.registry import get_dataset
     from llp_tpu_torch.models.predictor import LinkPredictor
     from llp_tpu_torch.ops.sddmm import head_weights, sddmm_mlp_score, sddmm_mlp_score_plain
-    from llp_tpu_torch.ops.segsum import segsum, segsum_plain
     from llp_tpu_torch.serve import score_pairs
+    from llp_tpu_torch.train.loop import prepare_transductive
+    from llp_tpu_torch.utils.config import TeacherConfig
 
     ds = get_dataset(STANDINS, "collab")
     g = build_graph(ds.edge_index, ds.num_nodes, device="cuda")
     n, e = g.num_nodes, g.num_edges
-    scale = 1.0 / g.in_degree.clamp(min=1).float()
+    scale = g.inv_in_degree
     # The library's counterpart: a CSR adjacency whose values carry the mean's
     # 1/deg, times the features, as one torch.sparse.mm.
     adj = torch.sparse_csr_tensor(g.in_ptr, g.senders, scale[g.receivers], (n, n))
 
     # One collab encode aggregates twice: the 128-wide input, then the
-    # 256-wide hidden layer. The segsum entry sums those two launches.
+    # 256-wide hidden layer. The serving segsum entry sums those two launches.
     seg = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0}
     for d in (128, 256):
         x = torch.randn(n, d, generator=gen, device="cuda")
-        t = {"ms": time_ms(lambda: segsum(x, g.senders, g.in_ptr, scale)),
-             "plain_ms": time_ms(lambda: segsum_plain(x, g.senders, g.in_ptr, scale)),
-             "library_ms": time_ms(lambda: torch.sparse.mm(adj, x))}
-        # x, senders, in_ptr and scale read once; out written once.
-        t["bytes"] = 2 * n * d * 4 + e * 8 + (n + 1) * 8 + n * 4
+        t = _segsum_timing(x, g.senders, g.in_ptr, scale, adj)
         log("timing", {"kernel": "segsum", "n": n, "e": e, "d": d, **t})
         for key in seg:
             seg[key] += t[key]
@@ -494,16 +805,17 @@ def phase_kernels(gen, launches: dict, worst: dict) -> list:
     seg_bound_ms = seg["bytes"] / HBM_BYTES_PER_S * 1e3
     sd_bytes_ms = sd_bytes / HBM_BYTES_PER_S * 1e3
     sd_flops_ms = sd_flops / FP32_FLOP_PER_S * 1e3
-    return [
+    entries = [
         {"name": "segsum", "route": "cuda", "source": "llp_tpu_torch/csrc/segsum.cu",
          "replaces": "llp_tpu/ops/pallas/segsum_kernel.py:148",
          "launches": launches["segsum"], "max_abs_err": worst["segsum"],
          "ms": seg["ms"], "plain_ms": seg["plain_ms"], "bound_ms": seg_bound_ms,
          "bound_by": "bytes", "library_ms": seg["library_ms"],
-         "shapes": f"collab encode: n={n} e={e}, d=128 + d=256, mean"},
+         "shapes": f"collab serve encode: n={n} e={e}, d=128 + d=256, mean, fp32"},
         {"name": "sddmm", "route": "cuda", "source": "llp_tpu_torch/csrc/sddmm.cu",
          "replaces": "llp_tpu/ops/pallas/sddmm_kernel.py:41",
-         "launches": launches["sddmm"], "max_abs_err": worst["sddmm"],
+         "launches": launches["sddmm"] + train["launches"]["sddmm"],
+         "max_abs_err": worst["sddmm"],
          "ms": sd["ms"], "plain_ms": sd["plain_ms"],
          "bound_ms": max(sd_bytes_ms, sd_flops_ms),
          "bound_by": "operations" if sd_flops_ms >= sd_bytes_ms else "bytes",
@@ -511,6 +823,65 @@ def phase_kernels(gen, launches: dict, worst: dict) -> list:
          "library_note": "no single PyTorch call gathers, multiplies and runs the MLP head",
          "shapes": f"{b} pairs over a {n} x {d} table, H={hid}"},
     ]
+
+    # The training shapes: the message graph of the collab split (the train
+    # positives, both directions), forward over the receiver CSR and backward
+    # over the sender CSR, as the collab training runs above launched them.
+    data = prepare_transductive(TeacherConfig(datasets="collab", dataset_dir=STANDINS),
+                                torch.device("cuda"))
+    tg = data["graph"]
+    tn, te = tg.num_nodes, tg.num_edges
+    tscale = tg.inv_in_degree
+    fwd_adj = torch.sparse_csr_tensor(tg.in_ptr, tg.senders, tscale[tg.receivers], (tn, tn))
+    # backward: A^T (diag(1/deg) g), with g scaled before the kernel
+    bwd_adj = torch.sparse_csr_tensor(tg.row_ptr, tg.col, torch.ones(te, device="cuda"),
+                                      (tn, tn))
+    tags = {torch.float32: ("f32", "float32->float32", 148, "segsum", "spmm_bwd"),
+            torch.bfloat16: ("bf16", "bfloat16->bfloat16", 191, "segsum_bf16",
+                             "spmm_bwd_bf16")}
+    for dtype, (tag, inst, line_no, fwd_key, bwd_key) in tags.items():
+        run = train["runs"][("collab", str(dtype).split(".")[-1])]
+        prof = train["profiles"][str(dtype).split(".")[-1]]
+        for direction, d in (("fwd", 128), ("fwd", 256), ("bwd", 256)):
+            x = torch.randn(tn, d, generator=gen, device="cuda").to(dtype)
+            if direction == "fwd":
+                t = _segsum_timing(x, tg.senders, tg.in_ptr, tscale, fwd_adj)
+                key = fwd_key
+            else:
+                x = (x.float() * tscale[:, None]).to(dtype)
+                t = _segsum_timing(x, tg.col, tg.row_ptr, None, bwd_adj)
+                key = bwd_key
+            shape_key = f"{inst} d={d}"
+            if direction == "fwd":
+                run_launches = run["counts"]["by_shape"].get(shape_key, 0)
+                per_step = prof["launches_per_step"].get(shape_key, 0.0)
+                if d == 256:  # the backward launches share this instance and width
+                    run_launches -= run["counts"]["backward"]
+                    per_step -= prof["launches"]["backward"] / prof["steps"]
+            else:
+                run_launches = run["counts"]["backward"]
+                per_step = prof["launches"]["backward"] / prof["steps"]
+            log("timing", {"kernel": f"segsum.{direction}.{tag}", "n": tn, "e": te, "d": d,
+                           **t})
+            entry = {"name": f"segsum.{direction}.{tag}.d{d}", "route": "cuda",
+                     "source": "llp_tpu_torch/csrc/segsum.cu",
+                     "replaces": f"llp_tpu/ops/pallas/segsum_kernel.py:{line_no}",
+                     "launches": run_launches, "launches_per_step": per_step,
+                     "max_abs_err": worst[key], "ms": t["ms"], "plain_ms": t["plain_ms"],
+                     "bound_ms": t["bound_ms"], "bound_by": "bytes",
+                     "library_ms": t["library_ms"],
+                     "shapes": (f"collab train {'receiver' if direction == 'fwd' else 'sender'}"
+                                f" CSR: n={tn} e={te}, d={d}, {inst}"
+                                f"{', mean' if direction == 'fwd' else ', g pre-scaled'}")}
+            if "library_note" in t:
+                entry["library_note"] = t["library_note"]
+            entries.append(entry)
+    # The bf16-message instance (bf16 in, fp32 out) is checked above but runs
+    # on no path of this slice, so it is timed here and left off the line.
+    x = torch.randn(tn, 256, generator=gen, device="cuda").bfloat16()
+    t = _segsum_timing(x, tg.senders, tg.in_ptr, tscale, fwd_adj, out_dtype=torch.float32)
+    log("timing", {"kernel": "segsum.fwd.bf16->f32", "n": tn, "e": te, "d": 256, **t})
+    return entries
 
 
 def main() -> int:
@@ -537,7 +908,8 @@ def main() -> int:
     worst = phase_kernel_check(gen)
     phase_other_card()
     launches = phase_serve()
-    kernels = phase_kernels(gen, launches, worst)
+    train = phase_train()
+    kernels = phase_kernels(gen, launches, train, worst)
     log("total", {"seconds": time.perf_counter() - t0})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": info["name"],

@@ -1,0 +1,36 @@
+"""Teacher training entry point (counterpart of
+``llp_tpu/cli/train_teacher.py``, with the same flags and stdout lines).
+
+    python -m llp_tpu_torch.cli.train_teacher --datasets cora --epochs 20 --runs 1
+
+Runs on the GPU unless ``--device cpu`` is given; with no card visible and
+no ``--device cpu`` it exits.  Writes the best-validation teacher artifact
+to ``<save_dir>/<dataset>-<encoder>_transductive`` and appends the results
+to ``<results_dir>/<dataset>_supervised_transductive.txt``.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from llp_tpu_torch.cli.common import add_common_flags, config_from_args
+
+
+def main(argv=None):
+    """Returns ``(stats, report)`` of :func:`llp_tpu_torch.train.loop.run_teacher`."""
+    p = argparse.ArgumentParser(description="LLP teacher GNN training (GPU)")
+    add_common_flags(p)
+    p.add_argument("--batch_size", type=int, default=64 * 1024)
+    p.add_argument("--runs", type=int, default=5)
+    args = p.parse_args(argv)
+
+    from llp_tpu_torch.train.loop import run_teacher
+    from llp_tpu_torch.utils.config import TeacherConfig
+
+    cfg = config_from_args(TeacherConfig, args, rename={}, defaults=vars(p.parse_args([])))
+    stats, _, report = run_teacher(cfg, device=args.device)
+    return stats, report
+
+
+if __name__ == "__main__":
+    main()

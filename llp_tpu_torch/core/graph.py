@@ -17,6 +17,7 @@ All index arrays are int64, the type PyTorch's index operations take.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import cached_property
 
 import numpy as np
 import torch
@@ -36,6 +37,12 @@ class Graph:
     out_degree: torch.Tensor  # (N,) int64
     num_nodes: int
     num_edges: int
+
+    @cached_property
+    def inv_in_degree(self) -> torch.Tensor:
+        """(N,) fp32 ``1/max(in_degree, 1)``, the mean's row scale; computed
+        once per graph."""
+        return 1.0 / self.in_degree.clamp(min=1).to(torch.float32)
 
 
 def build_graph(edge_index: np.ndarray, num_nodes: int, *, device="cuda") -> Graph:

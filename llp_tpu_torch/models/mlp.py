@@ -1,6 +1,6 @@
 """MLP encoder — the LLP student (counterpart of ``llp_tpu/models/mlp.py``):
-a stack of linears with norm (optional) and ReLU between layers, none after
-the last.  The forward is the eval forward: dropout comes with training.
+a stack of linears with norm (optional), ReLU and, in train mode, dropout
+between layers, none after the last.
 """
 
 from __future__ import annotations
@@ -12,11 +12,12 @@ from torch import nn
 
 from llp_tpu_torch.models.init import linear
 from llp_tpu_torch.models.norms import make_norms
+from llp_tpu_torch.ops.rng import inverted_dropout
 
 
 class MLP(nn.Module):
     def __init__(self, num_layers: int, input_dim: int, hidden_dim: int,
-                 output_dim: int, *, norm_type: str = "none",
+                 output_dim: int, *, norm_type: str = "none", dropout: float = 0.0,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         dims = [input_dim] + [hidden_dim] * (num_layers - 1) + [output_dim]
@@ -25,8 +26,10 @@ class MLP(nn.Module):
             for i in range(num_layers)
         )
         self.norms = make_norms(norm_type, dims[1:-1])
+        self.dropout = dropout
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, *,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         last = len(self.layers) - 1
         for i, layer in enumerate(self.layers):
             x = layer(x)
@@ -34,4 +37,6 @@ class MLP(nn.Module):
                 if len(self.norms):
                     x = self.norms[i](x)
                 x = torch.relu(x)
+                if self.training:
+                    x = inverted_dropout(x, self.dropout, generator)
         return x

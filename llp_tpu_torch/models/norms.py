@@ -1,18 +1,50 @@
 """Inter-layer norms (counterpart of ``llp_tpu/models/norms.py``).
 
-'layer' is ``nn.LayerNorm`` and 'batch' ``nn.BatchNorm1d``, both with eps
-1e-5 and momentum 0.1, the numerics the JAX package matches.  Serving runs
-them in eval mode: batch norm normalises by its running buffers.
+'layer' is ``nn.LayerNorm``; 'batch' is :class:`BatchNorm`, an
+``nn.BatchNorm1d`` whose forward follows the JAX package's numerics: eps
+1e-5, statistics and normalisation in fp32 whatever the input type, and the
+result cast back to it.
+
+* Train mode normalises by the batch's biased variance and moves the running
+  buffers by momentum 0.1 towards the batch mean and the *unbiased* variance,
+  in place, in fp32.  The JAX trainer replaces its buffers with the
+  forward's updated values after each step (``teacher.py:237-243``); here
+  the forward updates them, which is the same.
+* Eval mode normalises by the running buffers.
 """
 
 from __future__ import annotations
 
+import torch
 from torch import nn
 
 EPS = 1e-5
 MOMENTUM = 0.1
 
 VALID_NORM_TYPES = ("none", "layer", "batch")
+
+
+class BatchNorm(nn.BatchNorm1d):
+    """Batch norm over (rows, dim) in fp32, with the buffers of
+    ``nn.BatchNorm1d`` (``running_mean``, ``running_var``)."""
+
+    def __init__(self, dim: int):
+        super().__init__(dim, eps=EPS, momentum=MOMENTUM)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        if self.training:
+            mu = xf.mean(0)
+            var = (xf - mu).square().mean(0)  # biased: the normalisation
+            y = (xf - mu) * torch.rsqrt(var + EPS)
+            n = x.shape[0]
+            with torch.no_grad():
+                self.running_mean.mul_(1 - MOMENTUM).add_(MOMENTUM * mu)
+                self.running_var.mul_(1 - MOMENTUM).add_(
+                    MOMENTUM * var * (n / max(n - 1, 1)))  # unbiased: the buffer
+        else:
+            y = (xf - self.running_mean) * torch.rsqrt(self.running_var + EPS)
+        return (y * self.weight.float() + self.bias.float()).to(x.dtype)
 
 
 def make_norms(norm_type: str, dims) -> nn.ModuleList:
@@ -24,8 +56,7 @@ def make_norms(norm_type: str, dims) -> nn.ModuleList:
     if norm_type == "layer":
         return nn.ModuleList(nn.LayerNorm(d, eps=EPS) for d in dims)
     if norm_type == "batch":
-        return nn.ModuleList(nn.BatchNorm1d(d, eps=EPS, momentum=MOMENTUM)
-                             for d in dims)
+        return nn.ModuleList(BatchNorm(d) for d in dims)
     return nn.ModuleList()
 
 

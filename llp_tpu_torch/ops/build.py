@@ -29,11 +29,12 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-_P, _I64 = ctypes.c_void_p, ctypes.c_longlong
+_P, _I64, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 # argtypes of each library's entry point: pointers and the stream as
-# c_void_p (a bare Python int would be cut to 32 bits), sizes as int64.
+# c_void_p (a bare Python int would be cut to 32 bits), sizes as int64,
+# type codes as int.
 SIGNATURES = {
-    "segsum": ("llp_segsum_f32", [_P, _P, _P, _P, _P, _I64, _I64, _P]),
+    "segsum": ("llp_segsum", [_P, _P, _P, _P, _P, _I64, _I64, _INT, _INT, _P]),
     "sddmm": ("llp_sddmm_mlp_f32",
               [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P]),
 }

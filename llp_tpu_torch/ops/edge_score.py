@@ -6,11 +6,13 @@ sigmoid.  ``lins`` is a sequence of ``nn.Linear``.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from llp_tpu_torch.ops.rng import inverted_dropout
 from llp_tpu_torch.ops.sddmm import fused_supported, head_weights, sddmm_mlp_score
 
 
@@ -20,13 +22,19 @@ def hadamard_inner_score(hi: torch.Tensor, hj: torch.Tensor) -> torch.Tensor:
 
 
 def hadamard_mlp_score(lins: Sequence[nn.Linear], hi: torch.Tensor,
-                       hj: torch.Tensor) -> torch.Tensor:
-    """sigmoid(MLP(hi * hj)) over any leading batch shape: ReLU between
-    layers, none after the last, the trailing singleton channel squeezed."""
+                       hj: torch.Tensor, *, dropout: float = 0.0,
+                       generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """sigmoid(MLP(hi * hj)) over any leading batch shape: ReLU (and dropout
+    at rate ``dropout``) between layers, none after the last, the trailing
+    singleton channel squeezed.  Hidden layers keep the input's type; the
+    last layer and the sigmoid run fp32, as in the JAX package."""
     z = hi * hj
     for lin in lins[:-1]:
-        z = torch.relu(lin(z))
-    return torch.sigmoid(lins[-1](z).squeeze(-1).float())
+        z = inverted_dropout(torch.relu(lin(z)), dropout, generator)
+    last = lins[-1]
+    logit = F.linear(z.float(), last.weight.float(),
+                     None if last.bias is None else last.bias.float())
+    return torch.sigmoid(logit.squeeze(-1))
 
 
 def score_edges(h: torch.Tensor, src: torch.Tensor, dst: torch.Tensor, *,

@@ -41,6 +41,26 @@ def test_import_loads_no_jax_and_no_llp_tpu():
 
 
 @pytest.mark.parametrize(
+    "modules",
+    ["llp_tpu_torch.train, llp_tpu_torch.train.loop, llp_tpu_torch.train.teacher",
+     "llp_tpu_torch.evaln, llp_tpu_torch.evaln.transductive, llp_tpu_torch.evaln.logger",
+     "llp_tpu_torch.cli.train_teacher, llp_tpu_torch.sample.negative"],
+)
+def test_training_modules_load_no_jax_and_no_llp_tpu(modules):
+    code = (
+        f"import sys, {modules}\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'llp_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+@pytest.mark.parametrize(
     "path",
     sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")) + ["chip_smoke.py"],
 )
@@ -109,8 +129,10 @@ def test_kernel_wrappers_refuse_unsupported_inputs():
     x = torch.ones(3, 4)
     senders = torch.tensor([0, 1], dtype=torch.int64)
     in_ptr = torch.tensor([0, 1, 2, 2], dtype=torch.int64)
-    with pytest.raises(TypeError, match="bfloat16 is ROADMAP B2"):
-        segsum(x.bfloat16(), senders, in_ptr)
+    with pytest.raises(TypeError, match="no torch.float16"):
+        segsum(x.half(), senders, in_ptr)
+    with pytest.raises(TypeError, match="float32 -> torch.bfloat16"):
+        segsum(x, senders, in_ptr, out_dtype=torch.bfloat16)
     with pytest.raises(TypeError, match="int64"):
         segsum(x, senders.int(), in_ptr)
     with pytest.raises(ValueError, match="scale"):

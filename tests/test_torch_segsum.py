@@ -113,3 +113,74 @@ def test_segsum_launches_nothing_on_the_cpu():
     before = segsum.launches
     segsum(torch.from_numpy(x), g.senders, g.in_ptr)
     assert segsum.launches == before
+
+
+# ---- bf16: the port of _kernel_cast (bf16 -> bf16) and the bf16-message mode
+# (bf16 -> fp32), against the Pallas kernel in interpret mode.
+
+
+def bf16_ulp(v: np.ndarray) -> np.ndarray:
+    """bf16 keeps 8 significant bits: its ulp in [2^k, 2^(k+1)) is 2^(k-7)."""
+    return np.exp2(np.floor(np.log2(np.maximum(np.abs(v), 2.0 ** -126))) - 7)
+
+
+def assert_within_bf16_ulp(got, ref, atol=1e-6):
+    """|got - ref| <= 1 bf16 ulp of ref (+ atol for sums that cancel to near
+    zero): two summation orders may round to neighbouring bf16 values."""
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    err = np.abs(got - ref)
+    assert (err <= bf16_ulp(ref) + atol).all(), float((err / (bf16_ulp(ref) + atol)).max())
+
+
+def _jax_blocked(ei, x_bf16, out_dtype):
+    from llp_tpu.ops.pallas.segsum_kernel import _segment_sum_arrays
+
+    n = x_bf16.shape[0]
+    order = np.argsort(ei[1], kind="stable")
+    lay = build_blocked_layout(ei[1][order], ei[0][order], n)
+    out = _segment_sum_arrays(
+        jnp.asarray(x_bf16, jnp.bfloat16), lay.senders, lay.local_ids, lay.block_r0,
+        num_blocks=lay.num_blocks, n_out_pad=lay.n_out_pad, num_segments=n,
+        interpret=True, out_dtype=out_dtype)
+    return np.asarray(out.astype(jnp.float32))
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("d", [8, 100, 1433])
+def test_bf16_segsum_matches_the_pallas_kernel_cast_in_interpret_mode(case, d):
+    ei, x = _problem(case, d, seed=5)
+    n = x.shape[0]
+    g = build_graph(ei, n, device="cpu")
+    xb = torch.from_numpy(x).bfloat16()
+    out = segsum(xb, g.senders, g.in_ptr)
+    assert out.dtype == torch.bfloat16
+    ref = _jax_blocked(ei, xb.float().numpy(), jnp.bfloat16)
+    assert_within_bf16_ulp(out.float().numpy(), ref)
+    # bf16 messages, fp32 output: the same sums without the final rounding
+    out32 = segsum(xb, g.senders, g.in_ptr, out_dtype=torch.float32)
+    assert out32.dtype == torch.float32
+    np.testing.assert_allclose(out32.numpy(), _jax_blocked(ei, xb.float().numpy(), None),
+                               **TOL)
+
+
+@pytest.mark.parametrize("reduce", ["sum", "mean"])
+def test_bf16_segsum_rounds_once_after_the_scale(reduce):
+    ei, x = _problem("isolated", 40, seed=6)
+    g = build_graph(ei, x.shape[0], device="cpu")
+    xb = torch.from_numpy(x).bfloat16()
+    scale = g.inv_in_degree if reduce == "mean" else None
+    out = segsum(xb, g.senders, g.in_ptr, scale)
+    ref = segsum_plain(xb.float(), g.senders, g.in_ptr, scale).bfloat16()
+    assert torch.equal(out, ref)  # the plain version: fp32 sum and scale, one rounding
+
+
+def test_segsum_refuses_the_types_it_has_no_instance_for():
+    ei, x = _problem("isolated", 8)
+    g = build_graph(ei, x.shape[0], device="cpu")
+    xt = torch.from_numpy(x)
+    with pytest.raises(TypeError, match="no torch.float16"):
+        segsum(xt.half(), g.senders, g.in_ptr)
+    with pytest.raises(TypeError, match="float32 -> torch.bfloat16"):
+        segsum(xt, g.senders, g.in_ptr, out_dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="no torch.float64"):
+        segsum(xt.double(), g.senders, g.in_ptr)
