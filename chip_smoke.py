@@ -15,16 +15,23 @@ failure exits non-zero.
                    at stated tolerances: segsum in its three instances
                    (fp32, bf16 -> fp32, bf16 -> bf16), the spmm backward
                    (``torch.autograd.grad`` through the kernel route against
-                   the plain backward), and SDDMM. With more than one card
-                   visible (other_card), the forward kernels run again on
-                   the last card while card 0 stays current.
+                   the plain backward), SDDMM, and the fused retrieval
+                   kernel (mlp_topk) in its four instances (fp32 or bf16,
+                   dense or int8 candidates) at heads of 2 to 4 layers and
+                   ragged Q and B. With more than one card visible
+                   (other_card), segsum and SDDMM run again on the last card
+                   while card 0 stays current.
 4. serve        -- the serving CLI (``llp_tpu_torch.cli.serve.main``) at full
                    width: a 2-layer GraphSAGE teacher, hidden 256, with a
                    2-layer mlp head. It runs with random weights from a seed
                    on the ``cora`` and ``collab`` stand-ins, and then an MLP
-                   student runs on ``collab``. Launch counters show that the
-                   kernels served. The same requests run again on the CPU
-                   with the plain versions, and the results must agree.
+                   student runs on ``collab``. The collab teacher runs again
+                   from int8 and int4 tables and in bf16, cora from an int8
+                   table, and the daemon (``BackgroundServer``) answers
+                   top-K and score requests on the collab int8 table. Launch
+                   counters show that the kernels served (the top-K through
+                   mlp_topk). The kernels' answers are held against the
+                   plain routes on the card and against the CPU.
 5. train        -- the training CLI (``llp_tpu_torch.cli.train_teacher.main``)
                    at full width (hidden 256, 2 layers, mlp head, batch
                    65,536, dropout 0.5): 20 epochs on ``cora``, whose
@@ -38,7 +45,9 @@ failure exits non-zero.
 6. kernels      -- one JSON line: each kernel's launches on the serving and
                    training paths, its time at the collab shapes, the plain
                    version's time, a library call's time where one exists,
-                   and the least time the card could take.
+                   and the least time the card could take. A
+                   ``top_k_partners:`` line gives the fused and unfused
+                   top-K times at Q=256 over collab.
 
 The last line is ``{"ok": true, "device": {...}}``. Without CUDA, or outside
 a checkout, the script exits 1 and prints no result.
@@ -47,6 +56,7 @@ a checkout, the script exits 1 and prints no result.
 from __future__ import annotations
 
 import contextlib
+import copy
 import io
 import json
 import subprocess
@@ -60,10 +70,12 @@ WORK = ROOT / "build" / "chip_smoke"  # checkpoints written by the serve phase
 # stand-ins (cora 2,708 x 1,433; collab 235,868 x 128 with 2.51M edges).
 STANDINS = str(WORK / "standins")
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and fp32 outside the
-# tensor cores. The kernels here are fp32 and run no tensor-core instruction.
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, fp32 outside the
+# tensor cores, and bf16 on the tensor cores (dense). The kernels here run
+# no tensor-core instruction; a bf16 input's bound is held to the bf16 peak.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 
 SEGSUM_TOL = dict(rtol=1e-5, atol=1e-5)   # fp32, another summation order
 # bf16 results: one bf16 ulp of the reference value, as two summation orders
@@ -75,6 +87,10 @@ BF16_LOSS_RTOL = 2e-2                     # bf16 vs fp32 losses, 3 steps
 SDDMM_TOL = dict(rtol=1e-5, atol=1e-6)    # as tests/test_sddmm.py
 H_TOL = dict(rtol=1e-4, atol=1e-4)        # encode: two layers of cuBLAS vs CPU GEMMs
 SCORE_ATOL = 1e-5
+# Fused retrieval kernel, fp32: the sums only reassociate (TF32 is off), as
+# tests/test_mlp_fused.py holds the TPU kernel to the XLA expression.
+MLP_TOPK_TOL = dict(rtol=2e-5, atol=2e-5)
+QUANT_CPU_ATOL = 1e-3  # quantized serving, card vs CPU (see phase_serve)
 
 
 def log(phase: str, payload) -> None:
@@ -296,6 +312,74 @@ def phase_kernel_check(gen) -> dict:
     sddmm_case(5_000, 512, 128, 700)     # shared memory above 48 KB
     sddmm_case(5_000, 2048, 300, 700)    # z staged in two chunks, two groups of units
     sddmm_case(5_000, 1813, 70, 2048)    # chunked, with a ragged last chunk
+    worst.update(mlp_topk_check(gen))
+    return worst
+
+
+def _mlp_head(dims, seed: int) -> list:
+    """A random head of widths ``dims`` (H, hidden..., 1) on the card, in the
+    JAX layout ``mlp_block_logits`` takes, with 1/sqrt(fan-in) weights."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    return [{"w": (torch.randn(k, f, generator=g) / k ** 0.5).cuda(),
+             "b": (0.1 * torch.randn(f, generator=g)).cuda()}
+            for k, f in zip(dims[:-1], dims[1:])]
+
+
+def mlp_topk_check(gen) -> dict:
+    """The four instances of the fused retrieval kernel (fp32 or bf16, dense
+    or int8 candidates) against ``mlp_block_logits_plain`` on the card, at
+    ragged Q and B, heads of 2 to 4 layers, and the collab serving shape."""
+    import torch
+
+    from llp_tpu_torch.ops.mlp_topk import (
+        bf16_tolerance,
+        mlp_block_logits,
+        mlp_block_logits_plain,
+    )
+    from llp_tpu_torch.serve.quant import quantize_table
+
+    worst = {f"mlp_topk_{dt}_{kind}": 0.0 for dt in ("f32", "bf16") for kind in ("dense", "int8")}
+    cases = (  # (dims, Q, B): Q and B ragged against the 64-candidate tile
+        ((256, 256, 1), 16, 235_868),   # the collab serving shape (16 CLI queries)
+        ((256, 256, 1), 37, 2049),
+        ((128, 256, 256, 1), 5, 301),   # 3 layers: one activation buffer
+        ((100, 70, 1), 3, 130),         # widths not multiples of 16 or 128
+        ((64, 300, 1), 2, 77),          # 300 units: two passes of 256
+        ((48, 96, 40, 72, 1), 4, 65),   # 4 layers: two buffers in turn
+        ((256, 256, 1), 1, 1),
+    )
+    for i, (dims, q, b) in enumerate(cases):
+        lins = _mlp_head(dims, seed=40 + i)
+        table = torch.randn(b, dims[0], generator=gen, device="cuda")
+        qt = quantize_table(table)
+        queries = torch.randn(q, dims[0], generator=gen, device="cuda")
+        for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            q_h = queries.to(dt)
+            for kind, cand, scales in (("dense", table.to(dt), None),
+                                       ("int8", qt.q, qt.scale)):
+                before = mlp_block_logits.launches
+                got = mlp_block_logits(lins, q_h, cand, scales=scales)
+                torch.cuda.synchronize()
+                if mlp_block_logits.launches != before + 1:
+                    raise AssertionError(f"mlp_topk {tag} {kind}: the kernel did not launch")
+                ref = mlp_block_logits_plain(lins, q_h, cand, scales=scales)
+                what = f"mlp_topk {tag} {kind} dims={dims} q={q} b={b}"
+                if dt == torch.float32:
+                    err = compare(got, ref, **MLP_TOPK_TOL, what=what)
+                    tol = MLP_TOPK_TOL
+                else:
+                    bound = bf16_tolerance(lins, q_h, cand, scales=scales)
+                    e = (got - ref).abs()
+                    used = float((e / bound).max())
+                    if not bool(torch.isfinite(got).all()) or used > 1.0:
+                        raise AssertionError(f"{what}: past the bf16 bound ({used:.3g}x)")
+                    err = {"max_abs": float(e.max()), "tol_used": used}
+                    tol = {"bound": "2 * 2^-7 * sum_u z_u |w_L,u| + 1e-5"}
+                key = f"mlp_topk_{tag}_{kind}"
+                worst[key] = max(worst[key], err["max_abs"])
+                log("kernel_check", {"kernel": key, "dims": dims, "q": q, "b": b, **err, **tol})
     return worst
 
 
@@ -397,7 +481,7 @@ def _requests(n: int, seed: int) -> tuple[str, str]:
     return queries, pairs
 
 
-def _check_pairs(gpu_lines, cpu_lines, what) -> float:
+def _check_pairs(gpu_lines, cpu_lines, what, atol=SCORE_ATOL) -> float:
     import numpy as np
 
     g = next(x for x in gpu_lines if "pairs" in x)
@@ -405,13 +489,13 @@ def _check_pairs(gpu_lines, cpu_lines, what) -> float:
     if g["pairs"] != c["pairs"]:
         raise AssertionError(f"{what}: the pair lists differ")
     err = float(np.abs(np.array(g["scores"]) - np.array(c["scores"])).max())
-    if err > SCORE_ATOL or not np.isfinite(g["scores"]).all():
-        raise AssertionError(f"{what}: pair scores differ by {err} > {SCORE_ATOL}")
+    if err > atol or not np.isfinite(g["scores"]).all():
+        raise AssertionError(f"{what}: pair scores differ by {err} > {atol}")
     return err
 
 
-def _check_topk(gpu_lines, cpu_lines, k, what) -> dict:
-    """Scores agree within SCORE_ATOL; ids agree wherever a score is apart
+def _check_topk(gpu_lines, cpu_lines, k, what, atol=SCORE_ATOL) -> dict:
+    """Scores agree within ``atol``; ids agree wherever a score is apart
     from both neighbours by more than that (the last slot's lower
     neighbour is unseen, so it is held to its score only)."""
     import numpy as np
@@ -427,28 +511,74 @@ def _check_topk(gpu_lines, cpu_lines, k, what) -> dict:
             raise AssertionError(f"{what}: expected {k} partners")
         worst = max(worst, float(np.abs(sa - sb).max()))
         gaps = np.abs(np.diff(sb))
-        left = np.concatenate([[np.inf], gaps]) > SCORE_ATOL
-        right = np.concatenate([gaps, [0.0]]) > SCORE_ATOL
+        left = np.concatenate([[np.inf], gaps]) > atol
+        right = np.concatenate([gaps, [0.0]]) > atol
         for i in np.flatnonzero(left & right):
             compared += 1
             if a["partners"][i] != b["partners"][i]:
                 raise AssertionError(f"{what}: query {a['query']} slot {i}: partner "
                                      f"{a['partners'][i]} != {b['partners'][i]}")
-    if worst > SCORE_ATOL:
-        raise AssertionError(f"{what}: top-k scores differ by {worst} > {SCORE_ATOL}")
-    return {"max_abs": worst, "ids_compared": compared}
+    if worst > atol:
+        raise AssertionError(f"{what}: top-k scores differ by {worst} > {atol}")
+    return {"max_abs": worst, "ids_compared": compared, "atol": atol}
+
+
+def _engine_lines(predictor, table, queries: str, pairs: str, compute_dtype=None) -> list:
+    """The CLI's JSON lines for these requests, from the engine's unfused
+    routes (the plain PyTorch expressions) on the same table."""
+    import numpy as np
+
+    from llp_tpu_torch.serve import score_pairs, top_k_partners
+
+    qi = np.array([int(q) for q in queries.split(",")])
+    vals, ids = top_k_partners(predictor, table, qi, k=10, compute_dtype=compute_dtype,
+                               mlp_fused=False)
+    lines = [{"query": int(q), "partners": i.tolist(), "scores": [round(float(v), 6) for v in r]}
+             for q, r, i in zip(qi, vals.cpu(), ids.cpu())]
+    se = np.array([[int(a) for a in p.split(":")] for p in pairs.split(",")])
+    scores = score_pairs(predictor, table, se[:, 0], se[:, 1], fused=False).cpu()
+    lines.append({"pairs": [f"{a}:{b}" for a, b in se.tolist()],
+                  "scores": [round(float(v), 6) for v in scores]})
+    return lines
+
+
+def _daemon_lines(state, queries: str, pairs: str) -> list:
+    """The same requests through the HTTP daemon (``BackgroundServer``)."""
+    import urllib.request
+
+    from llp_tpu_torch.serve import BackgroundServer
+
+    def post(port, path, payload):
+        req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                     data=json.dumps(payload).encode(),
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return json.loads(r.read())
+
+    se = [[int(a) for a in p.split(":")] for p in pairs.split(",")]
+    with BackgroundServer(state) as srv:
+        with urllib.request.urlopen(f"http://127.0.0.1:{srv.port}/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        topk = post(srv.port, "/v1/topk", {"queries": [int(q) for q in queries.split(",")],
+                                           "k": 10})
+        score = post(srv.port, "/v1/score", {"pairs": se})
+    return health, topk["results"] + [{"pairs": [f"{a}:{b}" for a, b in se],
+                                       "scores": score["scores"]}]
 
 
 def phase_serve() -> dict:
-    """Drive the serving CLI on the card, hold it against the CPU; returns
-    the kernels' launches on the serving path."""
+    """Drive the serving CLI and the daemon on the card, hold them against
+    the CPU and against the plain routes; returns the kernels' launches on
+    the serving path."""
     import torch
 
     from llp_tpu_torch.core.graph import build_graph
     from llp_tpu_torch.data.registry import get_dataset
+    from llp_tpu_torch.ops.mlp_topk import bf16_tolerance, head_layers, mlp_block_logits
     from llp_tpu_torch.ops.sddmm import sddmm_mlp_score
     from llp_tpu_torch.ops.segsum import segsum
-    from llp_tpu_torch.serve import encode_graph_nodes, load_serving_artifacts
+    from llp_tpu_torch.serve import ServingState, encode_graph_nodes, load_serving_artifacts
+    from llp_tpu_torch.serve.quant import quantize_table
 
     WORK.mkdir(parents=True, exist_ok=True)
     data = STANDINS
@@ -457,56 +587,119 @@ def phase_serve() -> dict:
         _teacher(WORK / f"{name}-teacher", d, name, seed=10 + i)
     _student(WORK / "collab-student", 128, "collab", seed=20)
 
+    def counts():
+        return segsum.launches, sddmm_mlp_score.launches, mlp_block_logits.launches
+
+    def serve(argv, what, expect_segsum=2):
+        s0, d0, m0 = counts()
+        summary, lines = _serve(argv)
+        s1, d1, m1 = counts()
+        n = datasets["cora" if "--datasets=cora" in argv else "collab"][0]
+        if summary["nodes"] != n or summary["dim"] != 256:
+            raise AssertionError(f"{what}: served a table of {summary['nodes']} x "
+                                 f"{summary['dim']}")
+        if s1 - s0 != expect_segsum:
+            raise AssertionError(f"{what}: {s1 - s0} segsum launches, expected "
+                                 f"{expect_segsum} (one per SAGE layer)")
+        if d1 == d0:
+            raise AssertionError(f"{what}: the pairs were not scored by the sddmm kernel")
+        if any(a.startswith("--topk") for a in argv) and m1 == m0:
+            raise AssertionError(f"{what}: the top-K was not scored by the mlp_topk kernel")
+        log("serve", {"run": what, **summary, "segsum_launches": s1 - s0,
+                      "sddmm_launches": d1 - d0, "mlp_topk_launches": m1 - m0})
+        return lines
+
     runs = {}
-    segsum.launches = sddmm_mlp_score.launches = 0  # the serving path starts here
+    # the serving path starts here
+    segsum.launches = sddmm_mlp_score.launches = mlp_block_logits.launches = 0
+    mlp_block_logits.launch_counts.clear()
     for name, (n, _) in datasets.items():
         queries, pairs = _requests(n, seed=n)
         argv = [f"--checkpoint={WORK / f'{name}-teacher'}", f"--datasets={name}",
                 f"--dataset_dir={data}", "--reencode", "--topk=10",
                 f"--queries={queries}", f"--pairs={pairs}"]
-        s0, d0 = segsum.launches, sddmm_mlp_score.launches
-        summary, lines = _serve(argv)
-        if summary["nodes"] != n or summary["dim"] != 256:
-            raise AssertionError(f"{name}: served a table of {summary['nodes']} x {summary['dim']}")
-        if segsum.launches - s0 != 2:
-            raise AssertionError(f"{name}: {segsum.launches - s0} segsum launches, expected "
-                                 f"2 (one per SAGE layer)")
-        if sddmm_mlp_score.launches == d0:
-            raise AssertionError(f"{name}: the pairs were not scored by the sddmm kernel")
-        runs[name] = (argv, lines)
-        log("serve", {"dataset": name, "checkpoint": "teacher", **summary,
-                      "segsum_launches": segsum.launches - s0,
-                      "sddmm_launches": sddmm_mlp_score.launches - d0})
-    queries, pairs = _requests(235_868, seed=1)
+        summary_lines = serve(argv, f"{name} teacher")
+        runs[name] = (argv, summary_lines, queries, pairs)
+    _, student_pairs = _requests(235_868, seed=1)
     student_argv = [f"--checkpoint={WORK / 'collab-student'}", "--datasets=collab",
-                    f"--dataset_dir={data}", f"--pairs={pairs}"]
-    d0 = sddmm_mlp_score.launches
-    summary, student_lines = _serve(student_argv)
-    if sddmm_mlp_score.launches == d0:
-        raise AssertionError("student: the pairs were not scored by the sddmm kernel")
-    log("serve", {"dataset": "collab", "checkpoint": "student", **summary,
-                  "sddmm_launches": sddmm_mlp_score.launches - d0})
-    launches = {"segsum": segsum.launches, "sddmm": sddmm_mlp_score.launches}
+                    f"--dataset_dir={data}", f"--pairs={student_pairs}"]
+    student_lines = serve(student_argv, "collab student", expect_segsum=0)
+    # The collab teacher from int8 and int4 tables, and scored in bf16.
+    collab_argv, _, queries, pairs = runs["collab"]
+    variants = {}
+    for flag in ("--quantize=int8", "--quantize=int4", "--compute_dtype=bfloat16"):
+        variants[flag] = serve(collab_argv + [flag], f"collab teacher {flag}")
+    cora_int8 = serve(runs["cora"][0] + ["--quantize=int8"], "cora teacher --quantize=int8")
 
-    # The same requests on the CPU, through the plain versions.
-    argv, lines = runs["cora"]
-    _, cpu = _serve(argv + ["--device=cpu"])
-    log("serve_vs_cpu", {"dataset": "cora", "pairs_max_abs": _check_pairs(lines, cpu, "cora"),
-                         "topk": _check_topk(lines, cpu, 10, "cora")})
-    # collab: top-k on the CPU would score 16 x 235,868 pairs through the
-    # 256-wide head (about 0.5 TFLOP), so only the encode and the pairs.
-    argv, lines = runs["collab"]
-    _, cpu = _serve([a for a in argv if not a.startswith(("--topk", "--queries"))]
-                    + ["--device=cpu"])
-    pairs_err = _check_pairs(lines, cpu, "collab")
+    # The daemon on the collab int8 table: the same requests over HTTP.
     modules, _, _ = load_serving_artifacts(str(WORK / "collab-teacher"), device="cpu")
     ds = get_dataset(data, "collab")
     x = torch.from_numpy(ds.x)
+    # copies on the card: the CPU modules serve the CPU encode below
+    pred = copy.deepcopy(modules["predictor"]).cuda()
+    h_gpu = encode_graph_nodes(copy.deepcopy(modules["encoder"]).cuda(),
+                               build_graph(ds.edge_index, ds.num_nodes, device="cuda"), x.cuda())
+    m0, d0 = mlp_block_logits.launches, sddmm_mlp_score.launches
+    state = ServingState(pred, h_gpu, quantize="int8")
+    state.warmup(10)
+    health, daemon = _daemon_lines(state, queries, pairs)
+    if mlp_block_logits.launches == m0 or sddmm_mlp_score.launches == d0:
+        raise AssertionError("daemon: the requests did not go through the kernels")
+    if health["table_dtype"] != "int8" or health["nodes"] != 235_868:
+        raise AssertionError(f"daemon: healthz {health}")
+    log("serve_daemon", {"health": health, "mlp_topk_launches": mlp_block_logits.launches - m0,
+                         "sddmm_launches": sddmm_mlp_score.launches - d0,
+                         "vs_cli_topk": _check_topk(daemon, variants["--quantize=int8"], 10,
+                                                    "daemon vs CLI int8"),
+                         "vs_cli_pairs": _check_pairs(daemon, variants["--quantize=int8"],
+                                                      "daemon vs CLI int8")})
+    launches = {"segsum": segsum.launches, "sddmm": sddmm_mlp_score.launches,
+                "mlp_topk": dict(mlp_block_logits.launch_counts)}
+    for inst in (("float32", "dense"), ("float32", "int8"), ("bfloat16", "dense")):
+        if not mlp_block_logits.launch_counts[inst]:
+            raise AssertionError(f"mlp_topk {inst}: no launch on the serving path")
+
+    # The kernels' answers against the plain routes on the same card and
+    # table.  bf16: the kernel and the unfused bf16 expression round at the
+    # same points, so they part only where a hidden unit rounds to the
+    # neighbouring bf16 value; bf16_tolerance bounds that in logits, and a
+    # probability moves by at most a quarter of its logit.
+    for flag, lines in variants.items():
+        if flag.startswith("--quantize"):
+            table = quantize_table(h_gpu, bits=int(flag[-1]))
+            ref = _engine_lines(pred, table, queries, pairs)
+            atol = SCORE_ATOL
+        else:
+            ref = _engine_lines(pred, h_gpu, queries, pairs, compute_dtype=torch.bfloat16)
+            rows = h_gpu.bfloat16()
+            q_rows = rows[torch.tensor([int(q) for q in queries.split(",")], device="cuda")]
+            bf16_pred = copy.deepcopy(pred).to(torch.bfloat16)
+            atol = 0.25 * float(bf16_tolerance(head_layers(bf16_pred.lins), q_rows, rows).max())
+        log("serve_vs_plain", {"run": f"collab teacher {flag}",
+                               "topk": _check_topk(lines, ref, 10, flag, atol=atol),
+                               "pairs_max_abs": _check_pairs(lines, ref, flag)})
+
+    # The same requests on the CPU, through the plain versions.
+    argv, lines, _, _ = runs["cora"]
+    _, cpu = _serve(argv + ["--device=cpu"])
+    log("serve_vs_cpu", {"dataset": "cora", "pairs_max_abs": _check_pairs(lines, cpu, "cora"),
+                         "topk": _check_topk(lines, cpu, 10, "cora")})
+    # int8: the card's and the CPU's encodes differ by about 1e-6, which can
+    # move a code that sits at a rounding boundary by one step of its row's
+    # scale (max|h|/127); QUANT_CPU_ATOL covers a few such steps.
+    _, cpu = _serve(runs["cora"][0] + ["--quantize=int8", "--device=cpu"])
+    log("serve_vs_cpu", {"dataset": "cora", "quantize": "int8",
+                         "pairs_max_abs": _check_pairs(cora_int8, cpu, "cora int8",
+                                                       atol=QUANT_CPU_ATOL),
+                         "topk": _check_topk(cora_int8, cpu, 10, "cora int8",
+                                             atol=QUANT_CPU_ATOL)})
+    # collab: top-k on the CPU would score 16 x 235,868 pairs through the
+    # 256-wide head (about 0.5 TFLOP), so only the encode and the pairs.
+    _, cpu = _serve([a for a in collab_argv if not a.startswith(("--topk", "--queries"))]
+                    + ["--device=cpu"])
+    pairs_err = _check_pairs(runs["collab"][1], cpu, "collab")
     h_cpu = encode_graph_nodes(modules["encoder"],
                                build_graph(ds.edge_index, ds.num_nodes, device="cpu"), x)
-    enc = modules["encoder"].cuda()
-    h_gpu = encode_graph_nodes(enc, build_graph(ds.edge_index, ds.num_nodes, device="cuda"),
-                               x.cuda())
     log("serve_vs_cpu", {"dataset": "collab", "pairs_max_abs": pairs_err,
                          "h": compare(h_gpu.cpu(), h_cpu, **H_TOL, what="collab h"), **H_TOL})
     _, cpu = _serve(student_argv + ["--device=cpu"])
@@ -746,6 +939,95 @@ def _segsum_timing(x, senders, in_ptr, scale, adj, out_dtype=None) -> dict:
     return t
 
 
+def _mlp_topk_entries(gen, launches: dict, worst: dict) -> list:
+    """The fused retrieval kernel at the collab serving shape: Q = 256 queries
+    against all 235,868 rows, H = F = 256, a 2-layer head. The kernel in its
+    fp32 dense, int8 and bf16 dense instances; its plain version over the
+    candidate blocks the engine's unfused route takes (the whole (Q, B, H)
+    Hadamard would be 62 GB); and top_k_partners through the kernel and
+    through the unfused expression, the data for the ``mlp_fused=None``
+    default."""
+    import torch
+
+    from llp_tpu_torch.models.predictor import LinkPredictor
+    from llp_tpu_torch.ops.mlp_topk import head_layers, mlp_block_logits, mlp_block_logits_plain
+    from llp_tpu_torch.serve import top_k_partners
+    from llp_tpu_torch.serve.engine import auto_topk_block
+    from llp_tpu_torch.serve.quant import quantize_table
+
+    n, h, q = 235_868, 256, 256
+    pred = LinkPredictor("mlp", h, h, generator=torch.Generator().manual_seed(4)).cuda()
+    lins = head_layers(pred.lins)
+    table = torch.randn(n, h, generator=gen, device="cuda")
+    qt = quantize_table(table)
+    qidx = torch.randperm(n, generator=gen, device="cuda")[:q]
+    block = auto_topk_block(pred, q, h)  # the unfused route's candidates per block
+
+    def plain(q_h, cand, scales=None):
+        out = torch.empty((q, n), dtype=torch.float32, device="cuda")
+        for b0 in range(0, n, block):
+            out[:, b0:b0 + block] = mlp_block_logits_plain(
+                lins, q_h, cand[b0:b0 + block],
+                scales=None if scales is None else scales[b0:b0 + block])
+        return out
+
+    flops = 2 * q * n * sum(int(w["w"].shape[0]) * int(w["w"].shape[1]) for w in lins)
+    weight_values = sum(w["w"].numel() + w["b"].numel() for w in lins)
+    times = {}
+    for tag, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        q_h, cand = table[qidx].to(dt), table.to(dt)
+        times[tag] = {"ms": time_ms(lambda: mlp_block_logits(lins, q_h, cand), reps=3, warmup=1),
+                      "plain_ms": time_ms(lambda: plain(q_h, cand), reps=3, warmup=1)}
+    q_h = table[qidx]
+    times["int8"] = {
+        "ms": time_ms(lambda: mlp_block_logits(lins, q_h, qt.q, scales=qt.scale), reps=3,
+                      warmup=1),
+        "plain_ms": time_ms(lambda: plain(q_h, qt.q, qt.scale), reps=3, warmup=1)}
+    # each input read once, the (Q, B) logits written once
+    out_bytes = q * n * 4
+    nbytes = {"f32": n * h * 4 + q * h * 4 + weight_values * 4 + out_bytes,
+              "bf16": n * h * 2 + q * h * 2 + weight_values * 4 + out_bytes,
+              "int8": n * h + n * 4 + q * h * 4 + weight_values * 4 + out_bytes}
+    peak = {"f32": FP32_FLOP_PER_S, "int8": FP32_FLOP_PER_S, "bf16": BF16_FLOP_PER_S}
+    for tag, t in times.items():
+        t["bound_ms"] = max(flops / peak[tag], nbytes[tag] / HBM_BYTES_PER_S) * 1e3
+        t["bound_by"] = ("operations" if flops / peak[tag] >= nbytes[tag] / HBM_BYTES_PER_S
+                         else "bytes")
+        log("timing", {"kernel": f"mlp_topk.{tag}", "q": q, "b": n, "h": h, "flops": flops,
+                       "bytes": nbytes[tag], "tflop_per_s": flops / t["ms"] / 1e9, **t})
+
+    topk = {"q": q, "b": n, "k": 10, "block_unfused": block}
+    for tag, tbl, cdt in (("f32", table, None), ("int8", qt, None),
+                          ("bf16", table, torch.bfloat16)):
+        for route in (True, False):
+            topk[f"{tag}_{'fused' if route else 'unfused'}_ms"] = time_ms(
+                lambda: top_k_partners(pred, tbl, qidx, k=10, compute_dtype=cdt,
+                                       mlp_fused=route), reps=3, warmup=1)
+    log("top_k_partners", topk)
+
+    common = {"route": "cuda", "source": "llp_tpu_torch/csrc/mlp_topk.cu",
+              "replaces": "llp_tpu/ops/pallas/mlp_topk_kernel.py:81",
+              "library_ms": None,
+              "library_note": "no single PyTorch call takes the Hadamard product of every "
+                              "query x candidate pair through an MLP head"}
+    shapes = f"Q={q} queries x {n} candidates, H=F={h}, 2-layer head"
+    f32, bf16 = times["f32"], times["bf16"]
+    return [
+        {"name": "mlp_topk", **common,
+         "launches": sum(v for (dt, _), v in launches.items() if dt == "float32"),
+         "max_abs_err": max(worst["mlp_topk_f32_dense"], worst["mlp_topk_f32_int8"]),
+         "ms": f32["ms"], "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
+         "bound_by": f32["bound_by"], "int8_ms": times["int8"]["ms"],
+         "int8_plain_ms": times["int8"]["plain_ms"], "int8_bound_ms": times["int8"]["bound_ms"],
+         "shapes": f"{shapes}, fp32 dense (int8_*: int8 codes + scales)"},
+        {"name": "mlp_topk.bf16", **common,
+         "launches": sum(v for (dt, _), v in launches.items() if dt == "bfloat16"),
+         "max_abs_err": max(worst["mlp_topk_bf16_dense"], worst["mlp_topk_bf16_int8"]),
+         "ms": bf16["ms"], "plain_ms": bf16["plain_ms"], "bound_ms": bf16["bound_ms"],
+         "bound_by": bf16["bound_by"], "shapes": f"{shapes}, bf16 dense"},
+    ]
+
+
 def phase_kernels(gen, launches: dict, train: dict, worst: dict) -> list:
     """Times at the collab serving and training shapes; returns the kernels
     line's entries."""
@@ -822,6 +1104,7 @@ def phase_kernels(gen, launches: dict, train: dict, worst: dict) -> list:
          "library_ms": None,
          "library_note": "no single PyTorch call gathers, multiplies and runs the MLP head",
          "shapes": f"{b} pairs over a {n} x {d} table, H={hid}"},
+        *_mlp_topk_entries(gen, launches["mlp_topk"], worst),
     ]
 
     # The training shapes: the message graph of the collab split (the train

@@ -10,10 +10,18 @@ JSON lines).
     python -m llp_tpu_torch.cli.serve --checkpoint saved/cora-student \\
         --datasets cora --pairs 0:5,3:77
 
+    # the same from an int8 table, or as a daemon on port 8080
+    python -m llp_tpu_torch.cli.serve --checkpoint saved/cora-teacher \
+        --datasets cora --reencode --quantize int8 --topk 10 --queries 0,42
+    python -m llp_tpu_torch.cli.serve --checkpoint saved/cora-teacher \
+        --datasets cora --reencode --quantize int8 --port 8080 --warmup 10
+
 Runs on the GPU unless ``--device cpu`` is given; with no card visible and
 no ``--device cpu`` it exits.  Prints one JSON line per query and per pair
-batch, then a summary line.  The daemon (``--port``), the sharded table
-(``--shard``) and quantized tables (``--quantize``) are not ported yet.
+batch, then a summary line; with ``--port`` it prints the summary and a
+ready line, then serves ``GET /healthz``, ``POST /v1/topk`` and
+``POST /v1/score`` until interrupted.  The sharded table (``--shard``) is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -52,21 +60,39 @@ def main(argv=None):
                    choices=["float32", "bfloat16"],
                    help="retrieval scoring dtype (merges stay fp32)")
     p.add_argument("--quantize", type=str, default="none",
-                   choices=["none", "int8", "int4"])
+                   choices=["none", "int8", "int4"],
+                   help="store the table per-row quantized: int8 (4x less "
+                        "memory than fp32) or int4 (packed nibbles, 8x)")
     p.add_argument("--reencode", action="store_true",
                    help="GNN checkpoints: re-encode over the dataset's full "
                         "edge set instead of serving the saved features")
-    # The daemon's own flags (--host, --warmup, --max_*) come with it.
-    p.add_argument("--port", type=int, default=None)
+    p.add_argument("--port", type=int, default=None,
+                   help="run as a persistent HTTP/JSON daemon on this port "
+                        "(0 = any free port) instead of answering one batch: "
+                        "GET /healthz, POST /v1/topk {queries,k}, "
+                        "POST /v1/score {pairs}")
+    p.add_argument("--host", type=str, default=None,
+                   help="daemon mode: the address to bind (default 127.0.0.1)")
     p.add_argument("--shard", action="store_true")
+    p.add_argument("--warmup", type=int, default=None,
+                   help="daemon mode: one top-K at this k and one score "
+                        "before accepting traffic, so the kernels are built "
+                        "and loaded")
+    p.add_argument("--max_queue", type=int, default=None,
+                   help="daemon mode: in-flight + waiting requests past this "
+                        "bound get an orderly 503 (default 8)")
+    p.add_argument("--max_queries", type=int, default=None,
+                   help="daemon mode: per-request top-K query cap (default 4096)")
+    p.add_argument("--max_pairs", type=int, default=None,
+                   help="daemon mode: per-request pair cap (default 2^20)")
     args = p.parse_args(argv)
 
-    if args.port is not None:
-        raise _not_ported("--port (the HTTP daemon)", "A13")
     if args.shard:
         raise _not_ported("--shard", "A14")
-    if args.quantize != "none":
-        raise _not_ported(f"--quantize {args.quantize}", "A13")
+    daemon_flags = [f"--{name}" for name in ("host", "warmup", "max_queue", "max_queries",
+                                             "max_pairs") if getattr(args, name) is not None]
+    if daemon_flags and args.port is None:
+        p.error(f"{', '.join(daemon_flags)} configure the daemon and need --port")
 
     from llp_tpu_torch.utils.device import setup_device, synchronize
 
@@ -110,6 +136,33 @@ def main(argv=None):
     out = {"checkpoint": args.checkpoint, "nodes": int(h.shape[0]),
            "dim": int(h.shape[1]), "encode_s": round(t_encode, 4)}
 
+    if args.port is not None:
+        # Daemon mode: encode once (above), answer queries until interrupted.
+        from llp_tpu_torch.serve.server import MAX_QUEUE, ServingState, serve_forever
+
+        state = ServingState(
+            modules["predictor"], h, block=args.block, approx=args.approx,
+            compute_dtype=compute_dtype, quantize=args.quantize,
+            max_queries=4096 if args.max_queries is None else args.max_queries,
+            max_pairs=(1 << 20) if args.max_pairs is None else args.max_pairs,
+        )
+        # The state owns the (possibly quantized) table now: drop the fp32
+        # encode output so the daemon does not keep both copies alive.
+        del h, feats
+        if args.warmup:
+            state.warmup(args.warmup)
+        print(json.dumps(out), flush=True)
+        serve_forever(state, args.host or "127.0.0.1", args.port,
+                      max_queue=MAX_QUEUE if args.max_queue is None else args.max_queue)
+        return out
+
+    # One-shot paths: quantize here (the daemon's state quantizes its own).
+    table = h
+    if args.quantize != "none":
+        from llp_tpu_torch.serve.quant import quantize_table
+
+        table = quantize_table(h, bits=int(args.quantize[3:]))
+
     if args.topk and args.queries:
         qi = np.array([int(s) for s in args.queries.split(",")], np.int64)
         if qi.size and (qi.min() < 0 or qi.max() >= h.shape[0]):
@@ -119,7 +172,7 @@ def main(argv=None):
             )
         t0 = time.perf_counter()
         vals, ids = top_k_partners(
-            modules["predictor"], h, qi, k=args.topk, block=args.block,
+            modules["predictor"], table, qi, k=args.topk, block=args.block,
             approx=args.approx, compute_dtype=compute_dtype,
         )
         vals, ids = vals.cpu().numpy(), ids.cpu().numpy()
@@ -144,7 +197,7 @@ def main(argv=None):
                 f"(got min {both.min()}, max {both.max()})"
             )
         t0 = time.perf_counter()
-        scores = score_pairs(modules["predictor"], h, src, dst).cpu().numpy()
+        scores = score_pairs(modules["predictor"], table, src, dst).cpu().numpy()
         out["score_s"] = round(time.perf_counter() - t0, 4)
         print(json.dumps({
             "pairs": [f"{a}:{b}" for a, b in zip(src.tolist(), dst.tolist())],

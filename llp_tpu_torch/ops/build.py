@@ -37,6 +37,8 @@ SIGNATURES = {
     "segsum": ("llp_segsum", [_P, _P, _P, _P, _P, _I64, _I64, _INT, _INT, _P]),
     "sddmm": ("llp_sddmm_mlp_f32",
               [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P]),
+    "mlp_topk": ("llp_mlp_topk",
+                 [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P, _INT, _INT, _P]),
 }
 
 

@@ -5,3 +5,11 @@ from llp_tpu_torch.serve.engine import (  # noqa: F401
     score_pairs,
     top_k_partners,
 )
+from llp_tpu_torch.serve.quant import QuantTable, quantize_table  # noqa: F401
+from llp_tpu_torch.serve.server import (  # noqa: F401
+    BackgroundServer,
+    BatchingEngine,
+    ServingState,
+    make_server,
+    serve_forever,
+)

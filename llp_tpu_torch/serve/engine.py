@@ -8,11 +8,13 @@ retrieval (counterpart of ``llp_tpu/serve/engine.py``).
   mean aggregations are the segment-sum kernel on the card.
 * :func:`score_pairs` scores (src, dst) pairs; on the card a supported 'mlp'
   head goes through the fused SDDMM kernel.
-* :func:`top_k_partners` is the exact blocked top-K over the whole table.
+* :func:`top_k_partners` is the exact blocked top-K over the whole table;
+  on the card a supported 'mlp' head scores its candidates with the fused
+  retrieval kernel (:mod:`llp_tpu_torch.ops.mlp_topk`).
 
-Not ported yet: quantized tables (ROADMAP A13, ``serve/quant.py``), the
-fused 'mlp' retrieval kernel (ROADMAP B4) and the sharded serving state
-(ROADMAP A14).
+The table may be a :class:`~llp_tpu_torch.serve.quant.QuantTable` (int8 or
+int4): rows dequantize on the fly, 'inner' dots run on the codes.  The
+sharded serving state (ROADMAP A14) is not ported yet.
 """
 
 from __future__ import annotations
@@ -28,14 +30,25 @@ from llp_tpu_torch.core.graph import Graph
 from llp_tpu_torch.models.encoder import apply_encoder
 from llp_tpu_torch.models.predictor import LinkPredictor
 from llp_tpu_torch.ops.edge_score import score_edges
+from llp_tpu_torch.ops.mlp_topk import fused_mlp_supported, head_layers, mlp_block_logits
 from llp_tpu_torch.ops.sddmm import fused_supported, head_weights, sddmm_mlp_score
+from llp_tpu_torch.serve.quant import (
+    QuantTable,
+    TableLike,
+    code_dots,
+    codes_rows,
+    codes_slice,
+    dequantize_rows,
+    dequantize_slice,
+)
 from llp_tpu_torch.utils.checkpoint import load_checkpoint
 from llp_tpu_torch.utils.device import setup_device
 from llp_tpu_torch.utils.params import from_jax
 
 # Bytes allowed for one retrieval block's largest intermediate (the (Q, B, H)
-# Hadamard tile of an 'mlp' head, or the (Q, B) scores of 'inner'): the
-# default block size follows from it and the request's shape.
+# Hadamard tile of an unfused 'mlp' head, or the (Q, B) scores of 'inner'
+# and of the fused kernel): the default block size follows from it and the
+# request's shape.
 TOPK_BLOCK_BYTES = 256 << 20
 
 
@@ -77,8 +90,16 @@ def encode_graph_nodes(encoder: nn.Module, graph: Graph, x: torch.Tensor) -> tor
     return apply_encoder(encoder, graph, x)
 
 
+def _take_rows(h: TableLike, idx: torch.Tensor, dtype=None) -> torch.Tensor:
+    """Row gather from a plain or quantized table (dequantized)."""
+    if isinstance(h, QuantTable):
+        return dequantize_rows(h, idx, dtype=dtype or torch.float32)
+    rows = h.index_select(0, idx)
+    return rows if dtype is None else rows.to(dtype)
+
+
 @torch.no_grad()
-def score_pairs(predictor: LinkPredictor, h: torch.Tensor, src, dst, *,
+def score_pairs(predictor: LinkPredictor, h: TableLike, src, dst, *,
                 block: int = 131072, fused: Optional[bool] = None) -> torch.Tensor:
     """Probabilities (B,) for candidate (src, dst) pairs of rows of ``h``.
 
@@ -86,35 +107,51 @@ def score_pairs(predictor: LinkPredictor, h: torch.Tensor, src, dst, *,
     when ``h`` lies on the card, and the unfused PyTorch expression
     otherwise; ``fused=False`` always takes the unfused expression.  (The
     JAX package defaults to unfused from a TPU measurement that does not
-    carry over; PERF.md records both times on the H100.)  The kernel scores
-    all pairs in one launch, since it keeps nothing per pair in memory; the
-    unfused expression runs ``block`` pairs at a time."""
+    carry over; PERF.md records both times on the H100.)  On a dense table
+    the kernel scores all pairs in one launch, since it gathers the rows
+    itself; a quantized table is gathered and dequantized ``block`` pairs at
+    a time, and each block is scored by the kernel or the expression."""
     src = torch.as_tensor(src, dtype=torch.int64, device=h.device)
     dst = torch.as_tensor(dst, dtype=torch.int64, device=h.device)
     if fused is None:
-        fused = h.is_cuda
+        fused = h.device.type == "cuda"
     lins = predictor.lins if predictor.mode == "mlp" else None
-    if fused and lins is not None and fused_supported(lins, h):
-        return sddmm_mlp_score(h, h, src, dst, *head_weights(lins))
-    parts = [score_edges(h, src[i:i + block], dst[i:i + block],
-                         mode=predictor.mode, lins=lins)
-             for i in range(0, src.shape[0], block)]
+    fused = bool(fused) and lins is not None
+    if not isinstance(h, QuantTable):
+        if fused and fused_supported(lins, h):
+            return sddmm_mlp_score(h, h, src, dst, *head_weights(lins))
+        parts = [score_edges(h, src[i:i + block], dst[i:i + block],
+                             mode=predictor.mode, lins=lins)
+                 for i in range(0, src.shape[0], block)]
+    else:
+        parts = []
+        for i in range(0, src.shape[0], block):
+            hi, hj = _take_rows(h, src[i:i + block]), _take_rows(h, dst[i:i + block])
+            if fused and fused_supported(lins, hi):
+                rows = torch.arange(hi.shape[0], device=h.device)
+                parts.append(sddmm_mlp_score(hi, hj, rows, rows, *head_weights(lins)))
+            else:
+                parts.append(predictor(hi, hj))
     if not parts:
         return torch.zeros((0,), dtype=torch.float32, device=h.device)
     return torch.cat(parts)
 
 
-def auto_topk_block(predictor: LinkPredictor, q_count: int, width: int) -> int:
+def auto_topk_block(predictor: LinkPredictor, q_count: int, width: int,
+                    fused: bool = False) -> int:
     """Candidates per retrieval block such that the block's largest
-    intermediate fits :data:`TOPK_BLOCK_BYTES`."""
+    intermediate fits :data:`TOPK_BLOCK_BYTES`: the (Q, B) fp32 scores, and
+    for an unfused 'mlp' head the (Q, B, max(H, F)) Hadamard and hidden
+    tiles.  The fused kernel keeps no such tile, so up to Q = 284 a
+    235,868-row table is one block and one launch."""
     per_candidate = 4 * max(1, q_count)
-    if predictor.mode == "mlp":
+    if predictor.mode == "mlp" and not fused:
         per_candidate *= max(width, predictor.lins[0].out_features)
     return max(1, TOPK_BLOCK_BYTES // per_candidate)
 
 
 @torch.no_grad()
-def top_k_partners(predictor: LinkPredictor, h: torch.Tensor, query_ids, *,
+def top_k_partners(predictor: LinkPredictor, h: TableLike, query_ids, *,
                    k: int = 10, block: Optional[int] = None,
                    exclude_self: bool = True, compute_dtype=None,
                    approx: bool = False,
@@ -126,41 +163,77 @@ def top_k_partners(predictor: LinkPredictor, h: torch.Tensor, query_ids, *,
     exactly.  ``approx=True`` is accepted for the JAX signature's sake and
     retrieves exactly (torch has no approximate top-k; the JAX package is
     exact on the CPU too).  ``compute_dtype`` (e.g. ``torch.bfloat16``)
-    scores in that type and merges in fp32."""
+    scores in that type and merges in fp32; on a quantized table it is the
+    type the rows dequantize to.
+
+    ``h`` may be a :class:`QuantTable`: 'inner' dots run on the int8 codes
+    (int4 blocks unpack after the read) with the rank-1 scale grid; 'mlp'
+    candidate blocks dequantize on the fly.
+
+    ``mlp_fused=None`` scores a supported 'mlp' head with the fused
+    retrieval kernel (:func:`~llp_tpu_torch.ops.mlp_topk.mlp_block_logits`:
+    raw logits, sigmoid on the K winners) when the table lies on the card,
+    and with the unfused expression otherwise; ``mlp_fused=True`` asks for
+    the kernel's route on any device (the plain version on the CPU);
+    ``False`` never takes it.  The JAX package defaults to off from a TPU
+    measurement that does not carry over; PERF.md records both top-K times
+    on the H100."""
     del approx
-    if mlp_fused:
-        raise NotImplementedError(
-            "mlp_fused retrieval kernel is not ported yet (ROADMAP B4)"
-        )
-    query_ids = torch.as_tensor(query_ids, dtype=torch.int64, device=h.device)
-    n = h.shape[0]
+    quant = isinstance(h, QuantTable)
+    dev = h.device
+    query_ids = torch.as_tensor(query_ids, dtype=torch.int64, device=dev)
+    n, width = h.shape
     q = query_ids.shape[0]
     k = min(k, n - 1 if exclude_self else n)
+    mlp = predictor.mode == "mlp"
+    if mlp_fused is None:
+        mlp_fused = dev.type == "cuda"
+    lins = head_layers(predictor.lins) if mlp else None
+    fused = bool(mlp_fused) and mlp and fused_mlp_supported(lins, width)
     if block is None:
-        block = auto_topk_block(predictor, q, h.shape[1])
+        # the kernel's plain version on the CPU does materialize the tile
+        block = auto_topk_block(predictor, q, width, fused and dev.type == "cuda")
     block = max(1, min(block, n))
+    cdtype = None
     if compute_dtype is not None and compute_dtype != h.dtype:
-        h = h.to(compute_dtype)
-        predictor = copy.deepcopy(predictor).to(compute_dtype)
-    inner = predictor.mode == "inner"
-    q_h = h.index_select(0, query_ids)
-    vals = torch.full((q, k), -torch.inf, dtype=torch.float32, device=h.device)
-    ids = torch.full((q, k), -1, dtype=torch.int64, device=h.device)
+        cdtype = compute_dtype
+        if not quant:
+            h = h.to(cdtype)
+        predictor = copy.deepcopy(predictor).to(cdtype)
+        lins = head_layers(predictor.lins) if mlp else None
+    inner = not mlp
+    q_h = _take_rows(h, query_ids, dtype=cdtype)  # (Q, H)
+    if inner and quant:
+        q_codes = codes_rows(h, query_ids)
+        q_scale = h.scale.index_select(0, query_ids)
+    vals = torch.full((q, k), -torch.inf, dtype=torch.float32, device=dev)
+    ids = torch.full((q, k), -1, dtype=torch.int64, device=dev)
     for b0 in range(0, n, block):
-        cand = h[b0:b0 + block]
-        cand_ids = torch.arange(b0, b0 + cand.shape[0], device=h.device)
-        if inner:
+        size = min(block, n - b0)
+        cand_ids = torch.arange(b0, b0 + size, device=dev)
+        if inner and quant:
             # sigmoid is monotone: rank raw dots, squash the K winners last
-            scores = (q_h @ cand.T).float()
+            cs = h.scale[b0:b0 + size]
+            scores = code_dots(q_codes, codes_slice(h, b0, size)).float() * (
+                q_scale[:, None] * cs[None, :])
+        elif inner:
+            # fp32 dots of (possibly bf16) rows: the products are exact in fp32
+            scores = q_h.float() @ h[b0:b0 + size].float().T
+        elif fused and quant:
+            scores = mlp_block_logits(lins, q_h, codes_slice(h, b0, size),
+                                      scales=h.scale[b0:b0 + size])
+        elif fused:
+            scores = mlp_block_logits(lins, q_h, h[b0:b0 + size])
         else:
+            cand = (dequantize_slice(h, b0, size, dtype=cdtype or torch.float32) if quant
+                    else h[b0:b0 + size])
             scores = predictor(q_h[:, None, :], cand[None, :, :]).float()
         if exclude_self:
-            scores = scores.masked_fill(cand_ids[None, :] == query_ids[:, None],
-                                        -torch.inf)
+            scores = scores.masked_fill(cand_ids[None, :] == query_ids[:, None], -torch.inf)
         all_vals = torch.cat([vals, scores], dim=1)
         all_ids = torch.cat([ids, cand_ids[None, :].expand(q, -1)], dim=1)
         vals, pos = torch.topk(all_vals, k, dim=1)
         ids = torch.gather(all_ids, 1, pos)
-    if inner:
+    if inner or fused:  # raw dots or logits -> probabilities; -inf slots stay
         vals = torch.where(torch.isfinite(vals), torch.sigmoid(vals), vals)
     return vals, ids

@@ -114,6 +114,18 @@ def from_jax(tree: Any, *, conv: str = "sage") -> nn.Module:
     return model.eval()
 
 
+def quant_from_jax(table, *, device="cpu"):
+    """A :class:`QuantTable` holding the arrays of the JAX package's
+    ``QuantTable`` (``q``, ``scale``, ``bits``; any array type numpy reads).
+    The two packages share the code and int4 storage layout, so the bytes
+    are copied as they are."""
+    from llp_tpu_torch.serve.quant import QuantTable  # serve imports this module
+
+    q = torch.from_numpy(np.array(table.q))
+    scale = torch.from_numpy(np.array(table.scale, np.float32))
+    return QuantTable(q.to(device), scale.to(device), int(table.bits))
+
+
 def to_jax(model: nn.Module) -> dict:
     """The JAX parameter tree (numpy leaves) of a SAGE, MLP or LinkPredictor."""
     if isinstance(model, SAGE):

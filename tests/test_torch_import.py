@@ -108,18 +108,20 @@ def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("flag", ["--port=0", "--shard", "--quantize=int8", "--quantize=int4"])
 def test_serve_cli_rejects_what_is_not_ported(flag, tmp_path):
-    with pytest.raises(SystemExit, match="not yet ported"):
-        torch_serve.main([f"--checkpoint={tmp_path / 'missing'}", "--device=cpu", flag])
+    # the sharded table (ROADMAP A14) is refused with any other serving flag
+    with pytest.raises(SystemExit, match="--shard is not yet ported.*A14"):
+        torch_serve.main([f"--checkpoint={tmp_path / 'missing'}", "--device=cpu", flag,
+                          "--shard"])
 
 
 @pytest.mark.parametrize("flag", ["--host=0.0.0.0", "--warmup=1", "--max_queue=2",
                                   "--max_queries=9", "--max_pairs=9"])
 def test_serve_cli_rejects_daemon_flags(flag, tmp_path, capsys):
-    # they belong to the daemon, which is not ported: argparse refuses them
+    # they configure the daemon: without --port argparse refuses them
     with pytest.raises(SystemExit) as exc:
         torch_serve.main([f"--checkpoint={tmp_path / 'missing'}", "--device=cpu", flag])
     assert exc.value.code == 2
-    assert "unrecognized arguments" in capsys.readouterr().err
+    assert "need --port" in capsys.readouterr().err
 
 
 def test_kernel_wrappers_refuse_unsupported_inputs():

@@ -157,8 +157,11 @@ def test_top_k_partners_clamps_k_and_takes_bf16():
     assert vals.shape == ids.shape == (2, 4)
     vb, ib = engine.top_k_partners(pred, h, [0, 1], k=3, compute_dtype=torch.bfloat16)
     assert vb.dtype == torch.float32 and ib.shape == (2, 3)
-    with pytest.raises(NotImplementedError, match="B4"):
-        engine.top_k_partners(pred, h, [0], k=2, mlp_fused=True)
+    # the fused retrieval route (on the CPU, the kernel's plain version)
+    # equals the unfused one
+    fv, fi = engine.top_k_partners(pred, h, [0, 1], k=4, mlp_fused=True)
+    torch.testing.assert_close(fv, vals, atol=3e-6, rtol=0)
+    assert torch.equal(fi, ids)
 
 
 def test_score_pairs_and_encode_nodes_match_jax():
