@@ -12,10 +12,13 @@ failure exits non-zero.
 2. build        -- compiles every kernel of ``llp_tpu_torch/csrc`` (one
                    ``nvcc`` per source, all started together).
 3. kernel_check -- each kernel against its plain PyTorch version on the card,
-                   at stated tolerances: segsum in its three instances
-                   (fp32, bf16 -> fp32, bf16 -> bf16), the spmm backward
-                   (``torch.autograd.grad`` through the kernel route against
-                   the plain backward), SDDMM, and the fused retrieval
+                   at stated tolerances: segsum in its three unweighted
+                   instances (fp32, bf16 -> fp32, bf16 -> bf16) and its two
+                   weighted ones (fp32, bf16 -> bf16; weights with zeros and
+                   negative values), the spmm backward, unweighted and
+                   weighted (``torch.autograd.grad`` in x and in the weights
+                   through the kernel route against the plain backward and
+                   the plain edge dots), SDDMM, and the fused retrieval
                    kernel (mlp_topk) in its four instances (fp32 or bf16,
                    dense or int8 candidates) at heads of 2 to 4 layers and
                    ragged Q and B. With more than one card visible
@@ -32,17 +35,27 @@ failure exits non-zero.
                    counters show that the kernels served (the top-K through
                    mlp_topk). The kernels' answers are held against the
                    plain routes on the card and against the CPU.
-5. train        -- the training CLI (``llp_tpu_torch.cli.train_teacher.main``)
+5. weighted_data -- writes the collab stand-in as an ogbl-collab export
+                   (``save_dataset_npz``: integer weights >= 1, the official
+                   held-out counts, 100,000 negatives each) and a
+                   20,000-node sibling, under ``build/chip_smoke/``.
+6. train        -- the training CLI (``llp_tpu_torch.cli.train_teacher.main``)
                    at full width (hidden 256, 2 layers, mlp head, batch
-                   65,536, dropout 0.5): 20 epochs on ``cora``, whose
-                   artifact the serving CLI then serves, and 2 epochs each at
-                   fp32 and bf16 on ``collab``. Launch counters show the
-                   segsum kernel in both directions on every step and the
-                   SDDMM kernel in eval. Then 3 steps on ``cora`` with
+                   65,536, dropout 0.5): the GraphSAGE teacher 20 epochs on
+                   ``cora`` and 2 epochs each at fp32 and bf16 on
+                   ``collab``; on the weighted collab export
+                   (``--use_edge_weight``) SAGE 2 epochs at fp32 and GCN 2
+                   epochs each at fp32 and bf16; the GCN teacher 20 epochs
+                   on ``cora``. Launch counters show the segsum kernel in
+                   both directions on every step (the weighted instances on
+                   the weighted runs, twice a step for GCN) and the SDDMM
+                   kernel in eval. The serving CLI serves both cora
+                   artifacts, on the card and on the CPU. Then 3 steps with
                    dropout 0 and fixed negatives, on the card and on the
-                   CPU, whose losses must agree, and a profiled collab epoch
-                   at each type (where the time goes).
-6. kernels      -- one JSON line: each kernel's launches on the serving and
+                   CPU, whose losses must agree: SAGE on ``cora``, weighted
+                   GCN on the 20,000-node export; and a profiled collab
+                   epoch per type and of weighted GCN (where the time goes).
+7. kernels      -- one JSON line: each kernel's launches on the serving and
                    training paths, its time at the collab shapes, the plain
                    version's time, a library call's time where one exists,
                    and the least time the card could take. A
@@ -69,6 +82,10 @@ WORK = ROOT / "build" / "chip_smoke"  # checkpoints written by the serve phase
 # A dataset directory that holds no files: the registry serves its seeded
 # stand-ins (cora 2,708 x 1,433; collab 235,868 x 128 with 2.51M edges).
 STANDINS = str(WORK / "standins")
+# The weighted exports (phase_weighted_data): the collab stand-in laid out as
+# the ogbl-collab download, and a 20,000-node sibling.
+WEIGHTED = str(WORK / "weighted")
+WEIGHTED_SMALL = str(WORK / "weighted_small")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, fp32 outside the
 # tensor cores, and bf16 on the tensor cores (dense). The kernels here run
@@ -215,7 +232,8 @@ def phase_kernel_check(gen) -> dict:
     from llp_tpu_torch.ops.spmm import spmm, spmm_backward_plain
 
     worst = dict.fromkeys(("segsum", "segsum_bf16_f32", "segsum_bf16", "spmm_bwd",
-                           "spmm_bwd_bf16", "sddmm"), 0.0)
+                           "spmm_bwd_bf16", "segsum_w", "segsum_w_bf16", "spmm_bwd_w",
+                           "spmm_bwd_w_bf16", "spmm_dw", "sddmm"), 0.0)
 
     def segsum_case(label, graph, x):
         xb = x.bfloat16()
@@ -265,16 +283,74 @@ def phase_kernel_check(gen) -> dict:
                                      "n": graph.num_nodes, "e": graph.num_edges, "d": d,
                                      **err})
 
+    def weighted_case(label, graph, x, w):
+        """The weighted instances (fp32, bf16 -> bf16) against the plain
+        version, with the plain version's rounding points."""
+        xb = x.bfloat16()
+        for reduce in ("sum", "mean"):
+            scale = graph.inv_in_degree if reduce == "mean" else None
+            for key, inp in (("segsum_w", x), ("segsum_w_bf16", xb)):
+                before = segsum.launch_counts.copy()
+                got = segsum(inp, graph.senders, graph.in_ptr, scale, weights=w)
+                torch.cuda.synchronize()
+                inst = "float32->float32" if inp.dtype == torch.float32 else "bfloat16->bfloat16"
+                if segsum.launch_counts[(inst, x.shape[1], True)] != before[(inst, x.shape[1],
+                                                                              True)] + 1:
+                    raise AssertionError(f"{key} {label}: the weighted kernel did not launch")
+                ref = segsum_plain(inp, graph.senders, graph.in_ptr, scale, weights=w)
+                what = f"{key} {label} d={x.shape[1]} {reduce}"
+                err = (compare(got, ref, **SEGSUM_TOL, what=what) if key == "segsum_w"
+                       else compare_bf16(got, ref, **BF16_TOL, what=what))
+                worst[key] = max(worst[key], err["max_abs"])
+                log("kernel_check", {"kernel": key, "case": label, "reduce": reduce,
+                                     "n": graph.num_nodes, "e": graph.num_edges,
+                                     "d": x.shape[1], **err})
+
+    def weighted_backward_case(label, graph, x32, w):
+        """torch.autograd.grad through the weighted route against the plain
+        backward (dx) and the plain edge dots (dw)."""
+        for dtype, key in ((torch.float32, "spmm_bwd_w"), (torch.bfloat16, "spmm_bwd_w_bf16")):
+            d = x32.shape[1]
+            x = x32.to(dtype).requires_grad_(True)
+            g = torch.randn(graph.num_nodes, d, generator=gen, device="cuda").to(dtype)
+            wt = w.clone().requires_grad_(True)
+            for reduce in ("sum", "mean"):
+                before = spmm.weighted_backward_launches
+                dx, dw = torch.autograd.grad(spmm(graph, x, reduce, edge_weight=wt), (x, wt), g)
+                torch.cuda.synchronize()
+                if spmm.weighted_backward_launches != before + 1:
+                    raise AssertionError(f"{key} {label}: the weighted backward did not launch")
+                ref = spmm_backward_plain(graph, g, reduce, edge_weight=w)
+                what = f"{key} {label} d={d} {reduce}"
+                err = (compare(dx, ref, **SEGSUM_TOL, what=what) if dtype == torch.float32
+                       else compare_bf16(dx, ref, **BF16_TOL, what=what))
+                gs = g.float() * (graph.inv_in_degree[:, None] if reduce == "mean" else 1.0)
+                dw_ref = (gs[graph.receivers] * x.detach().float()[graph.senders]).sum(1)
+                dw_err = compare(dw, dw_ref, **SEGSUM_TOL, what=f"dw {what}")
+                worst[key] = max(worst[key], err["max_abs"])
+                worst["spmm_dw"] = max(worst["spmm_dw"], dw_err["max_abs"])
+                log("kernel_check", {"kernel": key, "case": label, "reduce": reduce,
+                                     "n": graph.num_nodes, "e": graph.num_edges, "d": d,
+                                     **err, "dw": dw_err})
+
     # Hub row of degree 12,000 and isolated receivers. The features are
     # multiples of 1/256 in [-4, 4] (and so are their bf16 roundings), so
     # every partial sum is exact in fp32 and the hub row's 12,000-term sum
-    # agrees in any order.
+    # agrees in any order. The weights are multiples of 1/8 in [-2, 2], a
+    # seventh of them 0, so the weighted sums are exact too.
     g = _check_graph(50_000, 200_000, 12_000, 5_000, seed=0)
+    w = torch.randint(-16, 17, (g.num_edges,), generator=gen, device="cuda").float() / 8
+    w[::7] = 0.0
     for d in (8, 100, 128, 256, 1433):
         x = torch.randint(-1024, 1025, (g.num_nodes, d), generator=gen,
                           device="cuda").float() / 256
         segsum_case("hub+isolated", g, x)
         backward_case("hub+isolated", g, d)
+    for d in (1, 37, 128, 256, 1433):
+        x = torch.randint(-1024, 1025, (g.num_nodes, d), generator=gen,
+                          device="cuda").float() / 256
+        weighted_case("hub+isolated", g, x, w)
+        weighted_backward_case("hub+isolated", g, x, w)
     empty = build_graph(np.zeros((2, 0), np.int64), 100, device="cuda")
     segsum_case("E=0", empty, torch.randn(100, 64, generator=gen, device="cuda"))
     backward_case("E=0", empty, 64)
@@ -287,6 +363,11 @@ def phase_kernel_check(gen) -> dict:
             segsum_case(name, gs, torch.randn(gs.num_nodes, d, generator=gen, device="cuda"))
         if name == "collab":
             backward_case(name, gs, 256)
+            # weighted: co-authorship-like counts, at the collab widths
+            wc = torch.randint(1, 6, (gs.num_edges,), generator=gen, device="cuda").float()
+            for d in widths:
+                weighted_case(name, gs, torch.randn(gs.num_nodes, d, generator=gen,
+                                                    device="cuda"), wc)
 
     def sddmm_case(n, d, hid, b):
         head = LinkPredictor("mlp", d, hid, generator=torch.Generator().manual_seed(d + hid))
@@ -725,29 +806,58 @@ def _counts() -> dict:
     from llp_tpu_torch.ops.spmm import spmm
 
     return {"segsum": segsum.launches, "by_shape": dict(segsum.launch_counts),
-            "backward": spmm.backward_launches, "sddmm": sddmm_mlp_score.launches}
+            "backward": spmm.backward_launches,
+            "weighted_backward": spmm.weighted_backward_launches,
+            "sddmm": sddmm_mlp_score.launches}
+
+
+def _shape_key(inst: str, d: int, weighted: bool) -> str:
+    return f"{inst} d={d}{' weighted' if weighted else ''}"
 
 
 def _delta(after: dict, before: dict) -> dict:
-    shapes = {f"{inst} d={d}": n - before["by_shape"].get((inst, d), 0)
-              for (inst, d), n in after["by_shape"].items()}
+    shapes = {_shape_key(*key): n - before["by_shape"].get(key, 0)
+              for key, n in after["by_shape"].items()}
+    by_shape = {k: v for k, v in shapes.items() if v}
+    weighted = sum(v for k, v in by_shape.items() if k.endswith(" weighted"))
     return {"segsum": after["segsum"] - before["segsum"],
             "backward": after["backward"] - before["backward"],
+            "weighted": weighted,
+            "weighted_backward": after["weighted_backward"] - before["weighted_backward"],
             "sddmm": after["sddmm"] - before["sddmm"],
-            "by_shape": {k: v for k, v in shapes.items() if v}}
+            "by_shape": by_shape}
 
 
 TRAIN_FLAGS = ["--hidden_channels=256", "--num_layers=2", "--predictor=mlp",
                "--batch_size=65536", "--dropout=0.5", "--runs=1", "--eval_steps=1",
                "--log_steps=1", "--patience=100"]
 
+# The training runs: (dataset, epochs, compute dtype, dataset directory,
+# variant). The first three are the default SAGE teacher on the stand-ins;
+# the rest train on the weighted collab export (SAGE, and GCN at both
+# types) and the GCN teacher on cora.
+TRAIN_RUNS = (("cora", 20, "float32", STANDINS, ""),
+              ("collab", 2, "float32", STANDINS, ""),
+              ("collab", 2, "bfloat16", STANDINS, ""),
+              ("collab", 2, "float32", WEIGHTED, "weighted sage"),
+              ("collab", 2, "float32", WEIGHTED, "weighted gcn"),
+              ("collab", 2, "bfloat16", WEIGHTED, "weighted gcn"),
+              ("cora", 20, "float32", STANDINS, "gcn"))
 
-def _train_line(name: str, dtype: str, stats: dict, report: dict, counts: dict) -> dict:
+
+def _variant_flags(variant: str) -> list:
+    return ((["--use_edge_weight"] if "weighted" in variant else [])
+            + (["--encoder=gcn"] if "gcn" in variant else []))
+
+
+def _train_line(name: str, dtype: str, variant: str, stats: dict, report: dict,
+                counts: dict) -> dict:
     import statistics
 
     metric = "Hits@50" if name == "collab" else "Hits@20"
     steady = report["epoch_s"][1:] or report["epoch_s"]
-    line = {"dataset": name, "compute_dtype": dtype, "epochs": len(report["epoch_s"]),
+    line = {"dataset": name, "compute_dtype": dtype, "variant": variant or "sage",
+            "epochs": len(report["epoch_s"]),
             "steps_per_epoch": report["steps_per_epoch"],
             "epoch_s": statistics.median(steady), "epoch_s_all": report["epoch_s"],
             "eval_s": report["perf"]["mean_eval_s"],
@@ -759,10 +869,62 @@ def _train_line(name: str, dtype: str, stats: dict, report: dict, counts: dict) 
     return line
 
 
-def _parity_losses(device: str, compute_dtype: str, steps: int = 3) -> list:
-    """``steps`` steps of the teacher on cora at full width, dropout 0, with
-    fixed negatives drawn by numpy: one step per epoch, since the batch
-    holds every positive."""
+def _write_weighted(path: Path, ds, *, n_valid: int, n_test: int, n_neg: int,
+                    seed: int) -> dict:
+    """An export of ``ds`` laid out as the ogbl-collab download's: its
+    undirected pairs permuted by ``seed``, ``n_valid`` and ``n_test`` held
+    out, the rest the train positives; ``n_neg`` uniform negatives each for
+    valid and test; integer weights >= 1 on the train pairs from a seeded
+    geometric draw (p = 0.5, mean 2: co-authorship counts); the message
+    graph is the train pairs in both directions with equal weights."""
+    import numpy as np
+
+    from llp_tpu_torch.data.io import save_dataset_npz
+
+    rng = np.random.default_rng(seed)
+    pairs = ds.edge_index[:, ds.edge_index[0] < ds.edge_index[1]].T
+    pairs = pairs[rng.permutation(len(pairs))]
+    valid, test = pairs[:n_valid], pairs[n_valid:n_valid + n_test]
+    train = pairs[n_valid + n_test:]
+    w = rng.geometric(0.5, len(train)).astype(np.float32)
+    n = ds.num_nodes
+    split = {"train": {"edge": train, "weight": w},
+             "valid": {"edge": valid, "edge_neg": rng.integers(0, n, (n_neg, 2))},
+             "test": {"edge": test, "edge_neg": rng.integers(0, n, (n_neg, 2))}}
+    save_dataset_npz(str(path), ds.x, np.concatenate([train.T, train.T[::-1]], axis=1),
+                     edge_weight=np.concatenate([w, w]), split=split,
+                     split_name=f"weighted-standin:seed={seed}")
+    info = {"path": str(path), "nodes": n, "features": int(ds.x.shape[1]),
+            "pairs": int(len(pairs)), "train_pairs": int(len(train)),
+            "valid": n_valid, "test": n_test, "negatives": n_neg,
+            "message_edges": 2 * int(len(train)), "mean_weight": float(w.mean()),
+            "max_weight": float(w.max())}
+    log("weighted_data", info)
+    return info
+
+
+def phase_weighted_data() -> None:
+    """The weighted datasets of the training phase: the collab stand-in
+    exported with ogbl-collab's held-out counts (60,084 valid and 46,329
+    test pairs, 100,000 negatives each), and a 20,000-node sibling of the
+    same width and degree for the card-against-CPU losses."""
+    from llp_tpu_torch.data.registry import get_dataset
+
+    t0 = time.perf_counter()
+    _write_weighted(Path(WEIGHTED) / "collab.npz", get_dataset(STANDINS, "collab"),
+                    n_valid=60_084, n_test=46_329, n_neg=100_000, seed=11)
+    small = get_dataset("", "synthetic:sbm:20000:16:8.2:5:128:gauss")
+    _write_weighted(Path(WEIGHTED_SMALL) / "collab.npz", small, n_valid=3_900, n_test=3_000,
+                    n_neg=8_000, seed=12)
+    log("weighted_data", {"seconds": time.perf_counter() - t0})
+
+
+def _parity_losses(device: str, compute_dtype: str, *, dataset_dir: str = STANDINS,
+                   name: str = "cora", encoder: str = "sage", use_edge_weight: bool = False,
+                   steps: int = 3) -> list:
+    """``steps`` steps of the teacher at full width, dropout 0, with fixed
+    negatives drawn by numpy: one step per epoch, since the batch holds
+    every positive."""
     import numpy as np
     import torch
 
@@ -770,23 +932,25 @@ def _parity_losses(device: str, compute_dtype: str, steps: int = 3) -> list:
     from llp_tpu_torch.train.teacher import TeacherTrainer, init_teacher
     from llp_tpu_torch.utils.config import TeacherConfig
 
-    cfg = TeacherConfig(datasets="cora", dataset_dir=STANDINS)
+    cfg = TeacherConfig(datasets=name, dataset_dir=dataset_dir, encoder=encoder,
+                        use_edge_weight=use_edge_weight)
     data = prepare_transductive(cfg, torch.device(device))
     n, d = data["x"].shape
-    model = init_teacher(encoder="sage", in_channels=d, hidden_channels=256, num_layers=2,
+    model = init_teacher(encoder=encoder, in_channels=d, hidden_channels=256, num_layers=2,
                          predictor_mode="mlp", generator=torch.Generator().manual_seed(0))
     trainer = TeacherTrainer(model.to(device), data["graph"], data["x"], data["pos_edges"],
-                             batch_size=65536, neg_keys=data["neg_keys"],
-                             compute_dtype=compute_dtype)
+                             encoder=encoder, batch_size=max(65536, data["num_pos"]),
+                             neg_mode="uniform", compute_dtype=compute_dtype)
     if trainer.steps != 1:
-        raise AssertionError(f"cora: {trainer.steps} steps per epoch, expected 1")
+        raise AssertionError(f"{name}: {trainer.steps} steps per epoch, expected 1")
     negatives = np.random.default_rng(7).integers(0, n, (steps, 1, 2, trainer.batch))
     gen = torch.Generator(device=device).manual_seed(0)
     return [float(trainer.epoch(gen, negatives=torch.from_numpy(negatives[i]).to(device)))
             for i in range(steps)]
 
 
-def _profile_epoch(compute_dtype: str) -> dict:
+def _profile_epoch(compute_dtype: str, *, dataset_dir: str = STANDINS, encoder: str = "sage",
+                   use_edge_weight: bool = False) -> dict:
     """One collab epoch under ``torch.profiler`` after a warm-up epoch: the
     device time by kernel, the epoch's wall time and its launches."""
     import torch
@@ -797,13 +961,14 @@ def _profile_epoch(compute_dtype: str) -> dict:
     from llp_tpu_torch.train.teacher import TeacherTrainer, init_teacher
     from llp_tpu_torch.utils.config import TeacherConfig
 
-    cfg = TeacherConfig(datasets="collab", dataset_dir=STANDINS)
+    cfg = TeacherConfig(datasets="collab", dataset_dir=dataset_dir, encoder=encoder,
+                        use_edge_weight=use_edge_weight)
     data = prepare_transductive(cfg, torch.device("cuda"))
-    model = init_teacher(encoder="sage", in_channels=data["x"].shape[1], hidden_channels=256,
+    model = init_teacher(encoder=encoder, in_channels=data["x"].shape[1], hidden_channels=256,
                          num_layers=2, predictor_mode="mlp", dropout=0.5,
                          generator=torch.Generator().manual_seed(0)).cuda()
     trainer = TeacherTrainer(model, data["graph"], data["x"], data["pos_edges"],
-                             batch_size=65536, neg_mode=cfg.neg_mode,
+                             encoder=encoder, batch_size=65536, neg_mode=cfg.neg_mode,
                              compute_dtype=compute_dtype)
     gen = torch.Generator(device="cuda").manual_seed(0)
     trainer.epoch(gen)
@@ -825,8 +990,8 @@ def _profile_epoch(compute_dtype: str) -> dict:
     device_ms = sum(by_kernel.values())
     segsum_ms = sum(v for k, v in by_kernel.items() if "segsum_kernel" in k)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
-    out = {"compute_dtype": compute_dtype, "steps": trainer.steps, "epoch_s": wall_s,
-           "launches": counts,
+    out = {"encoder": encoder, "weighted": use_edge_weight, "compute_dtype": compute_dtype,
+           "steps": trainer.steps, "epoch_s": wall_s, "launches": counts,
            "launches_per_step": {k: v / trainer.steps for k, v in counts["by_shape"].items()},
            "device_ms": device_ms if device_ms else "not measured",
            "segsum_ms": segsum_ms if device_ms else "not measured",
@@ -835,6 +1000,71 @@ def _profile_epoch(compute_dtype: str) -> dict:
            "top_kernels_ms": top}
     log("train_profile", out)
     return out
+
+
+def _check_train_launches(label: str, variant: str, dtype: str, counts: dict,
+                          steps: int) -> None:
+    """The kernels every step must have launched, from the run's counters."""
+    if counts["backward"] < steps:
+        raise AssertionError(f"{label}: {counts['backward']} backward segsum launches in "
+                             f"{steps} steps")
+    aggregations = 2 if "gcn" in variant else 1  # per step, each direction
+    if counts["segsum"] - counts["backward"] < aggregations * steps:
+        raise AssertionError(f"{label}: {counts['segsum'] - counts['backward']} forward "
+                             f"segsum launches in {steps} steps, expected {aggregations} "
+                             f"a step")
+    if counts["sddmm"] == 0:
+        raise AssertionError(f"{label}: eval did not launch the sddmm kernel")
+    shapes = counts["by_shape"]
+    if "weighted" in variant:
+        fwd = counts["weighted"] - counts["weighted_backward"]
+        if counts["weighted_backward"] < aggregations * steps or fwd < aggregations * steps:
+            raise AssertionError(f"{label}: {fwd} weighted forward and "
+                                 f"{counts['weighted_backward']} weighted backward launches "
+                                 f"in {steps} steps, expected {aggregations} each a step")
+        if dtype == "bfloat16":
+            bf16_fwd = shapes.get(_shape_key("bfloat16->bfloat16", 256, True), 0)
+            f32_bwd = shapes.get(_shape_key("float32->float32", 256, True), 0)
+            if bf16_fwd < aggregations * steps or f32_bwd < aggregations * steps:
+                raise AssertionError(f"{label}: {bf16_fwd} weighted bf16->bf16 forwards and "
+                                     f"{f32_bwd} weighted fp32 launches at d=256 in {steps} "
+                                     f"steps (the backward runs fp32)")
+    elif counts["backward"] < aggregations * steps:
+        raise AssertionError(f"{label}: {counts['backward']} backward launches in {steps} steps")
+    elif dtype == "bfloat16":
+        cast = shapes.get(_shape_key("bfloat16->bfloat16", 256, False), 0)
+        if cast < 2 * steps:
+            raise AssertionError(f"{label}: {cast} bf16->bf16 launches at d=256 in "
+                                 f"{steps} steps (one forward and one backward each)")
+
+
+def _serve_trained(ckpt: Path, expect_segsum: int) -> None:
+    """Serve a trained cora artifact through the CLI on the card and on the
+    CPU (re-encode, top-10 of 16 queries, 1,024 pairs); the answers agree."""
+    import numpy as np
+
+    from llp_tpu_torch.ops.segsum import segsum
+
+    if not all(Path(f"{ckpt}{ext}").exists() for ext in (".npz", ".json")):
+        raise AssertionError(f"the cora teacher artifact {ckpt} was not written")
+    queries, pairs = _requests(2708, seed=3)
+    argv = [f"--checkpoint={ckpt}", "--datasets=cora", f"--dataset_dir={STANDINS}",
+            "--reencode", "--topk=10", f"--queries={queries}", f"--pairs={pairs}"]
+    before = segsum.launches
+    summary, lines = _serve(argv)
+    launched = segsum.launches - before
+    scores = [v for x in lines for v in x["scores"]]
+    if summary["nodes"] != 2708 or summary["dim"] != 256 or not np.isfinite(scores).all():
+        raise AssertionError(f"serving the trained cora artifact: {summary}")
+    if sum("query" in x for x in lines) != 16:
+        raise AssertionError("serving the trained cora artifact: expected 16 top-k lines")
+    if launched != expect_segsum:
+        raise AssertionError(f"serving {ckpt}: {launched} segsum launches, expected "
+                             f"{expect_segsum} (one per layer)")
+    _, cpu = _serve(argv + ["--device=cpu"])
+    log("serve_trained", {"checkpoint": str(ckpt), **summary, "segsum_launches": launched,
+                          "vs_cpu_pairs_max_abs": _check_pairs(lines, cpu, str(ckpt)),
+                          "vs_cpu_topk": _check_topk(lines, cpu, 10, str(ckpt))})
 
 
 def phase_train() -> dict:
@@ -847,80 +1077,71 @@ def phase_train() -> dict:
     from llp_tpu_torch.ops.spmm import spmm
 
     saved, results = WORK / "saved", WORK / "results"
-    common = [f"--dataset_dir={STANDINS}", f"--save_dir={saved}",
-              f"--results_dir={results}", *TRAIN_FLAGS]
     runs = {}
     # the training path starts here
     segsum.launches = spmm.backward_launches = sddmm_mlp_score.launches = 0
+    spmm.weighted_backward_launches = 0
     segsum.launch_counts.clear()
-    for name, epochs, dtype in (("cora", 20, "float32"), ("collab", 2, "float32"),
-                                ("collab", 2, "bfloat16")):
+    for name, epochs, dtype, data_dir, variant in TRAIN_RUNS:
+        label = f"{name} {dtype} {variant or 'sage'}"
         before = _counts()
         stats, report, _ = _train([f"--datasets={name}", f"--epochs={epochs}",
-                                   f"--compute_dtype={dtype}", *common])
+                                   f"--compute_dtype={dtype}", f"--dataset_dir={data_dir}",
+                                   f"--save_dir={saved}", f"--results_dir={results}",
+                                   *TRAIN_FLAGS, *_variant_flags(variant)])
         counts = _delta(_counts(), before)
-        line = _train_line(name, dtype, stats, report, counts)
+        line = _train_line(name, dtype, variant, stats, report, counts)
         steps = report["steps_per_epoch"] * len(report["epoch_s"])
         if line["losses"][-1] >= line["losses"][0]:
-            raise AssertionError(f"{name} {dtype}: the loss did not fall: {line['losses']}")
-        if counts["backward"] < steps:
-            raise AssertionError(f"{name} {dtype}: {counts['backward']} backward segsum "
-                                 f"launches in {steps} steps")
-        if counts["segsum"] - counts["backward"] < steps:
-            raise AssertionError(f"{name} {dtype}: {counts['segsum'] - counts['backward']} "
-                                 f"forward segsum launches in {steps} steps")
-        if counts["sddmm"] == 0:
-            raise AssertionError(f"{name} {dtype}: eval did not launch the sddmm kernel")
-        if dtype == "bfloat16":
-            cast = counts["by_shape"].get("bfloat16->bfloat16 d=256", 0)
-            if cast < 2 * steps:
-                raise AssertionError(f"{name} bf16: {cast} bf16->bf16 launches at d=256 in "
-                                     f"{steps} steps (one forward and one backward each)")
-        runs[(name, dtype)] = {"line": line, "counts": counts, "steps": steps}
+            raise AssertionError(f"{label}: the loss did not fall: {line['losses']}")
+        _check_train_launches(label, variant, dtype, counts, steps)
+        runs[(name, dtype, variant)] = {"line": line, "counts": counts, "steps": steps}
     launches = _counts()
 
-    ckpt = saved / "cora-sage_transductive"
-    if not all(Path(f"{ckpt}{ext}").exists() for ext in (".npz", ".json")):
-        raise AssertionError(f"the cora teacher artifact {ckpt} was not written")
-    queries, pairs = _requests(2708, seed=3)
-    summary, lines = _serve([f"--checkpoint={ckpt}", "--datasets=cora",
-                             f"--dataset_dir={STANDINS}", "--reencode", "--topk=10",
-                             f"--queries={queries}", f"--pairs={pairs}"])
-    scores = [v for x in lines for v in x["scores"]]
-    if summary["nodes"] != 2708 or summary["dim"] != 256 or not np.isfinite(scores).all():
-        raise AssertionError(f"serving the trained cora artifact: {summary}")
-    if sum("query" in x for x in lines) != 16:
-        raise AssertionError("serving the trained cora artifact: expected 16 top-k lines")
-    log("serve_trained", {"checkpoint": str(ckpt), **summary})
+    _serve_trained(saved / "cora-sage_transductive", expect_segsum=2)
+    _serve_trained(saved / "cora-gcn_transductive", expect_segsum=2)
 
-    gpu = _parity_losses("cuda", "float32")
-    cpu = _parity_losses("cpu", "float32")
-    bf16 = _parity_losses("cuda", "bfloat16")
-    gap = float(np.max(np.abs(np.array(gpu) - cpu) / np.abs(cpu)))
-    bgap = float(np.max(np.abs(np.array(bf16) - gpu) / np.abs(gpu)))
-    log("train_vs_cpu", {"gpu": gpu, "cpu": cpu, "bf16": bf16, "rel_gap": gap,
-                         "bf16_rel_gap": bgap, "rtol": LOSS_RTOL,
-                         "bf16_rtol": BF16_LOSS_RTOL})
-    if gap > LOSS_RTOL:
-        raise AssertionError(f"card vs CPU losses differ by {gap:.3g} > {LOSS_RTOL}")
-    if bgap > BF16_LOSS_RTOL:
-        raise AssertionError(f"bf16 vs fp32 losses differ by {bgap:.3g} > {BF16_LOSS_RTOL}")
+    parity = {}
+    for label, kw in (("cora sage", {}),
+                      ("weighted gcn", dict(dataset_dir=WEIGHTED_SMALL, name="collab",
+                                            encoder="gcn", use_edge_weight=True))):
+        gpu = _parity_losses("cuda", "float32", **kw)
+        cpu = _parity_losses("cpu", "float32", **kw)
+        gap = float(np.max(np.abs(np.array(gpu) - cpu) / np.abs(cpu)))
+        line = {"run": label, "gpu": gpu, "cpu": cpu, "rel_gap": gap, "rtol": LOSS_RTOL}
+        if label == "cora sage":
+            bf16 = _parity_losses("cuda", "bfloat16", **kw)
+            line.update(bf16=bf16, bf16_rtol=BF16_LOSS_RTOL,
+                        bf16_rel_gap=float(np.max(np.abs(np.array(bf16) - gpu) / np.abs(gpu))))
+        log("train_vs_cpu", line)
+        if gap > LOSS_RTOL:
+            raise AssertionError(f"{label}: card vs CPU losses differ by {gap:.3g} > {LOSS_RTOL}")
+        if line.get("bf16_rel_gap", 0.0) > BF16_LOSS_RTOL:
+            raise AssertionError(f"{label}: bf16 vs fp32 losses differ by "
+                                 f"{line['bf16_rel_gap']:.3g} > {BF16_LOSS_RTOL}")
+        parity[label] = line
 
     profiles = {dtype: _profile_epoch(dtype) for dtype in ("float32", "bfloat16")}
-    return {"runs": runs, "launches": launches, "profiles": profiles}
+    profiles["weighted gcn"] = _profile_epoch("float32", dataset_dir=WEIGHTED, encoder="gcn",
+                                              use_edge_weight=True)
+    profiles["weighted sage"] = _profile_epoch("float32", dataset_dir=WEIGHTED,
+                                               use_edge_weight=True)
+    return {"runs": runs, "launches": launches, "profiles": profiles, "parity": parity}
 
 
-def _segsum_timing(x, senders, in_ptr, scale, adj, out_dtype=None) -> dict:
+def _segsum_timing(x, senders, in_ptr, scale, adj, out_dtype=None, weights=None) -> dict:
     """Kernel, plain and library times of one segsum at these inputs, and the
-    bytes it must move: x once, the index arrays (and scale) once, out once."""
+    bytes it must move: x once, the index arrays (the scale and the weights)
+    once, out once."""
     import torch
 
     from llp_tpu_torch.ops.segsum import segsum, segsum_plain
 
     n = in_ptr.numel() - 1
     out_dtype = out_dtype or x.dtype
-    t = {"ms": time_ms(lambda: segsum(x, senders, in_ptr, scale, out_dtype=out_dtype)),
-         "plain_ms": time_ms(lambda: segsum_plain(x, senders, in_ptr, scale,
+    t = {"ms": time_ms(lambda: segsum(x, senders, in_ptr, scale, weights=weights,
+                                      out_dtype=out_dtype)),
+         "plain_ms": time_ms(lambda: segsum_plain(x, senders, in_ptr, scale, weights=weights,
                                                   out_dtype=out_dtype))}
     if out_dtype != x.dtype:
         t["library_ms"] = None
@@ -934,9 +1155,80 @@ def _segsum_timing(x, senders, in_ptr, scale, adj, out_dtype=None) -> dict:
             t["library_note"] = f"torch.sparse.mm refuses {x.dtype} here: {str(exc)[:120]}"
     out_bytes = torch.empty((), dtype=out_dtype).element_size()
     t["bytes"] = (n * x.shape[1] * (x.element_size() + out_bytes) + senders.numel() * 8
-                  + in_ptr.numel() * 8 + (0 if scale is None else n * 4))
+                  + in_ptr.numel() * 8 + (0 if scale is None else n * 4)
+                  + (0 if weights is None else weights.numel() * 4))
     t["bound_ms"] = t["bytes"] / HBM_BYTES_PER_S * 1e3
     return t
+
+
+def _weighted_entries(gen, train: dict, worst: dict) -> list:
+    """The weighted instances at the shapes of the weighted collab training
+    runs: the GCN aggregation forward (fp32 and bf16 -> bf16, the raw
+    weights) and backward (fp32 over the sender CSR, the weights read
+    through ``sender_edge_id``) at D=256, and the SAGE layer-1 hoist (the
+    weighted mean's normalised weights) at D=128. ``library_ms`` is
+    ``torch.sparse.mm`` over a CSR that carries the same weights."""
+    import torch
+
+    from llp_tpu_torch.train.loop import prepare_transductive
+    from llp_tpu_torch.utils.config import TeacherConfig
+
+    data = prepare_transductive(TeacherConfig(datasets="collab", dataset_dir=WEIGHTED,
+                                              use_edge_weight=True), torch.device("cuda"))
+    g = data["graph"]
+    n, e = g.num_nodes, g.num_edges
+    w_fwd, w_mean = g.edge_weight, g.mean_weights
+    w_bwd = g.edge_weight.index_select(0, g.sender_edge_id)
+
+    def csr(ptr, idx, values):
+        return torch.sparse_csr_tensor(ptr, idx, values, (n, n))
+
+    # launches on the training path, from the counters of the whole phase:
+    # every weighted backward is the fp32 instance at d=256
+    by_shape, bwd = train["launches"]["by_shape"], train["launches"]["weighted_backward"]
+    # per step: the profiled weighted GCN and SAGE epochs (fp32; no eval in
+    # them, and the SAGE hoist ran before them, at the trainer's set-up), and
+    # the bf16 run (its eval runs fp32, so every bf16 launch is a step's)
+    prof = train["profiles"]["weighted gcn"]["launches"]
+    prof_steps = train["profiles"]["weighted gcn"]["steps"]
+    hoist_per_step = train["profiles"]["weighted sage"]["launches_per_step"].get(
+        _shape_key("float32->float32", 128, True), 0.0)
+    gcn16 = train["runs"][("collab", "bfloat16", "weighted gcn")]
+    cases = (
+        ("segsum.weighted.fwd.f32.d256", torch.float32, 256, g.senders, g.in_ptr, w_fwd,
+         csr(g.in_ptr, g.senders, w_fwd), "segsum_w",
+         by_shape.get(("float32->float32", 256, True), 0) - bwd,
+         (prof["weighted"] - prof["weighted_backward"]) / prof_steps,
+         "receiver CSR, the GCN aggregation's raw weights"),
+        ("segsum.weighted.bwd.f32.d256", torch.float32, 256, g.col, g.row_ptr, w_bwd,
+         csr(g.row_ptr, g.col, w_bwd), "spmm_bwd_w", bwd,
+         prof["weighted_backward"] / prof_steps, "sender CSR, weights through sender_edge_id"),
+        ("segsum.weighted.fwd.bf16.d256", torch.bfloat16, 256, g.senders, g.in_ptr, w_fwd,
+         csr(g.in_ptr, g.senders, w_fwd), "segsum_w_bf16",
+         by_shape.get(("bfloat16->bfloat16", 256, True), 0),
+         gcn16["counts"]["by_shape"].get(_shape_key("bfloat16->bfloat16", 256, True), 0)
+         / gcn16["steps"], "receiver CSR, bf16 -> bf16"),
+        ("segsum.weighted.hoist.f32.d128", torch.float32, 128, g.senders, g.in_ptr, w_mean,
+         csr(g.in_ptr, g.senders, w_mean), "segsum_w",
+         by_shape.get(("float32->float32", 128, True), 0), hoist_per_step,
+         "receiver CSR, the weighted mean's normalised weights (SAGE layer 1, hoisted: "
+         "once at the trainer's set-up and once for eval, none a step)"),
+    )
+    entries = []
+    for name, dtype, d, idx, ptr, wts, adj, err_key, launches, per_step, what in cases:
+        x = torch.randn(n, d, generator=gen, device="cuda").to(dtype)
+        t = _segsum_timing(x, idx, ptr, None, adj, weights=wts)
+        log("timing", {"kernel": name, "n": n, "e": e, "d": d, **t})
+        entry = {"name": name, "route": "cuda", "source": "llp_tpu_torch/csrc/segsum.cu",
+                 "replaces": "llp_tpu/ops/pallas/segsum_kernel.py:148",
+                 "launches": launches, "launches_per_step": per_step,
+                 "max_abs_err": worst[err_key], "ms": t["ms"], "plain_ms": t["plain_ms"],
+                 "bound_ms": t["bound_ms"], "bound_by": "bytes", "library_ms": t["library_ms"],
+                 "shapes": f"weighted collab train: n={n} e={e}, d={d}, {what}"}
+        if "library_note" in t:
+            entry["library_note"] = t["library_note"]
+        entries.append(entry)
+    return entries
 
 
 def _mlp_topk_entries(gen, launches: dict, worst: dict) -> list:
@@ -1123,7 +1415,7 @@ def phase_kernels(gen, launches: dict, train: dict, worst: dict) -> list:
             torch.bfloat16: ("bf16", "bfloat16->bfloat16", 191, "segsum_bf16",
                              "spmm_bwd_bf16")}
     for dtype, (tag, inst, line_no, fwd_key, bwd_key) in tags.items():
-        run = train["runs"][("collab", str(dtype).split(".")[-1])]
+        run = train["runs"][("collab", str(dtype).split(".")[-1], "")]
         prof = train["profiles"][str(dtype).split(".")[-1]]
         for direction, d in (("fwd", 128), ("fwd", 256), ("bwd", 256)):
             x = torch.randn(tn, d, generator=gen, device="cuda").to(dtype)
@@ -1134,7 +1426,7 @@ def phase_kernels(gen, launches: dict, train: dict, worst: dict) -> list:
                 x = (x.float() * tscale[:, None]).to(dtype)
                 t = _segsum_timing(x, tg.col, tg.row_ptr, None, bwd_adj)
                 key = bwd_key
-            shape_key = f"{inst} d={d}"
+            shape_key = _shape_key(inst, d, False)
             if direction == "fwd":
                 run_launches = run["counts"]["by_shape"].get(shape_key, 0)
                 per_step = prof["launches_per_step"].get(shape_key, 0.0)
@@ -1164,7 +1456,7 @@ def phase_kernels(gen, launches: dict, train: dict, worst: dict) -> list:
     x = torch.randn(tn, 256, generator=gen, device="cuda").bfloat16()
     t = _segsum_timing(x, tg.senders, tg.in_ptr, tscale, fwd_adj, out_dtype=torch.float32)
     log("timing", {"kernel": "segsum.fwd.bf16->f32", "n": tn, "e": te, "d": 256, **t})
-    return entries
+    return entries + _weighted_entries(gen, train, worst)
 
 
 def main() -> int:
@@ -1191,6 +1483,7 @@ def main() -> int:
     worst = phase_kernel_check(gen)
     phase_other_card()
     launches = phase_serve()
+    phase_weighted_data()
     train = phase_train()
     kernels = phase_kernels(gen, launches, train, worst)
     log("total", {"seconds": time.perf_counter() - t0})

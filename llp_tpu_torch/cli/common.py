@@ -36,7 +36,9 @@ def add_common_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--use_valedges_as_input", action="store_true",
                    help="not yet ported (ROADMAP A11)")
     p.add_argument("--use_edge_weight", action="store_true",
-                   help="not yet ported (ROADMAP A11)")
+                   help="aggregate with the dataset's per-edge weights (collab's "
+                        "co-authorship counts): weighted mean for SAGE, weighted "
+                        "sym-norm for GCN")
     p.add_argument("--transductive", type=str, default="transductive",
                    choices=["transductive", "production"],
                    help="production is not yet ported (ROADMAP A10)")

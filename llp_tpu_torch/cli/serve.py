@@ -2,7 +2,7 @@
 (counterpart of ``llp_tpu/cli/serve.py``, with the same flags and the same
 JSON lines).
 
-    # re-encode a GraphSAGE teacher over the dataset's edges, then retrieve
+    # re-encode a GNN teacher (SAGE or GCN) over the dataset's edges, then retrieve
     python -m llp_tpu_torch.cli.serve --checkpoint saved/cora-teacher \\
         --datasets cora --reencode --topk 10 --queries 0,42,1337
 
@@ -113,7 +113,8 @@ def main(argv=None):
     t0 = time.perf_counter()
     is_gnn = meta.get("encoder", "mlp") != "mlp"
     if is_gnn and args.reencode:
-        # Inductive serving: embed over the dataset's current edge set.
+        # Inductive serving: embed over the dataset's current edge set,
+        # unweighted, as the JAX CLI does (a --use_edge_weight teacher too).
         from llp_tpu_torch.core.graph import build_graph
 
         ds = get_dataset(args.dataset_dir, args.datasets)

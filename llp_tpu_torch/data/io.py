@@ -1,10 +1,11 @@
 """The dataset interchange file and the split cache (counterpart of
 ``llp_tpu/data/io.py``, the same file formats).
 
-* ``<root>/<name>.npz`` is the file ``llp_tpu.data.io.save_dataset_npz``
-  writes: arrays ``x`` (N, D) float32 and ``edge_index`` (2, E) int64 with
-  both directions, optionally ``edge_weight`` (E,) and an official split
-  stored as ``split__<part>__<key>`` arrays plus ``split_name``.
+* ``<root>/<name>.npz`` is the file :func:`save_dataset_npz` writes (as
+  ``llp_tpu.data.io.save_dataset_npz`` does): arrays ``x`` (N, D) float32
+  and ``edge_index`` (2, E) int64 with both directions, optionally
+  ``edge_weight`` (E,) and an official split stored as
+  ``split__<part>__<key>`` arrays plus ``split_name``.
 * ``<root>/<name>_split.npz`` caches a transductive split as
   ``<part>__<key>`` arrays with the dataset's fingerprint, so a split cached
   by either package is read by the other, and a cache made from another
@@ -19,6 +20,26 @@ import zlib
 import numpy as np
 
 _FP_KEY = "__dataset_fingerprint__"
+
+
+def save_dataset_npz(path: str, x: np.ndarray, edge_index: np.ndarray, *,
+                     edge_weight: np.ndarray | None = None, split: dict | None = None,
+                     split_name: str = "", extra: dict | None = None) -> None:
+    """Write the dataset interchange file: ``x``, ``edge_index``, and
+    optionally per-edge weights, an official split (``{part: {'edge': ...,
+    'edge_neg': ..., ...}}``) with its name, and ``extra`` arrays."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    arrays = {"x": x.astype(np.float32), "edge_index": edge_index.astype(np.int64)}
+    if edge_weight is not None:
+        arrays["edge_weight"] = np.asarray(edge_weight, np.float32)
+    if split is not None:
+        arrays["split_name"] = np.asarray(split_name or "official")
+        for part, d in split.items():
+            for k, v in d.items():
+                arrays[f"split__{part}__{k}"] = np.asarray(v)
+    if extra:
+        arrays.update({k: np.asarray(v) for k, v in extra.items()})
+    np.savez_compressed(path, **arrays)
 
 
 def unpack_dataset_npz(z) -> dict:

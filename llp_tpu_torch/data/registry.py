@@ -1,27 +1,33 @@
 """Dataset registry: name -> (features, undirected edge list).
 
-The subset of ``llp_tpu/data/registry.py`` that serving needs, in the same
-order of preference:
+The port of ``llp_tpu/data/registry.py``, in the same order of preference:
 
 1. ``synthetic:sbm:<n>:<k>:<deg>[:seed[:dim[:binary|gauss]]]`` and
    ``synthetic:ba:<n>:<m>[:seed]`` specs;
 2. ``<root>/<name>.npz``, the interchange file (:mod:`llp_tpu_torch.data.io`);
-3. a seeded synthetic stand-in with the real dataset's (N, D, avg-degree)
+3. an OGB ``ogbl_collab`` download (``edge.csv.gz`` + ``node-feat.csv.gz``,
+   ``edge_weight.csv.gz`` and the shipped ``split/<scheme>/*.pt``), the only
+   source of real edge weights, parsed once and cached in
+   ``<root>/<name>_parsed.npz`` under a fingerprint of the download;
+4. a seeded synthetic stand-in with the real dataset's (N, D, avg-degree)
    shape, byte-identical to the JAX package's stand-in for the same name.
 
-The raw Planetoid, GNN-benchmark and OGB parsers are not ported yet.  Where
-their files are present the JAX package would load the real data, so this
+The raw Planetoid and GNN-benchmark parsers are not ported yet.  Where their
+files are present the JAX package would load the real data, so this
 registry raises instead of silently serving a stand-in in their place.
 """
 
 from __future__ import annotations
 
+import gzip
 import os
+import zipfile
 import zlib
 from dataclasses import dataclass
 
 import numpy as np
 
+from llp_tpu_torch.data.io import save_dataset_npz, unpack_dataset_npz
 from llp_tpu_torch.data.synthetic import ba_graph, community_features, sbm_graph
 
 # (num_nodes, feature_dim, avg_degree, feature_kind, communities) of the real
@@ -37,7 +43,8 @@ _REAL_SHAPES = {
     "collab": (235868, 128, 8.2, "gauss", 64),
 }
 
-# Raw files the JAX registry parses before it falls back to a stand-in.
+# Raw files the JAX registry parses before it falls back to a stand-in, of
+# the parsers not ported yet.
 _RAW_MARKERS = {
     "cora": ["Cora/raw/ind.cora.allx", "cora/raw/ind.cora.allx", "ind.cora.allx"],
     "citeseer": ["Citeseer/raw/ind.citeseer.allx", "citeseer/raw/ind.citeseer.allx",
@@ -57,7 +64,6 @@ _RAW_MARKERS = {
                       "amazon-photos/amazon_electronics_photo.npz",
                       "amazon-photos/raw/amazon_electronics_photo.npz",
                       "Photo/raw/amazon_electronics_photo.npz"],
-    "collab": ["ogbl_collab/raw/edge.csv.gz", "collab/raw/edge.csv.gz", "edge.csv.gz"],
 }
 
 
@@ -86,8 +92,6 @@ def get_dataset(root: str, name: str) -> Dataset:
 
     npz_path = os.path.join(root, f"{name}.npz")
     if os.path.exists(npz_path):
-        from llp_tpu_torch.data.io import unpack_dataset_npz
-
         with np.load(npz_path) as z:
             d = unpack_dataset_npz(z)
         return Dataset(
@@ -103,6 +107,10 @@ def get_dataset(root: str, name: str) -> Dataset:
                 f"parsers). Export it once with "
                 f"llp_tpu.data.io.save_dataset_npz."
             )
+
+    ogb = _try_ogb_collab(root, name)
+    if ogb is not None:
+        return ogb
 
     if name in _REAL_SHAPES:
         return _synthetic_standin(name)
@@ -142,3 +150,151 @@ def _synthetic_standin(name: str) -> Dataset:
     ei, comm = sbm_graph(n, k, deg, homophily=0.88, seed=seed)
     x = community_features(comm, d, kind=feat_kind, seed=seed)
     return Dataset(name, x, ei, synthetic=True)
+
+
+def _symmetrize_dedup(ei: np.ndarray, n: int) -> np.ndarray:
+    """Both directions, unique, self-loops removed; (2, E) int64."""
+    keys = np.unique(np.concatenate([ei[0] * n + ei[1], ei[1] * n + ei[0]]))
+    ei = np.stack([keys // n, keys % n])
+    return ei[:, ei[0] != ei[1]]
+
+
+def _coalesce_undirected(ei: np.ndarray, n: int, weight: np.ndarray):
+    """Both directions, duplicates coalesced by summing their weights,
+    self-loops removed (``SparseTensor.coalesce`` on a weighted multigraph:
+    collab's raw edge list repeats a pair once per year of collaboration).
+    Returns ``(edge_index (2, E), weight (E,) float32)``."""
+    both = np.concatenate([ei, ei[::-1]], axis=1)
+    w2 = np.concatenate([weight, weight]).astype(np.float64)
+    keys, inv = np.unique(both[0] * n + both[1], return_inverse=True)
+    w = np.bincount(inv, weights=w2, minlength=keys.shape[0])
+    out = np.stack([keys // n, keys % n])
+    keep = out[0] != out[1]
+    return out[:, keep], w[keep].astype(np.float32)
+
+
+def _try_ogb_collab(root: str, name: str):
+    """An untouched OGB ``ogbl_collab`` download (the reference loads collab
+    through ``PygLinkPropPredDataset('ogbl-collab')``), or None.  The parse is
+    cached in ``<root>/<name>_parsed.npz`` under a fingerprint of the raw
+    files (name, size, mtime), so a fresh download invalidates it."""
+    if name not in ("collab", "ogbl-collab"):
+        return None
+    for base in (os.path.join(root, "ogbl_collab", "raw"),
+                 os.path.join(root, "collab", "raw"), root):
+        if (os.path.exists(os.path.join(base, "edge.csv.gz"))
+                and os.path.exists(os.path.join(base, "node-feat.csv.gz"))):
+            fp = _raw_fingerprint(base)
+            cache = os.path.join(root, f"{name}_parsed.npz")
+            ds = _load_parsed_cache(cache, name, fp)
+            if ds is not None:
+                return ds
+            ds = _parse_ogb_collab(base, name)
+            _save_parsed_cache(cache, ds, fp)
+            return ds
+    return None
+
+
+def _raw_fingerprint(raw_base: str) -> int:
+    """crc32 over the download's raw and split files (relative path, size,
+    mtime)."""
+    h = 0
+    roots = [raw_base, os.path.join(os.path.dirname(os.path.abspath(raw_base)), "split")]
+    for r in roots:
+        for dirpath, _, files in sorted(os.walk(r)):
+            for f in sorted(files):
+                p = os.path.join(dirpath, f)
+                st = os.stat(p)
+                h = zlib.crc32(f"{os.path.relpath(p, r)}:{st.st_size}:{st.st_mtime_ns}".encode(), h)
+    return int(h)
+
+
+def _load_parsed_cache(cache: str, name: str, fp: int):
+    """The cached parse, or None when it is missing, stale or unreadable."""
+    if not os.path.exists(cache):
+        return None
+    try:
+        with np.load(cache) as z:
+            if "raw_fingerprint" not in z or int(z["raw_fingerprint"]) != fp:
+                return None  # stale: the download changed
+            d = unpack_dataset_npz(z)
+    except (OSError, ValueError, KeyError, EOFError, zipfile.BadZipFile, zlib.error):
+        return None  # unreadable: parse afresh
+    return Dataset(name, d["x"], d["edge_index"], edge_weight=d["edge_weight"],
+                   split=d["split"], split_name=d["split_name"])
+
+
+def _save_parsed_cache(cache: str, ds: Dataset, fp: int) -> None:
+    try:
+        save_dataset_npz(cache, ds.x, ds.edge_index, edge_weight=ds.edge_weight,
+                         split=ds.split, split_name=ds.split_name,
+                         extra={"raw_fingerprint": np.asarray(fp, np.int64)})
+    except OSError:
+        pass  # a read-only dataset directory: the cache is best-effort
+
+
+def _parse_ogb_collab(base: str, name: str) -> Dataset:
+    with gzip.open(os.path.join(base, "node-feat.csv.gz"), "rt") as f:
+        x = np.loadtxt(f, delimiter=",", dtype=np.float32, ndmin=2)
+    with gzip.open(os.path.join(base, "edge.csv.gz"), "rt") as f:
+        ei = np.loadtxt(f, delimiter=",", dtype=np.int64, ndmin=2).T
+    # edge_weight.csv.gz comes in the same download: co-authorship counts
+    # (the reference loads them as data.edge_weight, src/main.py:310).
+    w = None
+    w_path = os.path.join(base, "edge_weight.csv.gz")
+    if os.path.exists(w_path):
+        with gzip.open(w_path, "rt") as f:
+            w = np.loadtxt(f, delimiter=",", dtype=np.float32).reshape(-1)
+        if w.shape[0] != ei.shape[1]:
+            raise ValueError(f"edge_weight.csv.gz has {w.shape[0]} rows for "
+                             f"{ei.shape[1]} edges")
+    if w is None:
+        ei_u, w_u = _symmetrize_dedup(ei, x.shape[0]), None
+    else:
+        ei_u, w_u = _coalesce_undirected(ei, x.shape[0], w)
+    # The official time split ships as split/time/{train,valid,test}.pt
+    # beside raw/ (the reference's dataset.get_edge_split(), src/main.py:313).
+    split, split_name = _load_ogb_split(base)
+    return Dataset(name, x, ei_u, edge_weight=w_u, split=split, split_name=split_name)
+
+
+def _load_ogb_split(raw_base: str):
+    """The OGB split files (torch-saved dicts of arrays or tensors) of the
+    first ``split/<scheme>/`` directory beside ``raw/`` (or inside it) that
+    holds all three parts: ``(split, "ogb:<scheme>")`` with int64 (M, 2)
+    ``edge``/``edge_neg`` and float32 ``weight``, or ``(None, "")``."""
+    import torch
+
+    candidates = []
+    parent = os.path.dirname(os.path.abspath(raw_base))
+    for holder in (parent, raw_base):
+        split_root = os.path.join(holder, "split")
+        if os.path.isdir(split_root):
+            for scheme in sorted(os.listdir(split_root)):
+                candidates.append((os.path.join(split_root, scheme), scheme))
+    for sdir, scheme in candidates:
+        paths = {p: os.path.join(sdir, f"{p}.pt") for p in ("train", "valid", "test")}
+        if not all(os.path.exists(p) for p in paths.values()):
+            continue
+        out = {}
+        for part, path in paths.items():
+            # The split files hold numpy arrays, which weights_only refuses.
+            blob = torch.load(path, map_location="cpu", weights_only=False)
+            if not isinstance(blob, dict):
+                raise ValueError(f"OGB split file {path} is not a dict "
+                                 f"(got {type(blob).__name__})")
+            d = {}
+            for k, v in blob.items():
+                a = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+                if k in ("edge", "edge_neg"):
+                    a = a.astype(np.int64)
+                    if a.ndim != 2 or a.shape[1] != 2:
+                        raise ValueError(f"{path}: {k} must be (M, 2), got {a.shape}")
+                elif k == "weight":
+                    a = a.astype(np.float32).reshape(-1)
+                d[k] = a
+            if "edge" not in d:
+                raise ValueError(f"{path} has no 'edge' key")
+            out[part] = d
+        return out, f"ogb:{scheme}"
+    return None, ""

@@ -11,8 +11,9 @@ between them, nothing after the last.  ``x_agg`` is layer 1's aggregation of
 the input, computed once outside the step (the weights do not enter it:
 :func:`llp_tpu_torch.models.encoder.precompute_first_aggregation`).  For
 ``sage_updated`` it enters by linearity: ``mean_j(W x_j + b) = W mean_j(x_j)
-+ b·1{deg > 0}``.  Not ported yet: ``last_rows`` (the JAX ``gather_last``)
-and ``packed_first`` (ROADMAP A6).
++ b·1{deg > 0}``, with the weighted degree on a weighted graph (whose mean
+is 0 where the in-edge weights sum to 0).  Not ported yet: ``last_rows``
+(the JAX ``gather_last``) and ``packed_first`` (ROADMAP A6).
 """
 
 from __future__ import annotations
@@ -49,7 +50,8 @@ class SAGEConv(nn.Module):
             return self.lin_l(agg) + self.lin_r(x)
         if x_agg is None:
             return mean_aggregate(graph, self.lin_l(x)) + self.lin_r(x)
-        has_nbr = (graph.in_degree > 0).to(x.dtype)[:, None]
+        deg = graph.in_degree if graph.edge_weight is None else graph.w_in_degree
+        has_nbr = (deg > 0).to(x.dtype)[:, None]
         out = F.linear(x_agg, self.lin_l.weight) + self.lin_l.bias * has_nbr
         return out + self.lin_r(x)
 

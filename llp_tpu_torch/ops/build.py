@@ -34,7 +34,7 @@ _P, _I64, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 # c_void_p (a bare Python int would be cut to 32 bits), sizes as int64,
 # type codes as int.
 SIGNATURES = {
-    "segsum": ("llp_segsum", [_P, _P, _P, _P, _P, _I64, _I64, _INT, _INT, _P]),
+    "segsum": ("llp_segsum", [_P, _P, _P, _P, _P, _P, _I64, _I64, _INT, _INT, _P]),
     "sddmm": ("llp_sddmm_mlp_f32",
               [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P]),
     "mlp_topk": ("llp_mlp_topk",

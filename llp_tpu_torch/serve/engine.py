@@ -4,8 +4,8 @@ retrieval (counterpart of ``llp_tpu/serve/engine.py``).
 * :func:`load_serving_artifacts` reads a training checkpoint (written by
   either package) into modules on the requested device.
 * :func:`encode_nodes` embeds features with an MLP (student) encoder;
-  :func:`encode_graph_nodes` runs a GNN teacher's full-graph forward, whose
-  mean aggregations are the segment-sum kernel on the card.
+  :func:`encode_graph_nodes` runs a GNN teacher's full-graph forward (SAGE
+  or GCN), whose aggregations are the segment-sum kernel on the card.
 * :func:`score_pairs` scores (src, dst) pairs; on the card a supported 'mlp'
   head goes through the fused SDDMM kernel.
 * :func:`top_k_partners` is the exact blocked top-K over the whole table;

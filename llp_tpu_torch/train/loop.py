@@ -12,10 +12,12 @@ trainer's keys: the JAX serving CLI applies a teacher's norms only when the
 meta names them.  Then the results ``.txt`` is appended, in
 the JAX package's format.
 
-Not ported yet, refused by :func:`refuse_unported`: the production setting
-(ROADMAP A10), ``use_valedges_as_input`` and edge weights (A11), resume,
-snapshots and node reordering (A12), more than one device (A14), the gcn
-encoder (A3); ``epochs_per_jit`` is a TPU mechanism.
+``use_edge_weight`` aggregates with the dataset's per-edge weights; they fit
+only a split shipped in the dataset, whose message graph is the dataset's
+own edge list (collab).  Not ported yet, refused by :func:`refuse_unported`:
+the production setting (ROADMAP A10), ``use_valedges_as_input`` (A11),
+resume, snapshots and node reordering (A12), more than one device (A14);
+``epochs_per_jit`` is a TPU mechanism.
 """
 
 from __future__ import annotations
@@ -64,10 +66,6 @@ def refuse_unported(cfg) -> None:
         raise _not_ported(f"--reorder {cfg.reorder}", "A12")
     if cfg.use_valedges_as_input:
         raise _not_ported("--use_valedges_as_input", "A11")
-    if cfg.use_edge_weight:
-        raise _not_ported("--use_edge_weight", "A11")
-    if cfg.encoder == "gcn":
-        raise _not_ported("--encoder gcn", "A3")
     if cfg.epochs_per_jit != 1:
         raise SystemExit(
             f"--epochs_per_jit {cfg.epochs_per_jit}: fusing epochs into one device "
@@ -86,6 +84,20 @@ def _conv_variant(cfg) -> str:
     return "sage_updated" if cfg.datasets == "coauthor-physics" else "sage"
 
 
+def _dataset_edge_weight(cfg, ds):
+    """(E,) weights for the message graph, or None (the default: the
+    reference never aggregates with weights; ``src/main.py:310`` loads
+    collab's edge_weight but its hot path overwrites adj_t)."""
+    if not cfg.use_edge_weight:
+        return None
+    if ds.edge_weight is None:
+        raise ValueError(
+            f"use_edge_weight requested but dataset {ds.name!r} carries no "
+            f"edge weights (only the ogbl-collab download ships them)"
+        )
+    return ds.edge_weight
+
+
 def prepare_transductive(cfg, device) -> dict:
     """Dataset, split, graph and the device tensors of a transductive run.
 
@@ -93,8 +105,11 @@ def prepare_transductive(cfg, device) -> dict:
     message graph is then the dataset's edge list), else the seed-234
     ``do_edge_split``, cached under ``<dataset_dir>/<name>_split.npz`` with
     the dataset's fingerprint (the train positives, both directions, are
-    then the message graph)."""
+    then the message graph).  With ``use_edge_weight`` the graph carries the
+    dataset's weights; they are aligned with its edge list, so a re-split
+    raises ``build_graph``'s length ``ValueError``, as in the JAX package."""
     ds = get_dataset(cfg.dataset_dir, cfg.datasets)
+    ew = _dataset_edge_weight(cfg, ds)
     if ds.split is not None:
         split = ds.split
         split_name = ds.split_name or "official"
@@ -115,7 +130,7 @@ def prepare_transductive(cfg, device) -> dict:
     pos = split["train"]["edge"]
     return dict(
         ds=ds,
-        graph=build_graph(message_ei, ds.num_nodes, device=device),
+        graph=build_graph(message_ei, ds.num_nodes, device=device, edge_weight=ew),
         x=torch.from_numpy(ds.x).to(device),
         pos_edges=edges(pos),
         neg_keys=(edge_keys(message_ei, ds.num_nodes, device=device)

@@ -7,11 +7,13 @@ full-graph encode, the predictor on [positives; negatives], BCE, per-group
 clip 1.0 and one Adam step.  The permutation is padded to steps × B and the
 padding masked, so the last, shorter batch reduces like the reference's.
 
-The layer-1 aggregation of the input is weight-free; for ``sage`` with the
-``sage`` conv it is computed once per run (:class:`TeacherTrainer`) and every
-step reuses it, which is exact.  The JAX package's ``epochs_per_call``,
-``donate_x`` and ``packed_x`` are TPU mechanisms and are not ported;
-``gather_last`` and ``remat`` are ROADMAP A6.
+The encoder is ``sage``, ``gcn`` or ``mlp``; on a weighted graph the GNN
+encoders aggregate with its weights.  The layer-1 aggregation of the input
+is weight-free; for ``sage`` with the ``sage`` conv it is computed once per
+run (:class:`TeacherTrainer`) and every step reuses it, which is exact.  A
+``gcn`` step aggregates twice forward and twice backward.  The JAX
+package's ``epochs_per_call``, ``donate_x`` and ``packed_x`` are TPU
+mechanisms and are not ported; ``gather_last`` and ``remat`` are ROADMAP A6.
 """
 
 from __future__ import annotations
@@ -23,12 +25,12 @@ from torch import nn
 
 from llp_tpu_torch.core.graph import Graph
 from llp_tpu_torch.models.encoder import (
+    GRAPH_ENCODERS,
     hoists_first_aggregation,
     init_encoder,
     precompute_first_aggregation,
 )
 from llp_tpu_torch.models.predictor import LinkPredictor
-from llp_tpu_torch.models.sage import SAGE
 from llp_tpu_torch.ops.losses import bce_loss
 from llp_tpu_torch.sample.negative import sample_negative_edges, sample_uniform_edges
 from llp_tpu_torch.train.optim import clip_by_group_norm
@@ -100,7 +102,7 @@ class TeacherTrainer:
         self.model.train()
         src = torch.cat([edges[:, 0], neg[0]])
         dst = torch.cat([edges[:, 1], neg[1]])
-        if isinstance(enc, SAGE):
+        if isinstance(enc, GRAPH_ENCODERS):
             h = call_in_dtype(enc, self.dtype, self.graph, self.x, x_agg=self.x_agg,
                               generator=generator)
         else:

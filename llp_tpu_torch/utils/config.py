@@ -73,6 +73,11 @@ class CommonConfig:
                 f"norm_type={self.norm_type!r}; expected one of {VALID_NORM_TYPES}"
             )
         resolve_dtype(self.compute_dtype)
+        if self.use_edge_weight and self.transductive == "production":
+            raise ValueError(
+                "use_edge_weight is a transductive capability (the production "
+                "splitter carries no edge weights)"
+            )
         if self.spmm_impl not in SPMM_IMPLS:
             raise ValueError(
                 f"spmm_impl={self.spmm_impl!r}: llp_tpu_torch has one SpMM route "

@@ -6,6 +6,7 @@ trees (numpy leaves) are:
 
 * SAGE: ``{"convs": [{"lin_l": {w, b}, "lin_r": {w}}], "norms": [...],
   ["norm_state": [{"mean", "var"}]]}``
+* GCN: ``{"convs": [{"lin": {w, b}}]}``
 * MLP: ``{"layers": [{w, b}], "norms": [...], ["norm_state": [...]]}``
 * LinkPredictor: ``{"lins": [{w, b}]}`` (empty for 'inner')
 
@@ -23,7 +24,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from llp_tpu_torch.models.encoder import GCN_NOT_PORTED
+from llp_tpu_torch.models.gcn import GCN
 from llp_tpu_torch.models.mlp import MLP
 from llp_tpu_torch.models.norms import make_norms, norm_type_of
 from llp_tpu_torch.models.predictor import LinkPredictor
@@ -79,14 +80,18 @@ def _norms_to_jax(norms: nn.ModuleList, tree: dict) -> dict:
 
 def from_jax(tree: Any, *, conv: str = "sage") -> nn.Module:
     """A module (on the CPU, in eval mode) holding the weights of a JAX
-    parameter tree of numpy arrays: SAGE, MLP or LinkPredictor."""
+    parameter tree of numpy arrays: SAGE, GCN, MLP or LinkPredictor."""
     # The modules are built with a generator of their own, whose draws the
     # loaded weights overwrite, so the global generator is left alone.
     g = torch.Generator()
     if "convs" in tree:
         convs = tree["convs"]
         if convs and "lin" in convs[0]:
-            raise NotImplementedError(GCN_NOT_PORTED)
+            dims = [np.asarray(c["lin"]["w"]).shape for c in convs]
+            model = GCN(dims[0][0], dims[0][1], dims[-1][1], len(dims), generator=g)
+            for mod, c in zip(model.convs, convs):
+                _load_linear(mod.lin, c["lin"])
+            return model.eval()
         dims = [np.asarray(c["lin_l"]["w"]).shape for c in convs]
         model = SAGE(dims[0][0], dims[0][1], dims[-1][1], len(dims), conv=conv,
                      generator=g)
@@ -127,11 +132,14 @@ def quant_from_jax(table, *, device="cpu"):
 
 
 def to_jax(model: nn.Module) -> dict:
-    """The JAX parameter tree (numpy leaves) of a SAGE, MLP or LinkPredictor."""
+    """The JAX parameter tree (numpy leaves) of a SAGE, GCN, MLP or
+    LinkPredictor."""
     if isinstance(model, SAGE):
         tree = {"convs": [{"lin_l": _linear_to_jax(c.lin_l),
                            "lin_r": _linear_to_jax(c.lin_r)} for c in model.convs]}
         return _norms_to_jax(model.norms, tree)
+    if isinstance(model, GCN):
+        return {"convs": [{"lin": _linear_to_jax(c.lin)} for c in model.convs]}
     if isinstance(model, MLP):
         tree = {"layers": [_linear_to_jax(lin) for lin in model.layers]}
         return _norms_to_jax(model.norms, tree)

@@ -14,6 +14,7 @@ from llp_tpu.models.sage import apply_sage, init_sage
 from llp_tpu.utils import checkpoint as jax_checkpoint
 from llp_tpu_torch.core.graph import build_graph
 from llp_tpu_torch.models.encoder import apply_encoder, init_encoder
+from llp_tpu_torch.models.gcn import GCN
 from llp_tpu_torch.models.init import linear
 from llp_tpu_torch.models.mlp import MLP
 from llp_tpu_torch.models.predictor import LinkPredictor
@@ -134,8 +135,14 @@ def test_to_jax_from_jax_round_trips_bit_exactly(make):
 
 
 def test_from_jax_refuses_gcn_and_unknown_trees():
-    with pytest.raises(NotImplementedError, match="gcn"):
-        from_jax({"convs": [{"lin": {"w": np.zeros((2, 2)), "b": np.zeros(2)}}]})
+    # A GCN tree loads now (tests/test_torch_gcn.py holds it against JAX);
+    # a tree of no known module, or a GCN conv of the wrong width, is refused.
+    gcn = from_jax({"convs": [{"lin": {"w": np.ones((2, 3), np.float32),
+                                       "b": np.zeros(3, np.float32)}}]})
+    assert isinstance(gcn, GCN) and gcn.convs[0].lin.weight.shape == (3, 2)
+    with pytest.raises(ValueError, match="does not fit"):  # conv 1 takes 3 features
+        from_jax({"convs": [{"lin": {"w": np.ones((2, 3)), "b": np.zeros(3)}},
+                            {"lin": {"w": np.ones((4, 3)), "b": np.zeros(3)}}]})
     with pytest.raises(ValueError, match="not a known parameter tree"):
         from_jax({"weights": []})
 
@@ -164,8 +171,12 @@ def test_encoder_dispatch():
     with torch.no_grad():
         assert apply_encoder(sage, build_graph(ei, 80, device="cpu"), xt).shape == (80, 16)
         assert apply_encoder(mlp, None, xt).shape == (80, 16)
-    with pytest.raises(NotImplementedError, match="gcn"):
-        init_encoder("gcn", 24, 32, 16, 2)
+    gcn = init_encoder("gcn", 24, 32, 16, 2, generator=g)
+    assert isinstance(gcn, GCN)
+    with torch.no_grad():
+        assert apply_encoder(gcn, build_graph(ei, 80, device="cpu"), xt).shape == (80, 16)
+    with pytest.raises(ValueError, match="no inter-layer norms"):
+        init_encoder("gcn", 24, 32, 16, 2, norm_type="layer")
     with pytest.raises(ValueError, match="unknown encoder"):
         init_encoder("gat", 24, 32, 16, 2)
     with pytest.raises(TypeError):

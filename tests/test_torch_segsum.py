@@ -101,8 +101,10 @@ def test_spmm_refuses_weights_and_unknown_reductions():
     ei, x = _problem("isolated", 8)
     g = build_graph(ei, x.shape[0], device="cpu")
     xt = torch.from_numpy(x)
-    with pytest.raises(NotImplementedError, match="B1-weighted"):
-        spmm(g, xt, "sum", edge_weight=torch.ones(g.num_edges))
+    with pytest.raises(ValueError, match="reduce='max'"):  # as the JAX spmm
+        spmm(g, xt, "max", edge_weight=torch.ones(g.num_edges))
+    with pytest.raises(ValueError, match="one weight per edge"):
+        spmm(g, xt, "sum", edge_weight=torch.ones(g.num_edges + 1))
     with pytest.raises(ValueError, match="unknown reduce"):
         spmm(g, xt, "min")
 

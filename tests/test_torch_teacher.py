@@ -3,7 +3,7 @@
 * The reference's own 3-step teacher trajectories (``golden_losses.npz``:
   full-graph SAGE, fixed negatives, dropout 0, BCE, per-group clip, Adam),
   as ``tests/test_reference_golden.py:218-261`` gates the JAX package: rtol
-  2e-4, atol 2e-5.  ``gcn`` waits for ROADMAP A3.
+  2e-4, atol 2e-5.  The ``gcn`` trajectory is in ``tests/test_torch_gcn.py``.
 * One epoch of :class:`TeacherTrainer` (padded last batch, injected
   negatives, dropout 0) against the same epoch composed from the JAX
   package's public pieces over the same permutation.

@@ -1,8 +1,9 @@
 """The slice as a whole: the port's training CLI on the CPU writes the teacher
 artifact, the results file and the split cache; both packages' serving CLIs
 serve the artifact and agree on the pair scores (atol=1e-5); the JAX
-package's training CLI prints and writes the same lines; settings not ported
-yet exit; and without ``--device cpu`` on a host with no card the CLI exits."""
+package's training CLI prints and writes the same lines; ``--use_edge_weight``
+and ``--encoder=gcn`` train; settings not ported yet exit; and without
+``--device cpu`` on a host with no card the CLI exits."""
 
 import json
 import os
@@ -17,6 +18,8 @@ from llp_tpu.cli import train_teacher as jax_train
 from llp_tpu.data.io import load_split_npz
 from llp_tpu_torch.cli import serve as torch_serve
 from llp_tpu_torch.cli import train_teacher
+from llp_tpu_torch.data.io import save_dataset_npz
+from llp_tpu_torch.data.registry import get_dataset
 
 DATASET = "synthetic:sbm:300:4:6.0:1:48:gauss"
 
@@ -99,8 +102,7 @@ def test_stdout_and_results_lines_match_the_jax_cli(tmp_path, capsys):
 @pytest.mark.parametrize("flag", [
     "--transductive=production", "--num_devices=2", "--sharding=halo", "--resume",
     "--checkpoint_every=5", "--reorder=rcm", "--reorder=locality",
-    "--use_valedges_as_input", "--use_edge_weight", "--epochs_per_jit=2",
-    "--encoder=gcn", "--spmm_impl=xla",
+    "--use_valedges_as_input", "--epochs_per_jit=2", "--spmm_impl=xla",
 ])
 def test_unported_settings_exit(flag, tmp_path):
     with pytest.raises(SystemExit) as exc:
@@ -108,6 +110,48 @@ def test_unported_settings_exit(flag, tmp_path):
     assert exc.value.code not in (None, 0)
     assert re.search(r"not yet ported|TPU mechanism|one SpMM route", str(exc.value.code))
     assert not os.path.exists(tmp_path / "data")  # refused before any work
+
+
+def test_use_edge_weight_trains_on_a_dataset_that_ships_weights_and_a_split(tmp_path):
+    # an npz with weights and an official split: the pairs of DATASET, a
+    # tenth held out for valid and for test, weights 1..4 on the rest
+    ds = get_dataset("", DATASET)
+    rng = np.random.default_rng(0)
+    pairs = ds.edge_index[:, ds.edge_index[0] < ds.edge_index[1]].T
+    pairs = pairs[rng.permutation(len(pairs))]
+    k = len(pairs) // 10
+    train = pairs[2 * k:]
+    w = rng.integers(1, 5, len(train)).astype(np.float32)
+    split = {"train": {"edge": train},
+             "valid": {"edge": pairs[:k], "edge_neg": rng.integers(0, 300, (k, 2))},
+             "test": {"edge": pairs[k:2 * k], "edge_neg": rng.integers(0, 300, (k, 2))}}
+    save_dataset_npz(str(tmp_path / "data" / "weighted.npz"), ds.x,
+                     np.concatenate([train.T, train.T[::-1]], axis=1),
+                     edge_weight=np.concatenate([w, w]), split=split)
+    flags = [f for f in _flags(tmp_path) if not f.startswith("--datasets")]
+    stats, report = train_teacher.main(["--device=cpu", "--datasets=weighted", *flags,
+                                        "--use_edge_weight", "--runs=1"])
+    assert np.isfinite(stats["AUC"]["test"][0]) and report["split_name"] == "official"
+    assert (tmp_path / "saved" / "weighted-sage_transductive.npz").exists()
+    # a dataset without weights still refuses the flag, as in JAX
+    with pytest.raises(ValueError, match="carries no edge weights"):
+        train_teacher.main(["--device=cpu", *_flags(tmp_path), "--use_edge_weight"])
+
+
+def test_gcn_teacher_trains_exports_and_serves_alike(tmp_path, capsys):
+    stats, report = train_teacher.main(["--device=cpu", *_flags(tmp_path), "--encoder=gcn",
+                                        "--runs=1"])
+    assert stats["AUC"]["valid"][0] > 0 and len(report["losses"][0]) == 4
+    ckpt = tmp_path / "saved" / f"{DATASET}-gcn_transductive"
+    with np.load(f"{ckpt}.npz") as z:
+        assert z["params/encoder/convs/0/lin/w"].shape == (48, 32)
+    capsys.readouterr()
+    argv = [f"--checkpoint={ckpt}", f"--datasets={DATASET}",
+            f"--dataset_dir={tmp_path / 'data'}", "--device=cpu", "--reencode",
+            "--pairs=0:1,5:9,42:42"]
+    a = _serve(torch_serve.main, argv, capsys)[0]
+    b = _serve(jax_serve.main, argv, capsys)[0]
+    np.testing.assert_allclose(a["scores"], b["scores"], atol=1e-5, rtol=0)
 
 
 def test_train_cli_without_device_cpu_exits_on_a_host_without_cuda(monkeypatch, tmp_path):
