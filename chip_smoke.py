@@ -46,21 +46,37 @@ failure exits non-zero.
                    ``collab``; on the weighted collab export
                    (``--use_edge_weight``) SAGE 2 epochs at fp32 and GCN 2
                    epochs each at fp32 and bf16; the GCN teacher 20 epochs
-                   on ``cora``. Launch counters show the segsum kernel in
-                   both directions on every step (the weighted instances on
-                   the weighted runs, twice a step for GCN) and the SDDMM
-                   kernel in eval. The serving CLI serves both cora
-                   artifacts, on the card and on the CPU. Then 3 steps with
-                   dropout 0 and fixed negatives, on the card and on the
-                   CPU, whose losses must agree: SAGE on ``cora``, weighted
-                   GCN on the 20,000-node export; and a profiled collab
-                   epoch per type and of weighted GCN (where the time goes).
-7. kernels      -- one JSON line: each kernel's launches on the serving and
-                   training paths, its time at the collab shapes, the plain
-                   version's time, a library call's time where one exists,
-                   and the least time the card could take. A
-                   ``top_k_partners:`` line gives the fused and unfused
-                   top-K times at Q=256 over collab.
+                   on ``cora``; SAGE with ``--use_valedges_as_input`` 5
+                   epochs on ``cora`` and 2 on the 20,000-node weighted
+                   export. Launch counters show the segsum kernel in both
+                   directions on every step (the weighted instances on the
+                   weighted runs, twice a step for GCN), over both graphs
+                   with the validation edges as input, and the SDDMM kernel
+                   in eval. The serving CLI serves both cora artifacts, on
+                   the card and on the CPU. Then 3 steps with dropout 0 and
+                   fixed negatives, on the card and on the CPU, whose losses
+                   must agree: SAGE on ``cora``, weighted GCN on the
+                   20,000-node export; and a profiled collab epoch per type
+                   and of weighted GCN and SAGE (where the time goes).
+7. student      -- the student's CLI (``llp_tpu_torch.cli.train_student.main``)
+                   at full width (hidden 256, 2 layers, mlp head, link
+                   batch 65,536, dropout 0.5, C = 12 contexts) from the
+                   train phase's teachers: on ``cora`` 20 epochs full-batch
+                   ``nb``, 20 epochs ``--minibatch --ps_method=rw
+                   --llp_r_chunk=16`` and 5 epochs with KD_RM = KD_LM = 0.3;
+                   on the weighted collab export 2 epochs each at fp32,
+                   bf16 and fp32 ``--minibatch``. Every loss falls, every
+                   eval launches SDDMM 4 times and nothing launches segsum.
+                   The default cora student serves on the card (top-K
+                   through mlp_topk) and on the CPU alike; 3 single-step
+                   epochs with fixed contexts and negatives agree with the
+                   CPU's; a profiled collab student epoch.
+8. kernels      -- one JSON line: each kernel's launches on the serving,
+                   training and student paths, its time at the collab
+                   shapes, the plain version's time, a library call's time
+                   where one exists, and the least time the card could
+                   take. A ``top_k_partners:`` line gives the fused and
+                   unfused top-K times at Q=256 over collab.
 
 The last line is ``{"ok": true, "device": {...}}``. Without CUDA, or outside
 a checkout, the script exits 1 and prints no result.
@@ -789,9 +805,13 @@ def phase_serve() -> dict:
     return launches
 
 
-def _train(argv) -> tuple[dict, dict, list]:
-    """Run the training CLI; returns its stats, its report and its stdout."""
-    from llp_tpu_torch.cli.train_teacher import main
+def _train(argv, student: bool = False) -> tuple[dict, dict, list]:
+    """Run the teacher's (or the student's) training CLI; returns its stats,
+    its report and its stdout."""
+    if student:
+        from llp_tpu_torch.cli.train_student import main
+    else:
+        from llp_tpu_torch.cli.train_teacher import main
 
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
@@ -833,21 +853,28 @@ TRAIN_FLAGS = ["--hidden_channels=256", "--num_layers=2", "--predictor=mlp",
                "--log_steps=1", "--patience=100"]
 
 # The training runs: (dataset, epochs, compute dtype, dataset directory,
-# variant). The first three are the default SAGE teacher on the stand-ins;
-# the rest train on the weighted collab export (SAGE, and GCN at both
-# types) and the GCN teacher on cora.
-TRAIN_RUNS = (("cora", 20, "float32", STANDINS, ""),
-              ("collab", 2, "float32", STANDINS, ""),
-              ("collab", 2, "bfloat16", STANDINS, ""),
-              ("collab", 2, "float32", WEIGHTED, "weighted sage"),
-              ("collab", 2, "float32", WEIGHTED, "weighted gcn"),
-              ("collab", 2, "bfloat16", WEIGHTED, "weighted gcn"),
-              ("cora", 20, "float32", STANDINS, "gcn"))
+# variant, save directory under WORK). The first three are the default SAGE
+# teacher on the stand-ins; then the weighted collab export (SAGE, and GCN
+# at both types), the GCN teacher on cora, and the SAGE teacher with the
+# validation edges as input on cora and on the 20,000-node weighted export.
+# The cora SAGE and weighted SAGE teachers, which the student phase distils
+# from, have save directories of their own, so no later run overwrites them.
+TRAIN_RUNS = (("cora", 20, "float32", STANDINS, "", "teacher_cora"),
+              ("collab", 2, "float32", STANDINS, "", "saved"),
+              ("collab", 2, "bfloat16", STANDINS, "", "saved"),
+              ("collab", 2, "float32", WEIGHTED, "weighted sage", "teacher_weighted"),
+              ("collab", 2, "float32", WEIGHTED, "weighted gcn", "saved"),
+              ("collab", 2, "bfloat16", WEIGHTED, "weighted gcn", "saved"),
+              ("cora", 20, "float32", STANDINS, "gcn", "saved"),
+              ("cora", 5, "float32", STANDINS, "valedges", "saved_valedges"),
+              ("collab", 2, "float32", WEIGHTED_SMALL, "weighted sage valedges",
+               "saved_valedges"))
 
 
 def _variant_flags(variant: str) -> list:
     return ((["--use_edge_weight"] if "weighted" in variant else [])
-            + (["--encoder=gcn"] if "gcn" in variant else []))
+            + (["--encoder=gcn"] if "gcn" in variant else [])
+            + (["--use_valedges_as_input"] if "valedges" in variant else []))
 
 
 def _train_line(name: str, dtype: str, variant: str, stats: dict, report: dict,
@@ -949,27 +976,45 @@ def _parity_losses(device: str, compute_dtype: str, *, dataset_dir: str = STANDI
             for i in range(steps)]
 
 
-def _profile_epoch(compute_dtype: str, *, dataset_dir: str = STANDINS, encoder: str = "sage",
-                   use_edge_weight: bool = False) -> dict:
-    """One collab epoch under ``torch.profiler`` after a warm-up epoch: the
-    device time by kernel, the epoch's wall time and its launches."""
+def _collab(dataset_dir: str, use_edge_weight: bool = False) -> dict:
+    """The collab training data on the card (``prepare_transductive``)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from llp_tpu_torch.train.loop import prepare_transductive
-    from llp_tpu_torch.train.teacher import TeacherTrainer, init_teacher
     from llp_tpu_torch.utils.config import TeacherConfig
 
-    cfg = TeacherConfig(datasets="collab", dataset_dir=dataset_dir, encoder=encoder,
-                        use_edge_weight=use_edge_weight)
-    data = prepare_transductive(cfg, torch.device("cuda"))
+    return prepare_transductive(TeacherConfig(datasets="collab", dataset_dir=dataset_dir,
+                                              use_edge_weight=use_edge_weight),
+                                torch.device("cuda"))
+
+
+def _profile_epoch(data: dict, compute_dtype: str, *, encoder: str = "sage") -> dict:
+    """One collab teacher epoch over ``data`` (from :func:`_collab`) under
+    ``torch.profiler`` after a warm-up epoch (:func:`_profile_trainer`)."""
+    import torch
+
+    from llp_tpu_torch.train.teacher import TeacherTrainer, init_teacher
+
     model = init_teacher(encoder=encoder, in_channels=data["x"].shape[1], hidden_channels=256,
                          num_layers=2, predictor_mode="mlp", dropout=0.5,
                          generator=torch.Generator().manual_seed(0)).cuda()
     trainer = TeacherTrainer(model, data["graph"], data["x"], data["pos_edges"],
-                             encoder=encoder, batch_size=65536, neg_mode=cfg.neg_mode,
+                             encoder=encoder, batch_size=65536, neg_mode="uniform",
                              compute_dtype=compute_dtype)
+    out = {"encoder": encoder, "weighted": data["graph"].edge_weight is not None,
+           "compute_dtype": compute_dtype, **_profile_trainer(trainer)}
+    log("train_profile", out)
+    return out
+
+
+def _profile_trainer(trainer) -> dict:
+    """A warm-up epoch, a timed epoch (wall time, launch counters), then one
+    under ``torch.profiler``: the device time by kernel, the kernels a step
+    launches and the device's idle share."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     gen = torch.Generator(device="cuda").manual_seed(0)
     trainer.epoch(gen)
     torch.cuda.synchronize()
@@ -984,22 +1029,23 @@ def _profile_epoch(compute_dtype: str, *, dataset_dir: str = STANDINS, encoder: 
         torch.cuda.synchronize()
     # Kernels only: a CPU op's entry, and a user annotation's device span,
     # repeat the device time of the kernels inside them.
-    by_kernel = {ev.key: ev.self_device_time_total / 1e3 for ev in prof.key_averages()
-                 if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
-                 and not getattr(ev, "is_user_annotation", False)}
+    kernels = [ev for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
+               and not getattr(ev, "is_user_annotation", False)]
+    by_kernel = {ev.key: ev.self_device_time_total / 1e3 for ev in kernels}
     device_ms = sum(by_kernel.values())
     segsum_ms = sum(v for k, v in by_kernel.items() if "segsum_kernel" in k)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
-    out = {"encoder": encoder, "weighted": use_edge_weight, "compute_dtype": compute_dtype,
-           "steps": trainer.steps, "epoch_s": wall_s, "launches": counts,
-           "launches_per_step": {k: v / trainer.steps for k, v in counts["by_shape"].items()},
-           "device_ms": device_ms if device_ms else "not measured",
-           "segsum_ms": segsum_ms if device_ms else "not measured",
-           # the unprofiled epoch's wall time against the profiled one's kernels
-           "device_idle_share": 1 - device_ms / (wall_s * 1e3) if device_ms else "not measured",
-           "top_kernels_ms": top}
-    log("train_profile", out)
-    return out
+    steps = trainer.steps
+    return {"steps": steps, "epoch_s": wall_s, "launches": counts,
+            "launches_per_step": {k: v / steps for k, v in counts["by_shape"].items()},
+            "kernels_per_step": sum(ev.count for ev in kernels) / steps if kernels
+            else "not measured",
+            "device_ms": device_ms if device_ms else "not measured",
+            "segsum_ms": segsum_ms if device_ms else "not measured",
+            # the unprofiled epoch's wall time against the profiled one's kernels
+            "device_idle_share": 1 - device_ms / (wall_s * 1e3) if device_ms else "not measured",
+            "top_kernels_ms": top}
 
 
 def _check_train_launches(label: str, variant: str, dtype: str, counts: dict,
@@ -1038,6 +1084,21 @@ def _check_train_launches(label: str, variant: str, dtype: str, counts: dict,
                                  f"{steps} steps (one forward and one backward each)")
 
 
+def _check_valedges_launches(label: str, variant: str, counts: dict, steps: int,
+                             evals: int, in_dim: int) -> None:
+    """With the validation edges as input, segsum runs over both graphs: the
+    layer-1 hoist once for the trainer and once per eval graph, and every
+    eval encodes layer 2 over the train graph and over the train+valid one."""
+    weighted = "weighted" in variant
+    shapes = counts["by_shape"]
+    hoists = shapes.get(_shape_key("float32->float32", in_dim, weighted), 0)
+    backward = counts["weighted_backward"] if weighted else counts["backward"]
+    layer2 = shapes.get(_shape_key("float32->float32", 256, weighted), 0) - backward
+    if hoists != 3 or layer2 != steps + 2 * evals:
+        raise AssertionError(f"{label}: {hoists} layer-1 and {layer2} layer-2 forward "
+                             f"launches, expected 3 and {steps} + 2 x {evals} (both graphs)")
+
+
 def _serve_trained(ckpt: Path, expect_segsum: int) -> None:
     """Serve a trained cora artifact through the CLI on the card and on the
     CPU (re-encode, top-10 of 16 queries, 1,024 pairs); the answers agree."""
@@ -1046,7 +1107,7 @@ def _serve_trained(ckpt: Path, expect_segsum: int) -> None:
     from llp_tpu_torch.ops.segsum import segsum
 
     if not all(Path(f"{ckpt}{ext}").exists() for ext in (".npz", ".json")):
-        raise AssertionError(f"the cora teacher artifact {ckpt} was not written")
+        raise AssertionError(f"the cora artifact {ckpt} was not written")
     queries, pairs = _requests(2708, seed=3)
     argv = [f"--checkpoint={ckpt}", "--datasets=cora", f"--dataset_dir={STANDINS}",
             "--reencode", "--topk=10", f"--queries={queries}", f"--pairs={pairs}"]
@@ -1076,18 +1137,18 @@ def phase_train() -> dict:
     from llp_tpu_torch.ops.sddmm import sddmm_mlp_score
     from llp_tpu_torch.ops.spmm import spmm
 
-    saved, results = WORK / "saved", WORK / "results"
+    results = WORK / "results"
     runs = {}
     # the training path starts here
     segsum.launches = spmm.backward_launches = sddmm_mlp_score.launches = 0
     spmm.weighted_backward_launches = 0
     segsum.launch_counts.clear()
-    for name, epochs, dtype, data_dir, variant in TRAIN_RUNS:
+    for name, epochs, dtype, data_dir, variant, save in TRAIN_RUNS:
         label = f"{name} {dtype} {variant or 'sage'}"
         before = _counts()
         stats, report, _ = _train([f"--datasets={name}", f"--epochs={epochs}",
                                    f"--compute_dtype={dtype}", f"--dataset_dir={data_dir}",
-                                   f"--save_dir={saved}", f"--results_dir={results}",
+                                   f"--save_dir={WORK / save}", f"--results_dir={results}",
                                    *TRAIN_FLAGS, *_variant_flags(variant)])
         counts = _delta(_counts(), before)
         line = _train_line(name, dtype, variant, stats, report, counts)
@@ -1095,11 +1156,14 @@ def phase_train() -> dict:
         if line["losses"][-1] >= line["losses"][0]:
             raise AssertionError(f"{label}: the loss did not fall: {line['losses']}")
         _check_train_launches(label, variant, dtype, counts, steps)
+        if "valedges" in variant:
+            _check_valedges_launches(label, variant, counts, steps, len(report["eval_s"]),
+                                     1433 if name == "cora" else 128)
         runs[(name, dtype, variant)] = {"line": line, "counts": counts, "steps": steps}
     launches = _counts()
 
-    _serve_trained(saved / "cora-sage_transductive", expect_segsum=2)
-    _serve_trained(saved / "cora-gcn_transductive", expect_segsum=2)
+    _serve_trained(WORK / "teacher_cora" / "cora-sage_transductive", expect_segsum=2)
+    _serve_trained(WORK / "saved" / "cora-gcn_transductive", expect_segsum=2)
 
     parity = {}
     for label, kw in (("cora sage", {}),
@@ -1121,12 +1185,175 @@ def phase_train() -> dict:
                                  f"{line['bf16_rel_gap']:.3g} > {BF16_LOSS_RTOL}")
         parity[label] = line
 
-    profiles = {dtype: _profile_epoch(dtype) for dtype in ("float32", "bfloat16")}
-    profiles["weighted gcn"] = _profile_epoch("float32", dataset_dir=WEIGHTED, encoder="gcn",
-                                              use_edge_weight=True)
-    profiles["weighted sage"] = _profile_epoch("float32", dataset_dir=WEIGHTED,
-                                               use_edge_weight=True)
-    return {"runs": runs, "launches": launches, "profiles": profiles, "parity": parity}
+    # the collab data, loaded once for the profiles here and the kernels phase
+    data = {"collab": _collab(STANDINS), "weighted": _collab(WEIGHTED, use_edge_weight=True)}
+    profiles = {dtype: _profile_epoch(data["collab"], dtype) for dtype in ("float32", "bfloat16")}
+    profiles["weighted gcn"] = _profile_epoch(data["weighted"], "float32", encoder="gcn")
+    profiles["weighted sage"] = _profile_epoch(data["weighted"], "float32")
+    return {"runs": runs, "launches": launches, "profiles": profiles, "parity": parity,
+            "data": data}
+
+
+STUDENT_FLAGS = ["--hidden_channels=256", "--num_layers=2", "--predictor=mlp",
+                 "--link_batch_size=65536", "--dropout=0.5", "--runs=1", "--eval_steps=1",
+                 "--log_steps=1", "--patience=100", "--encoder=sage"]
+
+# The student runs: (dataset, epochs, compute dtype, dataset directory, the
+# teacher's save directory under WORK, flags). The default student (C = 12
+# contexts, nb walks, LLP_D + LLP_R + 0.1 BCE) on cora from the cora SAGE
+# teacher, then minibatch with rw walks and chunked LLP_R, then the KD_RM
+# and KD_LM baselines; on the weighted collab export (without
+# --use_edge_weight: the walks are uniform) from the weighted SAGE teacher,
+# fp32, bf16 and minibatch.
+STUDENT_RUNS = (("cora", 20, "float32", STANDINS, "teacher_cora", ()),
+                ("cora", 20, "float32", STANDINS, "teacher_cora",
+                 ("--minibatch", "--ps_method=rw", "--llp_r_chunk=16")),
+                ("cora", 5, "float32", STANDINS, "teacher_cora", ("--KD_RM=0.3", "--KD_LM=0.3")),
+                ("collab", 2, "float32", WEIGHTED, "teacher_weighted", ()),
+                ("collab", 2, "bfloat16", WEIGHTED, "teacher_weighted", ()),
+                ("collab", 2, "float32", WEIGHTED, "teacher_weighted", ("--minibatch",)))
+
+
+def _student_line(name: str, dtype: str, flags, stats: dict, report: dict,
+                  counts: dict) -> dict:
+    import statistics
+
+    metric = "Hits@50" if name == "collab" else "Hits@20"
+    steady = report["epoch_s"][1:] or report["epoch_s"]
+    line = {"dataset": name, "compute_dtype": dtype, "flags": list(flags),
+            "epochs": len(report["epoch_s"]), "steps_per_epoch": report["steps_per_epoch"],
+            "node_batch": report["node_batch"],
+            "epoch_s": statistics.median(steady), "epoch_s_all": report["epoch_s"],
+            "eval_s": report["perf"]["mean_eval_s"],
+            "edges_per_s": report["perf"]["edges_per_sec"],
+            "losses": report["losses"][0], "metric": metric,
+            "valid": stats[metric]["valid"][0], "test": stats[metric]["test"][0],
+            "launches": counts}
+    log("student", line)
+    return line
+
+
+def _student_trainer(device: str, *, name: str, dataset_dir: str, teacher: str,
+                     dropout: float, compute_dtype: str = "float32", **kw):
+    """A full-width student (hidden 256, 2 layers, mlp head) and its trainer
+    on ``device``, distilling from the teacher artifact at ``teacher``."""
+    import numpy as np
+    import torch
+
+    from llp_tpu_torch.train.loop import prepare_transductive
+    from llp_tpu_torch.train.student import StudentTrainer, init_student
+    from llp_tpu_torch.utils.checkpoint import load_checkpoint
+    from llp_tpu_torch.utils.config import StudentConfig
+    from llp_tpu_torch.utils.params import from_jax
+
+    cfg = StudentConfig(datasets=name, dataset_dir=dataset_dir)
+    data = prepare_transductive(cfg, torch.device(device))
+    ckpt, _ = load_checkpoint(teacher)
+    t_h = torch.from_numpy(np.asarray(ckpt["features"], np.float32)).to(device)
+    n, d = data["x"].shape
+    model = init_student(in_channels=d, hidden_channels=256, num_layers=2, predictor_mode="mlp",
+                         dropout=dropout, generator=torch.Generator().manual_seed(0))
+    kw.setdefault("node_batch_size", cfg.coupled_node_batch_size(n, data["num_pos"]))
+    return data, StudentTrainer(model.to(device), data["graph"], data["x"], t_h,
+                                from_jax(ckpt["params"]["predictor"]), data["pos_edges"],
+                                neg_mode=cfg.neg_mode, neg_keys=data["neg_keys"],
+                                compute_dtype=compute_dtype, **kw)
+
+
+def _student_parity_losses(device: str, contexts, steps: int = 3) -> list:
+    """``steps`` single-step epochs of the cora student at full width,
+    dropout 0, with fixed contexts and negatives drawn on the host."""
+    import numpy as np
+    import torch
+
+    data, trainer = _student_trainer(
+        device, name="cora", dataset_dir=STANDINS, dropout=0.0,
+        teacher=str(WORK / "teacher_cora" / "cora-sage_transductive"),
+        link_batch_size=65536, node_batch_size=2708)
+    if trainer.steps != 1:
+        raise AssertionError(f"cora student: {trainer.steps} steps per epoch, expected 1")
+    negatives = np.random.default_rng(7).integers(0, 2708, (steps, 1, 2, trainer.batch))
+    gen = torch.Generator(device=device).manual_seed(0)
+    return [float(trainer.epoch(gen, negatives=torch.from_numpy(negatives[i]).to(device),
+                                contexts=contexts.to(device))) for i in range(steps)]
+
+
+def phase_student() -> dict:
+    """Drive the student's training CLI on the card from the train phase's
+    teachers, serve the cora student on the card and on the CPU, hold 3
+    steps against the CPU and profile a collab student epoch; returns each
+    run's launches, the kernels' launches on the student's path and the
+    profile."""
+    import numpy as np
+    import torch
+
+    from llp_tpu_torch.ops.mlp_topk import mlp_block_logits
+    from llp_tpu_torch.ops.sddmm import sddmm_mlp_score
+    from llp_tpu_torch.ops.segsum import segsum
+    from llp_tpu_torch.ops.spmm import spmm
+    from llp_tpu_torch.sample.walk import sample_contexts
+    from llp_tpu_torch.train.loop import prepare_transductive
+    from llp_tpu_torch.utils.config import StudentConfig
+
+    results = WORK / "results"
+    runs = {}
+    # the student's path starts here
+    segsum.launches = spmm.backward_launches = sddmm_mlp_score.launches = 0
+    spmm.weighted_backward_launches = mlp_block_logits.launches = 0
+    segsum.launch_counts.clear()
+    mlp_block_logits.launch_counts.clear()
+    for i, (name, epochs, dtype, data_dir, teacher, flags) in enumerate(STUDENT_RUNS):
+        label = f"student {name} {dtype} {' '.join(flags) or 'default'}"
+        before = _counts()
+        stats, report, _ = _train([f"--datasets={name}", f"--epochs={epochs}",
+                                   f"--compute_dtype={dtype}", f"--dataset_dir={data_dir}",
+                                   f"--save_dir={WORK / teacher}", f"--results_dir={results}",
+                                   *STUDENT_FLAGS, *flags], student=True)
+        counts = _delta(_counts(), before)
+        line = _student_line(name, dtype, flags, stats, report, counts)
+        if line["losses"][-1] >= line["losses"][0]:
+            raise AssertionError(f"{label}: the loss did not fall: {line['losses']}")
+        evals = len(report["eval_s"])
+        if counts["sddmm"] != 4 * evals or counts["segsum"] != 0:
+            raise AssertionError(f"{label}: {counts['sddmm']} sddmm launches in {evals} evals "
+                                 f"(expected 4 each) and {counts['segsum']} segsum launches "
+                                 f"(expected none: the student has no graph)")
+        runs[(name, dtype, flags)] = {"line": line, "counts": counts}
+        if i == 0:
+            # the default cora student serves on the card (the top-K through
+            # the retrieval kernel) and on the CPU alike
+            m0 = mlp_block_logits.launches
+            _serve_trained(WORK / "teacher_cora" / "cora-student_transductive",
+                           expect_segsum=0)
+            if mlp_block_logits.launches == m0:
+                raise AssertionError("the cora student's top-K did not launch mlp_topk")
+    launches = {"sddmm": sddmm_mlp_score.launches,
+                "mlp_topk": dict(mlp_block_logits.launch_counts)}
+    log("student_launches", {"sddmm": launches["sddmm"],
+                             "mlp_topk": {f"{dt} {kind}": n for (dt, kind), n
+                                          in launches["mlp_topk"].items()}})
+
+    # the card against the CPU: the same contexts, walked once on the host
+    host = prepare_transductive(StudentConfig(datasets="cora", dataset_dir=STANDINS),
+                                torch.device("cpu"))
+    contexts = sample_contexts(torch.Generator().manual_seed(1), host["graph"],
+                               torch.arange(host["x"].shape[0]))
+    gpu = _student_parity_losses("cuda", contexts)
+    cpu = _student_parity_losses("cpu", contexts)
+    gap = float(np.max(np.abs(np.array(gpu) - cpu) / np.abs(cpu)))
+    parity = {"run": "cora student", "gpu": gpu, "cpu": cpu, "rel_gap": gap, "rtol": LOSS_RTOL}
+    log("student_vs_cpu", parity)
+    if gap > LOSS_RTOL:
+        raise AssertionError(f"cora student: card vs CPU losses differ by {gap:.3g} > {LOSS_RTOL}")
+
+    _, trainer = _student_trainer("cuda", name="collab", dataset_dir=WEIGHTED, dropout=0.5,
+                                  teacher=str(WORK / "teacher_weighted"
+                                              / "collab-sage_transductive"),
+                                  link_batch_size=65536)
+    profile = {"compute_dtype": "float32", "node_batch": trainer.node_batch,
+               "contexts": trainer.num_contexts, **_profile_trainer(trainer)}
+    log("student_profile", profile)
+    return {"runs": runs, "launches": launches, "parity": parity, "profile": profile}
 
 
 def _segsum_timing(x, senders, in_ptr, scale, adj, out_dtype=None, weights=None) -> dict:
@@ -1170,12 +1397,7 @@ def _weighted_entries(gen, train: dict, worst: dict) -> list:
     ``torch.sparse.mm`` over a CSR that carries the same weights."""
     import torch
 
-    from llp_tpu_torch.train.loop import prepare_transductive
-    from llp_tpu_torch.utils.config import TeacherConfig
-
-    data = prepare_transductive(TeacherConfig(datasets="collab", dataset_dir=WEIGHTED,
-                                              use_edge_weight=True), torch.device("cuda"))
-    g = data["graph"]
+    g = train["data"]["weighted"]["graph"]
     n, e = g.num_nodes, g.num_edges
     w_fwd, w_mean = g.edge_weight, g.mean_weights
     w_bwd = g.edge_weight.index_select(0, g.sender_edge_id)
@@ -1320,9 +1542,10 @@ def _mlp_topk_entries(gen, launches: dict, worst: dict) -> list:
     ]
 
 
-def phase_kernels(gen, launches: dict, train: dict, worst: dict) -> list:
+def phase_kernels(gen, launches: dict, train: dict, student: dict, worst: dict) -> list:
     """Times at the collab serving and training shapes; returns the kernels
-    line's entries."""
+    line's entries. The sddmm and mlp_topk launches count the serving,
+    training and student paths."""
     import torch
 
     from llp_tpu_torch.core.graph import build_graph
@@ -1330,8 +1553,6 @@ def phase_kernels(gen, launches: dict, train: dict, worst: dict) -> list:
     from llp_tpu_torch.models.predictor import LinkPredictor
     from llp_tpu_torch.ops.sddmm import head_weights, sddmm_mlp_score, sddmm_mlp_score_plain
     from llp_tpu_torch.serve import score_pairs
-    from llp_tpu_torch.train.loop import prepare_transductive
-    from llp_tpu_torch.utils.config import TeacherConfig
 
     ds = get_dataset(STANDINS, "collab")
     g = build_graph(ds.edge_index, ds.num_nodes, device="cuda")
@@ -1388,7 +1609,8 @@ def phase_kernels(gen, launches: dict, train: dict, worst: dict) -> list:
          "shapes": f"collab serve encode: n={n} e={e}, d=128 + d=256, mean, fp32"},
         {"name": "sddmm", "route": "cuda", "source": "llp_tpu_torch/csrc/sddmm.cu",
          "replaces": "llp_tpu/ops/pallas/sddmm_kernel.py:41",
-         "launches": launches["sddmm"] + train["launches"]["sddmm"],
+         "launches": (launches["sddmm"] + train["launches"]["sddmm"]
+                      + student["launches"]["sddmm"]),
          "max_abs_err": worst["sddmm"],
          "ms": sd["ms"], "plain_ms": sd["plain_ms"],
          "bound_ms": max(sd_bytes_ms, sd_flops_ms),
@@ -1396,15 +1618,16 @@ def phase_kernels(gen, launches: dict, train: dict, worst: dict) -> list:
          "library_ms": None,
          "library_note": "no single PyTorch call gathers, multiplies and runs the MLP head",
          "shapes": f"{b} pairs over a {n} x {d} table, H={hid}"},
-        *_mlp_topk_entries(gen, launches["mlp_topk"], worst),
+        *_mlp_topk_entries(gen, {k: launches["mlp_topk"].get(k, 0)
+                                 + student["launches"]["mlp_topk"].get(k, 0)
+                                 for k in {*launches["mlp_topk"],
+                                           *student["launches"]["mlp_topk"]}}, worst),
     ]
 
     # The training shapes: the message graph of the collab split (the train
     # positives, both directions), forward over the receiver CSR and backward
     # over the sender CSR, as the collab training runs above launched them.
-    data = prepare_transductive(TeacherConfig(datasets="collab", dataset_dir=STANDINS),
-                                torch.device("cuda"))
-    tg = data["graph"]
+    tg = train["data"]["collab"]["graph"]
     tn, te = tg.num_nodes, tg.num_edges
     tscale = tg.inv_in_degree
     fwd_adj = torch.sparse_csr_tensor(tg.in_ptr, tg.senders, tscale[tg.receivers], (tn, tn))
@@ -1477,16 +1700,25 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    info = phase_device()
-    phase_build()
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t
+        return out
+
+    info = timed("device", phase_device)
+    timed("build", phase_build)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    worst = phase_kernel_check(gen)
-    phase_other_card()
-    launches = phase_serve()
-    phase_weighted_data()
-    train = phase_train()
-    kernels = phase_kernels(gen, launches, train, worst)
-    log("total", {"seconds": time.perf_counter() - t0})
+    worst = timed("kernel_check", phase_kernel_check, gen)
+    timed("other_card", phase_other_card)
+    launches = timed("serve", phase_serve)
+    timed("weighted_data", phase_weighted_data)
+    train = timed("train", phase_train)
+    student = timed("student", phase_student)
+    kernels = timed("kernels", phase_kernels, gen, launches, train, student, worst)
+    log("total", {"seconds": time.perf_counter() - t0, "phases": seconds})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": info["name"],
                                              "count": info["count"]}}), flush=True)

@@ -34,7 +34,7 @@ def add_common_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--patience", type=int, default=100)
     p.add_argument("--metric", type=str, default="Hits@20")
     p.add_argument("--use_valedges_as_input", action="store_true",
-                   help="not yet ported (ROADMAP A11)")
+                   help="score the test edges over the train+valid message graph")
     p.add_argument("--use_edge_weight", action="store_true",
                    help="aggregate with the dataset's per-edge weights (collab's "
                         "co-authorship counts): weighted mean for SAGE, weighted "

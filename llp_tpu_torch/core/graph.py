@@ -145,3 +145,13 @@ def build_graph(edge_index: np.ndarray, num_nodes: int, *, device="cuda",
         num_edges=int(e),
         **weighted,
     )
+
+
+def to_undirected_np(edge_index: np.ndarray, num_nodes: int) -> np.ndarray:
+    """Both directions of a host (2, E) edge list, duplicates dropped, in the
+    order of each pair's first appearance (counterpart of
+    ``llp_tpu.core.graph.to_undirected_np``)."""
+    edge_index = np.asarray(edge_index, dtype=np.int64)
+    both = np.concatenate([edge_index, edge_index[::-1]], axis=1)
+    _, idx = np.unique(both[0] * num_nodes + both[1], return_index=True)
+    return both[:, np.sort(idx)]

@@ -1,10 +1,17 @@
-"""Training losses (counterpart of ``llp_tpu/ops/losses.py``).  The teacher's
-BCE only so far: KL, margin rank, cosine and MSE come with the student
-(ROADMAP A8).
+"""Training losses (counterpart of ``llp_tpu/ops/losses.py``), with the
+reference's torch semantics:
 
-A loss takes an optional boolean ``mask``: masked elements drop out of the
-numerator and the denominator, so a padded batch reduces like the shorter
-batch it stands for.
+* BCE on sigmoid outputs, mean (``train_teacher_gnn.py:33,59``);
+* LLP_D: ``KL(log_softmax(s/T) || softmax(t/T)) · T² / B``, the KL summed
+  over every element (``main.py:27-31``, called with T=1);
+* LLP_R: ``MarginRankingLoss``, the mean over every pair slot, tied
+  (target 0) pairs adding the constant ``margin`` (``main.py:110-122``);
+* KD_RM: ``1 - mean cos(s, t)``; KD_LM: MSE of the predictor outputs.
+
+The teacher's side (``t``) gets no gradient.  Each loss reduces in fp32
+from any input type and takes an optional boolean mask: masked elements
+drop out of the numerator and the denominator, so a padded batch reduces
+like the shorter batch it stands for.
 """
 
 from __future__ import annotations
@@ -32,3 +39,43 @@ def bce_loss(probs: torch.Tensor, labels: torch.Tensor,
     log_p = torch.log(p.clamp(min=_EPS)).clamp(min=-100.0)
     log_1p = torch.log((1.0 - p).clamp(min=_EPS)).clamp(min=-100.0)
     return _masked_mean(-(y * log_p + (1.0 - y) * log_1p), mask)
+
+
+def kl_div_loss(s: torch.Tensor, t: torch.Tensor, temperature: float = 1.0,
+                row_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """LLP_D over (B, C) student and teacher context scores.  Both are
+    already sigmoided: the reference softmaxes sigmoid outputs, and so does
+    this, on purpose.  Summed, times T², over the real row count."""
+    y_s = torch.log_softmax(s.float() / temperature, dim=-1)
+    p_t = torch.softmax(t.detach().float() / temperature, dim=-1)
+    elt = p_t * (torch.log(p_t.clamp(min=_EPS)) - y_s)
+    if row_mask is not None:
+        elt = elt * row_mask.to(elt.dtype)[:, None]
+        rows = row_mask.float().sum().clamp(min=1.0)
+    else:
+        rows = float(s.shape[0])
+    return elt.sum() * (temperature * temperature) / rows
+
+
+def margin_rank_loss(x1: torch.Tensor, x2: torch.Tensor, target: torch.Tensor,
+                     margin: float, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``torch.nn.MarginRankingLoss``: mean of max(0, -target·(x1 - x2) +
+    margin), target in {-1, 0, +1}."""
+    losses = torch.clamp(-target.float() * (x1.float() - x2.float()) + margin, min=0.0)
+    return _masked_mean(losses, mask)
+
+
+def cosine_loss(s: torch.Tensor, t: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """KD_RM: 1 - the mean cosine of the rows, the norm product floored at
+    1e-8."""
+    s32, t32 = s.float(), t.detach().float()
+    denom = (torch.linalg.vector_norm(s32, dim=-1)
+             * torch.linalg.vector_norm(t32, dim=-1)).clamp(min=1e-8)
+    return 1.0 - _masked_mean((s32 * t32).sum(-1) / denom, mask)
+
+
+def mse_loss(s: torch.Tensor, t: torch.Tensor,
+             mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """KD_LM: mean squared error against the teacher's outputs."""
+    return _masked_mean((s.float() - t.detach().float()).square(), mask)

@@ -53,7 +53,7 @@ TOPK_BLOCK_BYTES = 256 << 20
 
 
 def load_serving_artifacts(path: str, *, device="cuda") -> Tuple[
-        Dict[str, nn.Module], Optional[torch.Tensor], Dict[str, Any]]:
+        nn.ModuleDict, Optional[torch.Tensor], Dict[str, Any]]:
     """``({"encoder", "predictor"} modules, features or None, meta)``.
 
     Teacher checkpoints carry best-val node features; student (MLP)
@@ -64,10 +64,8 @@ def load_serving_artifacts(path: str, *, device="cuda") -> Tuple[
     ckpt, meta = load_checkpoint(path)
     tree = ckpt["params"] if "params" in ckpt else ckpt
     feats = ckpt.get("features") if "params" in ckpt else None
-    modules = {
-        "encoder": from_jax(tree["encoder"], conv=meta.get("conv", "sage")).to(device),
-        "predictor": from_jax(tree["predictor"]).to(device),
-    }
+    modules = from_jax({"encoder": tree["encoder"], "predictor": tree["predictor"]},
+                       conv=meta.get("conv", "sage")).to(device)
     if feats is not None:
         feats = torch.from_numpy(np.asarray(feats, np.float32)).to(device)
     return modules, feats, meta

@@ -1,23 +1,35 @@
-"""The teacher's experiment loop (counterpart of ``llp_tpu/train/loop.py``:
-``prepare_transductive`` and ``run_teacher``, single device, transductive).
+"""The experiment loops (counterpart of ``llp_tpu/train/loop.py``:
+``prepare_transductive``, ``run_teacher`` and ``run_student``, single
+device, transductive).
 
-Per run: a model seeded from ``run + seed_offset``, epochs with an eval every
-``eval_steps``, early stop after ``patience`` evaluations without a better
-validation.  The best-validation artifact across all runs (``val_max`` is
-shared by the runs, reference ``train_teacher_gnn.py:420``) is written once
-at the end: ``{"params": {"encoder", "predictor"}, "features": h}`` in the
-JAX package's checkpoint format and parameter layout, so both packages'
-serving CLIs and students load it.  Its meta adds ``norm_type`` to the JAX
-trainer's keys: the JAX serving CLI applies a teacher's norms only when the
-meta names them.  Then the results ``.txt`` is appended, in
-the JAX package's format.
+Per run: a model seeded from ``run + seed_offset`` (the teacher) or
+``run + 1 + seed_offset`` (the student, reference ``main.py:396``), epochs
+with an eval every ``eval_steps``, early stop after ``patience`` evaluations
+without a better validation.  The best-validation artifact across all runs
+is written once at the end, in the JAX package's checkpoint format and
+parameter layout, so both packages' serving CLIs and students load it:
+
+* the teacher's ``{"params": {"encoder", "predictor"}, "features": h}`` at
+  ``<save_dir>/<dataset>-<encoder>_transductive``, when a validation beats
+  every earlier one (``>``, reference ``train_teacher_gnn.py:420``); its
+  meta adds ``norm_type`` to the JAX trainer's keys, since the JAX serving
+  CLI applies a teacher's norms only when the meta names them;
+* the student's ``{"params": {"encoder", "predictor"}}`` at
+  ``<save_dir>/<dataset>-student_transductive``, when a validation reaches
+  the best so far (``>=``, ``llp_tpu/train/loop.py:1121``), with the JAX
+  student's meta keys.
+
+Then the results ``.txt`` is appended in the JAX package's format
+(``_supervised_`` or ``_KD_``).
 
 ``use_edge_weight`` aggregates with the dataset's per-edge weights; they fit
 only a split shipped in the dataset, whose message graph is the dataset's
-own edge list (collab).  Not ported yet, refused by :func:`refuse_unported`:
-the production setting (ROADMAP A10), ``use_valedges_as_input`` (A11),
-resume, snapshots and node reordering (A12), more than one device (A14);
-``epochs_per_jit`` is a TPU mechanism.
+own edge list (collab).  The student's walks are uniform whatever the
+weights, as in JAX.  ``use_valedges_as_input`` evaluates the test edges
+over a second message graph holding the validation edges too.  Not ported
+yet, refused by :func:`refuse_unported`: the production setting (ROADMAP
+A10), resume, snapshots and node reordering (A12), more than one device
+(A14); ``epochs_per_jit`` is a TPU mechanism.
 """
 
 from __future__ import annotations
@@ -30,7 +42,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from llp_tpu_torch.core.graph import build_graph
+from llp_tpu_torch.core.graph import build_graph, to_undirected_np
 from llp_tpu_torch.data.io import dataset_fingerprint, load_split_npz, save_split_npz
 from llp_tpu_torch.data.registry import get_dataset
 from llp_tpu_torch.data.splits import do_edge_split
@@ -38,11 +50,12 @@ from llp_tpu_torch.evaln.logger import RunLogger
 from llp_tpu_torch.evaln.transductive import evaluate_transductive
 from llp_tpu_torch.models.encoder import hoists_first_aggregation, precompute_first_aggregation
 from llp_tpu_torch.sample.negative import edge_keys
+from llp_tpu_torch.train.student import StudentTrainer, init_student
 from llp_tpu_torch.train.teacher import TeacherTrainer, init_teacher
-from llp_tpu_torch.utils.checkpoint import save_checkpoint
-from llp_tpu_torch.utils.config import SPMM_IMPLS, TeacherConfig
+from llp_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+from llp_tpu_torch.utils.config import SPMM_IMPLS, StudentConfig, TeacherConfig
 from llp_tpu_torch.utils.device import setup_device
-from llp_tpu_torch.utils.params import to_jax
+from llp_tpu_torch.utils.params import from_jax, to_jax
 from llp_tpu_torch.utils.profiling import ThroughputMeter
 
 
@@ -64,8 +77,6 @@ def refuse_unported(cfg) -> None:
         raise _not_ported("--checkpoint_every", "A12")
     if cfg.reorder != "none":
         raise _not_ported(f"--reorder {cfg.reorder}", "A12")
-    if cfg.use_valedges_as_input:
-        raise _not_ported("--use_valedges_as_input", "A11")
     if cfg.epochs_per_jit != 1:
         raise SystemExit(
             f"--epochs_per_jit {cfg.epochs_per_jit}: fusing epochs into one device "
@@ -98,8 +109,37 @@ def _dataset_edge_weight(cfg, ds):
     return ds.edge_weight
 
 
+def eval_message_graph(message_ei: np.ndarray, split: dict, num_nodes: int,
+                       edge_weight: Optional[np.ndarray]):
+    """``(edge_index, weights or None)`` of the train+valid message graph that
+    ``use_valedges_as_input`` scores the test edges over (the reference
+    builds this ``full_adj_t`` and never reads it,
+    ``train_teacher_gnn.py:333-342``; the JAX package implements the intended
+    semantics, ``llp_tpu/train/loop.py:228-264``, and so does this).
+
+    Unweighted: the train and valid edges made undirected, duplicates
+    dropped.  Weighted: the message graph already holds both directions
+    with coalesced weights, so the valid edges (weights 1 unless the split
+    carries them) join in both directions and the row list is coalesced by
+    summing, self-loops dropped."""
+    val = split["valid"]["edge"].astype(np.int64).T
+    message_ei = np.asarray(message_ei, np.int64)
+    if edge_weight is None:
+        return to_undirected_np(np.concatenate([message_ei, val], axis=1), num_nodes), None
+    val_w = split["valid"].get("weight")
+    if val_w is None:
+        val_w = np.ones((val.shape[1],), np.float32)
+    rows = np.concatenate([message_ei, val, val[::-1]], axis=1)
+    w_all = np.concatenate([edge_weight, val_w, val_w]).astype(np.float64)
+    keys, inv = np.unique(rows[0] * num_nodes + rows[1], return_inverse=True)
+    full_w = np.bincount(inv.reshape(-1), weights=w_all, minlength=keys.shape[0])
+    full_ei = np.stack([keys // num_nodes, keys % num_nodes])
+    keep = full_ei[0] != full_ei[1]
+    return full_ei[:, keep], full_w[keep].astype(np.float32)
+
+
 def prepare_transductive(cfg, device) -> dict:
-    """Dataset, split, graph and the device tensors of a transductive run.
+    """Dataset, split, graphs and the device tensors of a transductive run.
 
     The split is the dataset's official one where its npz ships one (the
     message graph is then the dataset's edge list), else the seed-234
@@ -107,7 +147,9 @@ def prepare_transductive(cfg, device) -> dict:
     the dataset's fingerprint (the train positives, both directions, are
     then the message graph).  With ``use_edge_weight`` the graph carries the
     dataset's weights; they are aligned with its edge list, so a re-split
-    raises ``build_graph``'s length ``ValueError``, as in the JAX package."""
+    raises ``build_graph``'s length ``ValueError``, as in the JAX package.
+    ``eval_graph`` is the graph itself, or with ``use_valedges_as_input``
+    the train+valid graph of :func:`eval_message_graph`."""
     ds = get_dataset(cfg.dataset_dir, cfg.datasets)
     ew = _dataset_edge_weight(cfg, ds)
     if ds.split is not None:
@@ -127,10 +169,16 @@ def prepare_transductive(cfg, device) -> dict:
     def edges(a):
         return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int64)).to(device)
 
+    graph = build_graph(message_ei, ds.num_nodes, device=device, edge_weight=ew)
+    eval_graph = graph
+    if cfg.use_valedges_as_input:
+        full_ei, full_w = eval_message_graph(message_ei, split, ds.num_nodes, ew)
+        eval_graph = build_graph(full_ei, ds.num_nodes, device=device, edge_weight=full_w)
     pos = split["train"]["edge"]
     return dict(
         ds=ds,
-        graph=build_graph(message_ei, ds.num_nodes, device=device, edge_weight=ew),
+        graph=graph,
+        eval_graph=eval_graph,
         x=torch.from_numpy(ds.x).to(device),
         pos_edges=edges(pos),
         neg_keys=(edge_keys(message_ei, ds.num_nodes, device=device)
@@ -146,12 +194,66 @@ def prepare_transductive(cfg, device) -> dict:
     )
 
 
+def eval_first_aggregations(encoder: str, conv: str, data: dict) -> dict:
+    """Layer 1's aggregation of the features over each graph the teacher
+    evaluates on (the train graph, and the train+valid one), keyed by the
+    graph's ``id``: eval runs fp32 on graphs and features that never change,
+    so each is computed once for the whole call.  Empty where the hoist is
+    off (:func:`hoists_first_aggregation`)."""
+    if not hoists_first_aggregation(encoder, conv):
+        return {}
+    return {id(g): precompute_first_aggregation(encoder, g, data["x"])
+            for g in (data["graph"], data["eval_graph"])}
+
+
+def evaluate_teacher(model, data: dict, *, hits_ks, x_aggs: dict):
+    """``(results, h)`` of a teacher: validation over the train graph and,
+    with ``use_valedges_as_input``, the test edges over the train+valid
+    graph (``llp_tpu/train/loop.py:758-774``); ``h`` is the train graph's
+    encode, the table the artifact exports."""
+    graph, eval_graph = data["graph"], data["eval_graph"]
+
+    def run(g):
+        return evaluate_transductive(model["encoder"], model["predictor"], g, data["x"],
+                                     data["eval_edges"], hits_ks=hits_ks,
+                                     x_agg=x_aggs.get(id(g)))
+
+    results, h = run(graph)
+    if eval_graph is not graph:
+        full, _ = run(eval_graph)
+        results = {k: (results[k][0], full[k][1]) for k in results}
+    return results, h
+
+
 def _teacher_ckpt_path(cfg) -> str:
     return os.path.join(cfg.save_dir, f"{cfg.datasets}-{cfg.encoder}_{cfg.transductive}")
 
 
+def _student_ckpt_path(cfg) -> str:
+    return os.path.join(cfg.save_dir, f"{cfg.datasets}-student_{cfg.transductive}")
+
+
 def _results_path(cfg, kind: str) -> str:
     return os.path.join(cfg.results_dir, f"{cfg.datasets}_{kind}_{cfg.transductive}.txt")
+
+
+def _write_results(cfg, kind: str, label: str, split_name: str, stats: dict,
+                   perf: dict) -> None:
+    os.makedirs(cfg.results_dir, exist_ok=True)
+    with open(_results_path(cfg, kind), "a") as f:
+        f.write(str(asdict(cfg)) + "\n")
+        if label:
+            f.write(label + "\n")
+        f.write(f"split: {split_name}\n")
+        for k, s in stats.items():
+            f.write(f"{k}: {s}\n")
+        f.write(f"perf: {perf}\n")
+
+
+def _loggers(cfg) -> dict:
+    loggers = {f"Hits@{k}": RunLogger(cfg.runs) for k in cfg.hits_ks}
+    loggers["AUC"] = RunLogger(cfg.runs)
+    return loggers
 
 
 def run_teacher(cfg: TeacherConfig, *, max_epochs: Optional[int] = None,
@@ -170,13 +272,9 @@ def run_teacher(cfg: TeacherConfig, *, max_epochs: Optional[int] = None,
     graph, x = data["graph"], data["x"]
     conv = _conv_variant(cfg)
     in_dim = int(x.shape[1])
-    # Eval runs fp32 on graph and features that never change: layer 1's
-    # aggregation once for the whole call.
-    eval_agg = (precompute_first_aggregation(cfg.encoder, graph, x)
-                if hoists_first_aggregation(cfg.encoder, conv) else None)
+    x_aggs = eval_first_aggregations(cfg.encoder, conv, data)
 
-    loggers = {f"Hits@{k}": RunLogger(cfg.runs) for k in cfg.hits_ks}
-    loggers["AUC"] = RunLogger(cfg.runs)
+    loggers = _loggers(cfg)
     epochs = max_epochs if max_epochs is not None else cfg.epochs
     val_max = 0.0  # shared across runs (reference train_teacher_gnn.py:420)
     best_artifact = None
@@ -211,18 +309,14 @@ def run_teacher(cfg: TeacherConfig, *, max_epochs: Optional[int] = None,
             if epoch % max(cfg.eval_steps, 1) != 0:
                 continue
             meter.start()
-            results, h = evaluate_transductive(
-                model["encoder"], model["predictor"], graph, x, data["eval_edges"],
-                hits_ks=cfg.hits_ks, x_agg=eval_agg,
-            )
+            results, h = evaluate_teacher(model, data, hits_ks=cfg.hits_ks, x_aggs=x_aggs)
             meter.end_eval()
             val = results[cfg.metric][0]
             if val > val_max:
                 val_max = val
                 if cfg.encoder != "mlp" and cfg.save_dir:
                     best_artifact = (
-                        {"encoder": to_jax(model["encoder"]),
-                         "predictor": to_jax(model["predictor"])},
+                        to_jax(model),
                         h,  # a fresh tensor from this eval; nothing writes it later
                         # The JAX trainer's meta keys, plus norm_type: the JAX
                         # serving CLI reads it (default "none") to apply norms.
@@ -255,18 +349,132 @@ def run_teacher(cfg: TeacherConfig, *, max_epochs: Optional[int] = None,
     stats = {k: lg.statistics() for k, lg in loggers.items()}
     perf = meter.summary()
     if cfg.results_dir:
-        os.makedirs(cfg.results_dir, exist_ok=True)
-        with open(_results_path(cfg, "supervised"), "a") as f:
-            f.write(str(asdict(cfg)) + "\n")
-            f.write(f"{cfg.encoder} as the encoder\n")
-            f.write(f"split: {data['split_name']}\n")
-            for k, s in stats.items():
-                f.write(f"{k}: {s}\n")
-            f.write(f"perf: {perf}\n")
+        _write_results(cfg, "supervised", f"{cfg.encoder} as the encoder", data["split_name"],
+                       stats, perf)
     if verbose:
         print(f"teacher done in {time.time() - t0:.1f}s: {stats.get(cfg.metric)} "
               f"perf={perf}")
     report = dict(epoch_s=list(meter.epoch_s), eval_s=list(meter.eval_s), perf=perf,
                   losses=losses, steps_per_epoch=steps, num_pos=data["num_pos"],
                   split_name=data["split_name"])
+    return stats, loggers, report
+
+
+def _kd_label(cfg) -> str:
+    """The ``_KD_`` results file's method line (``llp_tpu/train/loop.py:1157-1164``;
+    the reference swaps RM and LM here, ``main.py:277-280``, and the JAX
+    package writes the right one)."""
+    if cfg.llp_d != 0 or cfg.llp_r != 0:
+        return "LLP (Relational Distillation)"
+    if cfg.kd_rm != 0:
+        return "Representation-matching"
+    if cfg.kd_lm != 0:
+        return "Logit-matching"
+    return ""
+
+
+def run_student(cfg: StudentConfig, *, max_epochs: Optional[int] = None,
+                verbose: bool = True, device="cuda"):
+    """Distill an MLP student from the teacher artifact at
+    ``<save_dir>/<dataset>-<encoder>_transductive`` (written by either
+    package) and export the best-validation student.
+
+    Runs on ``device``: the card unless ``device="cpu"``.  Returns ``(stats,
+    loggers, report)`` as :func:`run_teacher` does; the report adds the node
+    batch."""
+    refuse_unported(cfg)
+    cfg.finalize()
+    device = setup_device(device)
+    data = prepare_transductive(cfg, device)
+    x = data["x"]
+    n, in_dim = x.shape
+
+    ckpt, _ = load_checkpoint(_teacher_ckpt_path(cfg))
+    t_h = torch.from_numpy(np.asarray(ckpt["features"], np.float32)).to(device)
+    if t_h.shape[0] != n:
+        raise ValueError(f"the teacher artifact {_teacher_ckpt_path(cfg)} holds "
+                         f"{t_h.shape[0]} rows for a dataset of {n} nodes")
+    teacher_pred = from_jax(ckpt["params"]["predictor"]).to(device)
+    node_bs = cfg.coupled_node_batch_size(n, data["num_pos"])
+
+    loggers = _loggers(cfg)
+    epochs = max_epochs if max_epochs is not None else cfg.epochs
+    meter = ThroughputMeter(device, edges_per_epoch=2 * data["num_pos"])
+    losses = []
+    steps = 0
+    t0 = time.time()
+    # The best-validation student across runs, the deployable graph-free
+    # MLP (the reference's student saves only text results, main.py:465-513).
+    best_student = None
+    val_smax = 0.0
+    student_meta = dict(encoder="mlp", predictor=cfg.predictor,
+                        hidden_channels=cfg.hidden_channels, num_layers=cfg.num_layers,
+                        norm_type=cfg.norm_type, in_channels=int(in_dim))
+
+    for run in range(cfg.runs):
+        seed = run + 1 + cfg.seed_offset  # the student seeds run + 1
+        model = init_student(
+            in_channels=in_dim, hidden_channels=cfg.hidden_channels,
+            num_layers=cfg.num_layers, predictor_mode=cfg.predictor,
+            norm_type=cfg.norm_type, dropout=cfg.dropout,
+            generator=torch.Generator().manual_seed(seed),
+        ).to(device)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        trainer = StudentTrainer(
+            model, data["graph"], x, t_h, teacher_pred, data["pos_edges"],
+            link_batch_size=cfg.link_batch_size, node_batch_size=node_bs, lr=cfg.lr,
+            true_label=cfg.true_label, kd_rm=cfg.kd_rm, kd_lm=cfg.kd_lm,
+            llp_d=cfg.llp_d, llp_r=cfg.llp_r, margin=cfg.margin, rw_step=cfg.rw_step,
+            hops=cfg.hops, ns_rate=cfg.ns_rate, ps_method=cfg.ps_method,
+            neg_mode=cfg.neg_mode, neg_keys=data["neg_keys"], minibatch=cfg.minibatch,
+            compute_dtype=cfg.compute_dtype, llp_r_chunk=cfg.llp_r_chunk,
+        )
+        steps = trainer.steps
+        run_losses = []
+        losses.append(run_losses)
+        best_val, cnt_wait = 0.0, 0
+        for epoch in range(1, epochs + 1):
+            meter.start()
+            loss = trainer.epoch(gen)
+            meter.end_epoch()
+            run_losses.append(float(loss))
+            if epoch % max(cfg.eval_steps, 1) != 0:
+                continue
+            meter.start()
+            results, _ = evaluate_transductive(model["encoder"], model["predictor"], None, x,
+                                               data["eval_edges"], hits_ks=cfg.hits_ks)
+            meter.end_eval()
+            val = results[cfg.metric][0]
+            if val >= best_val:
+                best_val, cnt_wait = val, 0
+            else:
+                cnt_wait += 1
+            if cfg.save_dir and val >= val_smax:
+                val_smax = val
+                best_student = to_jax(model)
+            for k, v in results.items():
+                loggers[k].add_result(run, v)
+            if verbose and epoch % max(cfg.log_steps, 1) == 0:
+                print(
+                    f"[student run {run} epoch {epoch}] loss={run_losses[-1]:.4f} "
+                    f"{cfg.metric} valid={val:.4f} test={results[cfg.metric][1]:.4f} "
+                    f"({meter.edges_per_sec:.0f} edges/s)"
+                )
+            if cnt_wait >= cfg.patience:
+                break
+
+    if best_student is not None:
+        os.makedirs(cfg.save_dir, exist_ok=True)
+        save_checkpoint(_student_ckpt_path(cfg), {"params": best_student}, meta=student_meta)
+
+    stats = {k: lg.statistics() for k, lg in loggers.items()}
+    perf = meter.summary()
+    if cfg.results_dir:
+        _write_results(cfg, "KD", _kd_label(cfg), data["split_name"], stats, perf)
+    if verbose:
+        print(f"student done in {time.time() - t0:.1f}s: {stats.get(cfg.metric)} "
+              f"perf={perf}")
+    report = dict(epoch_s=list(meter.epoch_s), eval_s=list(meter.eval_s), perf=perf,
+                  losses=losses, steps_per_epoch=steps, node_batch=min(node_bs, n),
+                  num_pos=data["num_pos"], split_name=data["split_name"])
     return stats, loggers, report

@@ -104,3 +104,31 @@ class TeacherConfig(CommonConfig):
     batch_size: int = 64 * 1024
     runs: int = 5
     save_dir: str = "./saved"
+
+
+@dataclass
+class StudentConfig(CommonConfig):
+    link_batch_size: int = 64 * 1024
+    node_batch_size: int = 64 * 1024  # the coupling below sets the node batch
+    true_label: float = 0.1
+    kd_rm: float = 0.0
+    kd_lm: float = 0.0
+    llp_d: float = 1.0
+    llp_r: float = 1.0
+    # LLP_R pair chunk (0: every C(C,2) pair at once; > 0: chunks of this
+    # many pairs under activation checkpointing, the same terms in
+    # O(B·chunk) memory)
+    llp_r_chunk: int = 0
+    margin: float = 0.1
+    rw_step: int = 3
+    ns_rate: int = 1
+    hops: int = 2
+    ps_method: str = "nb"  # 'rw' | 'nb'
+    save_dir: str = "./saved"
+
+    def coupled_node_batch_size(self, num_nodes: int, num_train_edges: int) -> int:
+        """The node batch that keeps the node loader from running dry before
+        the link loader (reference ``main.py:335``)."""
+        return max(
+            1, int(num_nodes / (num_train_edges / min(self.link_batch_size, num_train_edges)))
+        )

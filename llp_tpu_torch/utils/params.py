@@ -8,7 +8,10 @@ trees (numpy leaves) are:
   ["norm_state": [{"mean", "var"}]]}``
 * GCN: ``{"convs": [{"lin": {w, b}}]}``
 * MLP: ``{"layers": [{w, b}], "norms": [...], ["norm_state": [...]]}``
-* LinkPredictor: ``{"lins": [{w, b}]}`` (empty for 'inner')
+* LinkPredictor: ``{"lins": [{w, b}]}`` (empty for 'inner'), of any depth
+* a model: ``{"encoder": <one of the above>, "predictor": <LinkPredictor>}``,
+  an ``nn.ModuleDict`` here (the teacher's, and the student's MLP with its
+  head of ``num_layers`` layers)
 
 Norms are ``{"scale", "bias"}``; batch norm's running buffers sit in
 ``norm_state``.  A tree's keys say which module it is; only the SAGE conv
@@ -80,7 +83,11 @@ def _norms_to_jax(norms: nn.ModuleList, tree: dict) -> dict:
 
 def from_jax(tree: Any, *, conv: str = "sage") -> nn.Module:
     """A module (on the CPU, in eval mode) holding the weights of a JAX
-    parameter tree of numpy arrays: SAGE, GCN, MLP or LinkPredictor."""
+    parameter tree of numpy arrays: SAGE, GCN, MLP, LinkPredictor, or a
+    model ``{"encoder", "predictor"}`` as an ``nn.ModuleDict``."""
+    if set(tree) == {"encoder", "predictor"}:
+        return nn.ModuleDict({"encoder": from_jax(tree["encoder"], conv=conv),
+                              "predictor": from_jax(tree["predictor"])}).eval()
     # The modules are built with a generator of their own, whose draws the
     # loaded weights overwrite, so the global generator is left alone.
     g = torch.Generator()
@@ -132,8 +139,10 @@ def quant_from_jax(table, *, device="cpu"):
 
 
 def to_jax(model: nn.Module) -> dict:
-    """The JAX parameter tree (numpy leaves) of a SAGE, GCN, MLP or
-    LinkPredictor."""
+    """The JAX parameter tree (numpy leaves) of a SAGE, GCN, MLP,
+    LinkPredictor, or an ``nn.ModuleDict`` model ``{"encoder", "predictor"}``."""
+    if isinstance(model, nn.ModuleDict):
+        return {"encoder": to_jax(model["encoder"]), "predictor": to_jax(model["predictor"])}
     if isinstance(model, SAGE):
         tree = {"convs": [{"lin_l": _linear_to_jax(c.lin_l),
                            "lin_r": _linear_to_jax(c.lin_r)} for c in model.convs]}

@@ -44,7 +44,8 @@ def test_import_loads_no_jax_and_no_llp_tpu():
     "modules",
     ["llp_tpu_torch.train, llp_tpu_torch.train.loop, llp_tpu_torch.train.teacher",
      "llp_tpu_torch.evaln, llp_tpu_torch.evaln.transductive, llp_tpu_torch.evaln.logger",
-     "llp_tpu_torch.cli.train_teacher, llp_tpu_torch.sample.negative"],
+     "llp_tpu_torch.cli.train_teacher, llp_tpu_torch.sample.negative",
+     "llp_tpu_torch.sample.walk, llp_tpu_torch.train.student, llp_tpu_torch.cli.train_student"],
 )
 def test_training_modules_load_no_jax_and_no_llp_tpu(modules):
     code = (
@@ -92,15 +93,21 @@ def test_serve_cli_without_device_cpu_exits_on_a_host_without_cuda(monkeypatch, 
         torch_serve.main([f"--checkpoint={tmp_path / 'missing'}", "--pairs=0:1"])
 
 
-@pytest.mark.parametrize("entry", ["load_serving_artifacts", "build_graph"])
+@pytest.mark.parametrize("entry", ["load_serving_artifacts", "build_graph", "train_student",
+                                   "run_student"])
 def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
+    from llp_tpu_torch.cli import train_student
     from llp_tpu_torch.core.graph import build_graph
     from llp_tpu_torch.serve import load_serving_artifacts
+    from llp_tpu_torch.train.loop import run_student
+    from llp_tpu_torch.utils.config import StudentConfig
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     call = {
         "load_serving_artifacts": lambda: load_serving_artifacts(str(tmp_path / "missing")),
         "build_graph": lambda: build_graph(np.array([[0], [1]]), 2),
+        "train_student": lambda: train_student.main([f"--dataset_dir={tmp_path}"]),
+        "run_student": lambda: run_student(StudentConfig(dataset_dir=str(tmp_path))),
     }[entry]
     with pytest.raises(SystemExit, match="no CUDA device"):
         call()

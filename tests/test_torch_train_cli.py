@@ -2,7 +2,8 @@
 artifact, the results file and the split cache; both packages' serving CLIs
 serve the artifact and agree on the pair scores (atol=1e-5); the JAX
 package's training CLI prints and writes the same lines; ``--use_edge_weight``
-and ``--encoder=gcn`` train; settings not ported yet exit; and without
+and ``--encoder=gcn`` train; settings not ported yet exit (``--use_valedges_as_input``
+trains: ``tests/test_torch_valedges.py``); and without
 ``--device cpu`` on a host with no card the CLI exits."""
 
 import json
@@ -102,7 +103,7 @@ def test_stdout_and_results_lines_match_the_jax_cli(tmp_path, capsys):
 @pytest.mark.parametrize("flag", [
     "--transductive=production", "--num_devices=2", "--sharding=halo", "--resume",
     "--checkpoint_every=5", "--reorder=rcm", "--reorder=locality",
-    "--use_valedges_as_input", "--epochs_per_jit=2", "--spmm_impl=xla",
+    "--epochs_per_jit=2", "--spmm_impl=xla",
 ])
 def test_unported_settings_exit(flag, tmp_path):
     with pytest.raises(SystemExit) as exc:
