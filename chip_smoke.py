@@ -71,12 +71,25 @@ failure exits non-zero.
                    through mlp_topk) and on the CPU alike; 3 single-step
                    epochs with fixed contexts and negatives agree with the
                    CPU's; a profiled collab student epoch.
-8. kernels      -- one JSON line: each kernel's launches on the serving,
-                   training and student paths, its time at the collab
-                   shapes, the plain version's time, a library call's time
-                   where one exists, and the least time the card could
-                   take. A ``top_k_partners:`` line gives the fused and
-                   unfused top-K times at Q=256 over collab.
+8. production   -- the production (unseen-node) setting through both
+                   training CLIs (``--transductive production``) at full
+                   width: the SAGE teacher 20 epochs on ``cora`` (ratios
+                   0.3) and 2 epochs at fp32 on ``collab`` (0.1), then the
+                   default student from each, 20 and 2 epochs. Every loss
+                   falls; every teacher eval launches segsum over the
+                   training graph and the inference graph (the layer-1
+                   hoist once per graph a run, layer 2 per graph an eval);
+                   every eval launches SDDMM once per non-empty edge set
+                   (7), and the student's none of segsum. The cora teacher's
+                   evaluation agrees on the card and the CPU, and its
+                   artifact, served with ``--reencode``, answers alike on
+                   both.
+9. kernels      -- one JSON line: each kernel's launches on the serving,
+                   training, student and production paths, its time at the
+                   collab shapes, the plain version's time, a library
+                   call's time where one exists, and the least time the
+                   card could take. A ``top_k_partners:`` line gives the
+                   fused and unfused top-K times at Q=256 over collab.
 
 The last line is ``{"ok": true, "device": {...}}``. Without CUDA, or outside
 a checkout, the script exits 1 and prints no result.
@@ -1356,6 +1369,132 @@ def phase_student() -> dict:
     return {"runs": runs, "launches": launches, "parity": parity, "profile": profile}
 
 
+# The production runs: (dataset, teacher epochs, student epochs). The default
+# SAGE teacher at fp32 on the cora stand-in (split ratios 0.3) and the collab
+# stand-in (0.1), then the default student from it; the split is made once
+# and cached in the stand-ins' directory.
+PRODUCTION_RUNS = (("cora", 20, 20), ("collab", 2, 2))
+PRODUCTION = WORK / "production"  # both runs' artifacts
+
+
+def _production_line(role: str, name: str, stats: dict, report: dict, counts: dict) -> dict:
+    import statistics
+
+    metric = "Hits@50" if name == "collab" else "Hits@20"
+    steady = report["epoch_s"][1:] or report["epoch_s"]
+    line = {"role": role, "dataset": name, "epochs": len(report["epoch_s"]),
+            "steps_per_epoch": report["steps_per_epoch"],
+            "epoch_s": statistics.median(steady), "epoch_s_all": report["epoch_s"],
+            "eval_s": report["perf"]["mean_eval_s"], "losses": report["losses"][0],
+            "metric": metric, metric: {k: v[0] for k, v in stats[metric].items()},
+            "n_old": report["num_nodes"], "n": report["inference_nodes"],
+            "message_edges": report["message_edges"],
+            "inference_edges": report["inference_edges"], "eval_sets": report["eval_sets"],
+            "launches": counts}
+    log("production", line)
+    return line
+
+
+def _check_production_launches(label: str, role: str, counts: dict, report: dict,
+                               in_dim: int) -> None:
+    """SDDMM once per non-empty edge set an eval; the teacher's segsum over
+    both graphs (:func:`_check_valedges_launches`: the layer-1 hoist for the
+    trainer and per eval graph, layer 2 per graph an eval), the student's
+    none."""
+    evals = len(report["eval_s"])
+    sets = sum(1 for m in report["eval_sets"].values() if m)
+    if counts["sddmm"] != sets * evals:
+        raise AssertionError(f"{label}: {counts['sddmm']} sddmm launches in {evals} evals, "
+                             f"expected {sets} each (the non-empty edge sets)")
+    if role == "student":
+        if counts["segsum"]:
+            raise AssertionError(f"{label}: {counts['segsum']} segsum launches (the student "
+                                 f"has no graph)")
+        return
+    steps = report["steps_per_epoch"] * len(report["epoch_s"])
+    _check_train_launches(label, "", "float32", counts, steps)
+    _check_valedges_launches(label, "", counts, steps, evals, in_dim)
+
+
+def _production_eval(device: str) -> tuple:
+    """The cora production teacher's evaluation on ``device``: ``(results,
+    h_val, data)``."""
+    import torch
+
+    from llp_tpu_torch.train.loop import (
+        eval_first_aggregations,
+        evaluate_teacher,
+        prepare_production,
+    )
+    from llp_tpu_torch.utils.checkpoint import load_checkpoint
+    from llp_tpu_torch.utils.config import TeacherConfig
+    from llp_tpu_torch.utils.params import from_jax
+
+    cfg = TeacherConfig(datasets="cora", dataset_dir=STANDINS, transductive="production")
+    data = prepare_production(cfg.finalize(), torch.device(device))
+    ckpt, _ = load_checkpoint(str(PRODUCTION / "cora-sage_production"))
+    model = from_jax(ckpt["params"]).to(device)
+    results, h = evaluate_teacher(model, data, hits_ks=cfg.hits_ks,
+                                  x_aggs=eval_first_aggregations("sage", "sage", data))
+    return results, h, data
+
+
+def phase_production() -> dict:
+    """Drive both training CLIs in the production setting on the card, check
+    the launches of every run, hold the cora teacher's evaluation and its
+    served artifact against the CPU; returns each run's line and the
+    launches on the production path."""
+    import numpy as np
+
+    from llp_tpu_torch.ops.sddmm import sddmm_mlp_score
+    from llp_tpu_torch.ops.segsum import segsum
+    from llp_tpu_torch.ops.spmm import spmm
+
+    results = WORK / "results"
+    runs = {}
+    # the production path starts here
+    segsum.launches = spmm.backward_launches = sddmm_mlp_score.launches = 0
+    spmm.weighted_backward_launches = 0
+    segsum.launch_counts.clear()
+    for name, t_epochs, s_epochs in PRODUCTION_RUNS:
+        for role, epochs, flags in (("teacher", t_epochs, TRAIN_FLAGS),
+                                    ("student", s_epochs, STUDENT_FLAGS)):
+            label = f"production {role} {name}"
+            before = _counts()
+            stats, report, _ = _train([f"--datasets={name}", f"--epochs={epochs}",
+                                       f"--dataset_dir={STANDINS}", f"--save_dir={PRODUCTION}",
+                                       f"--results_dir={results}", "--transductive=production",
+                                       *flags], student=role == "student")
+            counts = _delta(_counts(), before)
+            line = _production_line(role, name, stats, report, counts)
+            if line["losses"][-1] >= line["losses"][0]:
+                raise AssertionError(f"{label}: the loss did not fall: {line['losses']}")
+            _check_production_launches(label, role, counts, report,
+                                       1433 if name == "cora" else 128)
+            runs[(name, role)] = line
+    launches = {"segsum": segsum.launches, "sddmm": sddmm_mlp_score.launches}
+    log("production_launches", launches)
+
+    # the cora teacher's evaluation, the card against the CPU
+    gpu, h_gpu, data = _production_eval("cuda")
+    cpu, h_cpu, _ = _production_eval("cpu")
+    # a flipped strict comparison moves a Hits@K or an AUC by 1/M of its
+    # positive set: val, merged, old-old, old-new, new-new
+    sizes = [data["val_pos"].shape[0]] + [data["test_edges"][k].shape[0]
+                                          for k in ("merged", "old_old", "old_new", "new_new")]
+    tol = 1.0 / np.maximum(sizes, 1) + 1e-6
+    gaps = {k: np.abs(np.array(gpu[k]) - np.array(cpu[k])) for k in cpu}
+    for k, gap in gaps.items():
+        if not (gap <= tol).all():
+            raise AssertionError(f"cora production eval {k}: card {gpu[k]} vs CPU {cpu[k]}")
+    log("production_vs_cpu", {"h_val": compare(h_gpu.cpu(), h_cpu, **H_TOL, what="h_val"),
+                              **H_TOL, "metric_tol": tol.tolist(),
+                              "metrics_max_gap": {k: float(g.max()) for k, g in gaps.items()}})
+    # its artifact re-encodes every node over the whole graph (as JAX serves it)
+    _serve_trained(PRODUCTION / "cora-sage_production", expect_segsum=2)
+    return {"runs": runs, "launches": launches}
+
+
 def _segsum_timing(x, senders, in_ptr, scale, adj, out_dtype=None, weights=None) -> dict:
     """Kernel, plain and library times of one segsum at these inputs, and the
     bytes it must move: x once, the index arrays (the scale and the weights)
@@ -1542,10 +1681,12 @@ def _mlp_topk_entries(gen, launches: dict, worst: dict) -> list:
     ]
 
 
-def phase_kernels(gen, launches: dict, train: dict, student: dict, worst: dict) -> list:
+def phase_kernels(gen, launches: dict, train: dict, student: dict, production: dict,
+                  worst: dict) -> list:
     """Times at the collab serving and training shapes; returns the kernels
-    line's entries. The sddmm and mlp_topk launches count the serving,
-    training and student paths."""
+    line's entries. The segsum entry's launches count the serving and
+    production paths; the sddmm ones the serving, training, student and
+    production paths; mlp_topk's the serving and student paths."""
     import torch
 
     from llp_tpu_torch.core.graph import build_graph
@@ -1603,14 +1744,20 @@ def phase_kernels(gen, launches: dict, train: dict, student: dict, worst: dict) 
     entries = [
         {"name": "segsum", "route": "cuda", "source": "llp_tpu_torch/csrc/segsum.cu",
          "replaces": "llp_tpu/ops/pallas/segsum_kernel.py:148",
-         "launches": launches["segsum"], "max_abs_err": worst["segsum"],
+         "launches": launches["segsum"] + production["launches"]["segsum"],
+         "launches_by_path": {"serve": launches["segsum"],
+                              "production": production["launches"]["segsum"]},
+         "max_abs_err": worst["segsum"],
          "ms": seg["ms"], "plain_ms": seg["plain_ms"], "bound_ms": seg_bound_ms,
          "bound_by": "bytes", "library_ms": seg["library_ms"],
          "shapes": f"collab serve encode: n={n} e={e}, d=128 + d=256, mean, fp32"},
         {"name": "sddmm", "route": "cuda", "source": "llp_tpu_torch/csrc/sddmm.cu",
          "replaces": "llp_tpu/ops/pallas/sddmm_kernel.py:41",
          "launches": (launches["sddmm"] + train["launches"]["sddmm"]
-                      + student["launches"]["sddmm"]),
+                      + student["launches"]["sddmm"] + production["launches"]["sddmm"]),
+         "launches_by_path": {"serve": launches["sddmm"], "train": train["launches"]["sddmm"],
+                              "student": student["launches"]["sddmm"],
+                              "production": production["launches"]["sddmm"]},
          "max_abs_err": worst["sddmm"],
          "ms": sd["ms"], "plain_ms": sd["plain_ms"],
          "bound_ms": max(sd_bytes_ms, sd_flops_ms),
@@ -1717,7 +1864,8 @@ def main() -> int:
     timed("weighted_data", phase_weighted_data)
     train = timed("train", phase_train)
     student = timed("student", phase_student)
-    kernels = timed("kernels", phase_kernels, gen, launches, train, student, worst)
+    production = timed("production", phase_production)
+    kernels = timed("kernels", phase_kernels, gen, launches, train, student, production, worst)
     log("total", {"seconds": time.perf_counter() - t0, "phases": seconds})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": info["name"],

@@ -41,7 +41,7 @@ def add_common_flags(p: argparse.ArgumentParser) -> None:
                         "sym-norm for GCN")
     p.add_argument("--transductive", type=str, default="transductive",
                    choices=["transductive", "production"],
-                   help="production is not yet ported (ROADMAP A10)")
+                   help="production: the unseen-node split and its 5-tuple evaluation")
     p.add_argument("--minibatch", action="store_true")
     p.add_argument("--results_dir", type=str, default="./results")
     p.add_argument("--save_dir", type=str, default="./saved")

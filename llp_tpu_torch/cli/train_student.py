@@ -7,10 +7,11 @@ same flags and stdout lines).
 
 Runs on the GPU unless ``--device cpu`` is given; with no card visible and
 no ``--device cpu`` it exits.  Reads the teacher artifact at
-``<save_dir>/<dataset>-<encoder>_transductive`` (written by either
-package), writes the best-validation student to
-``<save_dir>/<dataset>-student_transductive`` and appends the results to
-``<results_dir>/<dataset>_KD_transductive.txt``.
+``<save_dir>/<dataset>-<encoder>_<setting>`` (written by either package),
+writes the best-validation student to
+``<save_dir>/<dataset>-student_<setting>`` and appends the results to
+``<results_dir>/<dataset>_KD_<setting>.txt``, the setting being
+``transductive`` or ``production`` (``--transductive``).
 """
 
 from __future__ import annotations

@@ -2,11 +2,13 @@
 ``llp_tpu/cli/train_teacher.py``, with the same flags and stdout lines).
 
     python -m llp_tpu_torch.cli.train_teacher --datasets cora --epochs 20 --runs 1
+    python -m llp_tpu_torch.cli.train_teacher --datasets cora --transductive production
 
 Runs on the GPU unless ``--device cpu`` is given; with no card visible and
 no ``--device cpu`` it exits.  Writes the best-validation teacher artifact
-to ``<save_dir>/<dataset>-<encoder>_transductive`` and appends the results
-to ``<results_dir>/<dataset>_supervised_transductive.txt``.
+to ``<save_dir>/<dataset>-<encoder>_<setting>`` and appends the results to
+``<results_dir>/<dataset>_supervised_<setting>.txt``, the setting being
+``transductive`` or ``production``.
 """
 
 from __future__ import annotations

@@ -10,14 +10,20 @@
   ``<part>__<key>`` arrays with the dataset's fingerprint, so a split cached
   by either package is read by the other, and a cache made from another
   graph is never applied.
+* ``<root>/<name>_production.npz`` caches a production split as one array
+  per :class:`~llp_tpu_torch.data.splits.ProductionSplit` field, with the
+  same fingerprint.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import zlib
 
 import numpy as np
+
+from llp_tpu_torch.data.splits import ProductionSplit
 
 _FP_KEY = "__dataset_fingerprint__"
 
@@ -99,3 +105,24 @@ def load_split_npz(path: str, *, expect_fingerprint: int | None = None):
     if expect_fingerprint is not None and fp != expect_fingerprint:
         return None
     return out
+
+
+def save_production_split_npz(path: str, ps: ProductionSplit, *,
+                              fingerprint: int | None = None) -> None:
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    arrays = {f.name: getattr(ps, f.name) for f in dataclasses.fields(ps)}
+    if fingerprint is not None:
+        arrays[_FP_KEY] = np.asarray(fingerprint, np.int64)
+    np.savez_compressed(path, **arrays)
+
+
+def load_production_split_npz(path: str, *, expect_fingerprint: int | None = None):
+    """The cached production split, or None when a fingerprint is expected
+    and the cache lacks it or carries another."""
+    with np.load(path) as z:
+        arrays = {k: z[k] for k in z.files}
+    fp = arrays.pop(_FP_KEY, None)
+    fp = None if fp is None else int(fp)
+    if expect_fingerprint is not None and fp != expect_fingerprint:
+        return None
+    return ProductionSplit(**arrays)

@@ -1,9 +1,10 @@
-"""Run-statistics logger: model selection and mean ± std reporting
-(counterpart of ``llp_tpu/evaln/logger.py::RunLogger``).
+"""Run-statistics loggers: model selection and mean ± std reporting
+(counterpart of ``llp_tpu/evaln/logger.py``).
 
-Per-run lists of per-epoch (valid, test) results; the selected epoch is the
-one with the highest validation; the report is the test metric there, mean
-± sample std (ddof=1) across runs, ×100.
+Per-run lists of per-epoch result tuples, (valid, test) in the transductive
+setting and (val, test, old_old, old_new, new_new) in the production one;
+the selected epoch is the one with the highest validation; the report is
+each column there, mean ± sample std (ddof=1) across runs, ×100.
 """
 
 from __future__ import annotations
@@ -66,5 +67,34 @@ class RunLogger:
                 f"Highest Valid: {s['valid'][0]:.2f} ± {s['valid'][1]:.2f}\n"
                 f"   Final Test: {s['test'][0]:.2f} ± {s['test'][1]:.2f}"
             )
+        print(msg)
+        return msg
+
+
+class ProductionRunLogger(RunLogger):
+    """Production: results are (val, test, old_old, old_new, new_new)."""
+
+    tuple_len = 5
+    _names = ("val", "test", "old_old", "old_new", "new_new")
+
+    def statistics(self):
+        """``{name: (mean, std)}`` over runs, for each of the five columns."""
+        best = self.best_per_run()
+        if best.size == 0:
+            return {}
+        std = best.std(axis=0, ddof=1) if best.shape[0] > 1 else np.zeros(best.shape[1])
+        return {name: (float(best[:, i].mean()), float(std[i]))
+                for i, name in enumerate(self._names)}
+
+    def print_statistics(self, run=None) -> str:
+        if run is not None:
+            r = 100 * np.asarray(self.results[run])
+            argmax = int(r[:, 0].argmax())
+            lines = [f"Run {run + 1:02d}:"] + [
+                f"   {name}: {r[argmax, i]:.2f}" for i, name in enumerate(self._names)]
+        else:
+            lines = ["All runs:"] + [f"   Final {name}: {m:.2f} ± {sd:.2f}"
+                                     for name, (m, sd) in self.statistics().items()]
+        msg = "\n".join(lines)
         print(msg)
         return msg

@@ -1,6 +1,19 @@
 """The experiment loops (counterpart of ``llp_tpu/train/loop.py``:
-``prepare_transductive``, ``run_teacher`` and ``run_student``, single
-device, transductive).
+``prepare_transductive``, ``prepare_production``, ``run_teacher`` and
+``run_student``, single device).
+
+Two settings, as in the JAX package:
+
+* transductive: one graph, the seed-234 ``do_edge_split`` (or the dataset's
+  official split); each eval scores the valid and test edges over it and
+  every metric is a (valid, test) pair;
+* production (unseen nodes): the seed-234 ``do_production_edge_split``,
+  cached under ``<dataset_dir>/<name>_production.npz``.  Training runs over
+  the old nodes' graph (ids 0..n_old-1); each eval encodes that graph for
+  the validation edges and the inference graph (every node, its own feature
+  matrix) for the merged, old–old, old–new and new–new test edges, all held
+  against one shared negative set; every metric is a 5-tuple.  The teacher
+  exports the old nodes' table, which the student distils from.
 
 Per run: a model seeded from ``run + seed_offset`` (the teacher) or
 ``run + 1 + seed_offset`` (the student, reference ``main.py:396``), epochs
@@ -10,12 +23,12 @@ is written once at the end, in the JAX package's checkpoint format and
 parameter layout, so both packages' serving CLIs and students load it:
 
 * the teacher's ``{"params": {"encoder", "predictor"}, "features": h}`` at
-  ``<save_dir>/<dataset>-<encoder>_transductive``, when a validation beats
+  ``<save_dir>/<dataset>-<encoder>_<setting>``, when a validation beats
   every earlier one (``>``, reference ``train_teacher_gnn.py:420``); its
   meta adds ``norm_type`` to the JAX trainer's keys, since the JAX serving
   CLI applies a teacher's norms only when the meta names them;
 * the student's ``{"params": {"encoder", "predictor"}}`` at
-  ``<save_dir>/<dataset>-student_transductive``, when a validation reaches
+  ``<save_dir>/<dataset>-student_<setting>``, when a validation reaches
   the best so far (``>=``, ``llp_tpu/train/loop.py:1121``), with the JAX
   student's meta keys.
 
@@ -24,12 +37,12 @@ Then the results ``.txt`` is appended in the JAX package's format
 
 ``use_edge_weight`` aggregates with the dataset's per-edge weights; they fit
 only a split shipped in the dataset, whose message graph is the dataset's
-own edge list (collab).  The student's walks are uniform whatever the
-weights, as in JAX.  ``use_valedges_as_input`` evaluates the test edges
-over a second message graph holding the validation edges too.  Not ported
-yet, refused by :func:`refuse_unported`: the production setting (ROADMAP
-A10), resume, snapshots and node reordering (A12), more than one device
-(A14); ``epochs_per_jit`` is a TPU mechanism.
+own edge list (collab), and the production setting refuses them, as in JAX.
+The student's walks are uniform whatever the weights, as in JAX.
+``use_valedges_as_input`` evaluates the test edges over a second message
+graph holding the validation edges too.  Not ported yet, refused by
+:func:`refuse_unported`: resume, snapshots and node reordering (A12), more
+than one device (A14); ``epochs_per_jit`` is a TPU mechanism.
 """
 
 from __future__ import annotations
@@ -43,17 +56,24 @@ import numpy as np
 import torch
 
 from llp_tpu_torch.core.graph import build_graph, to_undirected_np
-from llp_tpu_torch.data.io import dataset_fingerprint, load_split_npz, save_split_npz
+from llp_tpu_torch.data.io import (
+    dataset_fingerprint,
+    load_production_split_npz,
+    load_split_npz,
+    save_production_split_npz,
+    save_split_npz,
+)
 from llp_tpu_torch.data.registry import get_dataset
-from llp_tpu_torch.data.splits import do_edge_split
-from llp_tpu_torch.evaln.logger import RunLogger
+from llp_tpu_torch.data.splits import do_edge_split, do_production_edge_split
+from llp_tpu_torch.evaln.logger import ProductionRunLogger, RunLogger
+from llp_tpu_torch.evaln.production import evaluate_production
 from llp_tpu_torch.evaln.transductive import evaluate_transductive
 from llp_tpu_torch.models.encoder import hoists_first_aggregation, precompute_first_aggregation
 from llp_tpu_torch.sample.negative import edge_keys
 from llp_tpu_torch.train.student import StudentTrainer, init_student
 from llp_tpu_torch.train.teacher import TeacherTrainer, init_teacher
 from llp_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
-from llp_tpu_torch.utils.config import SPMM_IMPLS, StudentConfig, TeacherConfig
+from llp_tpu_torch.utils.config import SPMM_IMPLS, SplitConfig, StudentConfig, TeacherConfig
 from llp_tpu_torch.utils.device import setup_device
 from llp_tpu_torch.utils.params import from_jax, to_jax
 from llp_tpu_torch.utils.profiling import ThroughputMeter
@@ -65,8 +85,6 @@ def _not_ported(what: str, item: str) -> SystemExit:
 
 def refuse_unported(cfg) -> None:
     """Raise ``SystemExit`` for a setting this slice of the port does not run."""
-    if cfg.transductive != "transductive":
-        raise _not_ported(f"--transductive {cfg.transductive}", "A10")
     if cfg.num_devices != 1:
         raise _not_ported(f"--num_devices {cfg.num_devices}", "A14")
     if cfg.sharding != "dp":
@@ -194,35 +212,145 @@ def prepare_transductive(cfg, device) -> dict:
     )
 
 
+def prepare_production(cfg, device) -> dict:
+    """Dataset, production split, graphs and the device tensors of a
+    production run (counterpart of ``llp_tpu/train/loop.py::prepare_production``
+    without its ``--reorder`` relabeling, ROADMAP A12).
+
+    The split is read from ``<dataset_dir>/<name>_production.npz`` when that
+    cache carries the dataset's fingerprint, else made with the dataset's
+    :class:`SplitConfig` and cached.  ``graph``/``x`` are the training graph
+    over the old nodes (its symmetric message edges are the positives) and
+    its features; ``inf_graph``/``inf_x`` the inference graph over every
+    node and the whole feature matrix.  Edge sets are (M, 2) int64: the
+    validation edges in the old nodes' ids, ``test_edges`` (``merged``,
+    ``old_old``, ``old_new``, ``new_new`` and the shared ``neg``) in the
+    original ids.  Dense negatives avoid the training graph's edges."""
+    ds = get_dataset(cfg.dataset_dir, cfg.datasets)
+    cache = os.path.join(cfg.dataset_dir, f"{cfg.datasets}_production.npz")
+    fp = dataset_fingerprint(ds.x, ds.edge_index)
+    ps = (load_production_split_npz(cache, expect_fingerprint=fp) if os.path.exists(cache)
+          else None)
+    if ps is None:  # no cache, or one made from another graph
+        sc = SplitConfig.for_dataset(cfg.datasets)
+        ps = do_production_edge_split(
+            ds.x, ds.edge_index, test_ratio=sc.test_ratio, val_node_ratio=sc.val_node_ratio,
+            val_ratio=sc.val_ratio, old_old_extra_ratio=sc.old_old_extra_ratio, seed=sc.seed)
+        save_production_split_npz(cache, ps, fingerprint=fp)
+    n_old, n_all = ps.training_x.shape[0], ps.inference_x.shape[0]
+    tr_ei = ps.training_edge_index
+
+    def edges(a):  # a host (2, M) array as (M, 2) int64 on the device
+        return torch.from_numpy(np.ascontiguousarray(np.asarray(a, np.int64).T)).to(device)
+
+    return dict(
+        ds=ds,
+        ps=ps,
+        graph=build_graph(tr_ei, n_old, device=device),
+        x=torch.from_numpy(ps.training_x).to(device),
+        inf_graph=build_graph(ps.inference_edge_index, n_all, device=device),
+        inf_x=torch.from_numpy(ps.inference_x).to(device),
+        pos_edges=edges(tr_ei),
+        neg_keys=edge_keys(tr_ei, n_old, device=device) if cfg.neg_mode == "dense" else None,
+        val_pos=edges(ps.val_pos),
+        val_neg=edges(ps.val_neg),
+        test_edges={"merged": edges(ps.test_merged), "old_old": edges(ps.test_old_old),
+                    "old_new": edges(ps.test_old_new), "new_new": edges(ps.test_new_new),
+                    "neg": edges(ps.negative_samples)},
+        num_pos=int(tr_ei.shape[1]),
+        split_name="do_production_edge_split:seed=234",
+    )
+
+
+def _prepare(cfg, device) -> dict:
+    if cfg.transductive == "production":
+        return prepare_production(cfg, device)
+    return prepare_transductive(cfg, device)
+
+
+def _is_production(data: dict) -> bool:
+    return "inf_graph" in data
+
+
+def eval_encodes(data: dict) -> list:
+    """The distinct (graph, features) pairs a teacher eval encodes over: the
+    train graph with ``x``; with ``use_valedges_as_input`` also the
+    train+valid graph with ``x``; in production the training graph with its
+    features and the inference graph with its own (N rows against n_old)."""
+    if _is_production(data):
+        return [(data["graph"], data["x"]), (data["inf_graph"], data["inf_x"])]
+    pairs = [(data["graph"], data["x"])]
+    if data["eval_graph"] is not data["graph"]:
+        pairs.append((data["eval_graph"], data["x"]))
+    return pairs
+
+
 def eval_first_aggregations(encoder: str, conv: str, data: dict) -> dict:
-    """Layer 1's aggregation of the features over each graph the teacher
-    evaluates on (the train graph, and the train+valid one), keyed by the
-    graph's ``id``: eval runs fp32 on graphs and features that never change,
-    so each is computed once for the whole call.  Empty where the hoist is
-    off (:func:`hoists_first_aggregation`)."""
+    """Layer 1's aggregation of each feature matrix over its graph, for every
+    pair of :func:`eval_encodes`, keyed by ``(id(graph), id(features))``:
+    eval runs fp32 on graphs and features that never change, so each is
+    computed once for the whole call.  Empty where the hoist is off
+    (:func:`hoists_first_aggregation`)."""
     if not hoists_first_aggregation(encoder, conv):
         return {}
-    return {id(g): precompute_first_aggregation(encoder, g, data["x"])
-            for g in (data["graph"], data["eval_graph"])}
+    return {(id(g), id(x)): precompute_first_aggregation(encoder, g, x)
+            for g, x in eval_encodes(data)}
 
 
 def evaluate_teacher(model, data: dict, *, hits_ks, x_aggs: dict):
-    """``(results, h)`` of a teacher: validation over the train graph and,
-    with ``use_valedges_as_input``, the test edges over the train+valid
-    graph (``llp_tpu/train/loop.py:758-774``); ``h`` is the train graph's
-    encode, the table the artifact exports."""
-    graph, eval_graph = data["graph"], data["eval_graph"]
+    """``(results, h)`` of a teacher.  Transductive: validation over the train
+    graph and, with ``use_valedges_as_input``, the test edges over the
+    train+valid graph (``llp_tpu/train/loop.py:758-774``); ``h`` is the train
+    graph's encode.  Production: :func:`evaluate_production` over the two
+    graphs; ``h`` is the training graph's encode.  ``h`` is the table the
+    artifact exports."""
+    enc, pred = model["encoder"], model["predictor"]
+
+    def agg(g, x):
+        return x_aggs.get((id(g), id(x)))
+
+    if _is_production(data):
+        g, x, ig, ix = data["graph"], data["x"], data["inf_graph"], data["inf_x"]
+        return evaluate_production(enc, pred, g, x, ig, ix, data["val_pos"], data["val_neg"],
+                                   data["test_edges"], hits_ks=hits_ks, val_x_agg=agg(g, x),
+                                   inf_x_agg=agg(ig, ix))
+    graph, eval_graph, x = data["graph"], data["eval_graph"], data["x"]
 
     def run(g):
-        return evaluate_transductive(model["encoder"], model["predictor"], g, data["x"],
-                                     data["eval_edges"], hits_ks=hits_ks,
-                                     x_agg=x_aggs.get(id(g)))
+        return evaluate_transductive(enc, pred, g, x, data["eval_edges"], hits_ks=hits_ks,
+                                     x_agg=agg(g, x))
 
     results, h = run(graph)
     if eval_graph is not graph:
         full, _ = run(eval_graph)
         results = {k: (results[k][0], full[k][1]) for k in results}
     return results, h
+
+
+def evaluate_student(model, data: dict, *, hits_ks):
+    """``results`` of the MLP student, in the setting of ``data``."""
+    enc, pred = model["encoder"], model["predictor"]
+    if _is_production(data):
+        return evaluate_production(enc, pred, None, data["x"], None, data["inf_x"],
+                                   data["val_pos"], data["val_neg"], data["test_edges"],
+                                   hits_ks=hits_ks)[0]
+    return evaluate_transductive(enc, pred, None, data["x"], data["eval_edges"],
+                                 hits_ks=hits_ks)[0]
+
+
+def _data_report(data: dict) -> dict:
+    """The sizes a run's report carries: the training graph's nodes and
+    message edges; in production also the inference graph's and the size of
+    every evaluated edge set."""
+    g = data["graph"]
+    out = dict(num_nodes=g.num_nodes, message_edges=g.num_edges)
+    if _is_production(data):
+        ig = data["inf_graph"]
+        out.update(inference_nodes=ig.num_nodes, inference_edges=ig.num_edges,
+                   eval_sets={"val_pos": int(data["val_pos"].shape[0]),
+                              "val_neg": int(data["val_neg"].shape[0]),
+                              **{k: int(v.shape[0]) for k, v in data["test_edges"].items()}})
+    return out
 
 
 def _teacher_ckpt_path(cfg) -> str:
@@ -251,8 +379,9 @@ def _write_results(cfg, kind: str, label: str, split_name: str, stats: dict,
 
 
 def _loggers(cfg) -> dict:
-    loggers = {f"Hits@{k}": RunLogger(cfg.runs) for k in cfg.hits_ks}
-    loggers["AUC"] = RunLogger(cfg.runs)
+    cls = ProductionRunLogger if cfg.transductive == "production" else RunLogger
+    loggers = {f"Hits@{k}": cls(cfg.runs) for k in cfg.hits_ks}
+    loggers["AUC"] = cls(cfg.runs)
     return loggers
 
 
@@ -262,13 +391,14 @@ def run_teacher(cfg: TeacherConfig, *, max_epochs: Optional[int] = None,
 
     Runs on ``device``: the card unless ``device="cpu"``.  Returns ``(stats,
     loggers, report)``: ``stats`` ``{metric: {'valid'|'test': (mean, std)}}``
-    and ``loggers`` as the JAX package's, ``report`` this call's timings
+    (production: ``'val'|'test'|'old_old'|'old_new'|'new_new'``) and
+    ``loggers`` as the JAX package's, ``report`` this call's timings
     (``epoch_s``, ``eval_s``, ``perf``), per-run epoch losses, steps per
-    epoch and split."""
+    epoch, split and graph sizes."""
     refuse_unported(cfg)
     cfg.finalize()
     device = setup_device(device)
-    data = prepare_transductive(cfg, device)
+    data = _prepare(cfg, device)
     graph, x = data["graph"], data["x"]
     conv = _conv_variant(cfg)
     in_dim = int(x.shape[1])
@@ -356,7 +486,7 @@ def run_teacher(cfg: TeacherConfig, *, max_epochs: Optional[int] = None,
               f"perf={perf}")
     report = dict(epoch_s=list(meter.epoch_s), eval_s=list(meter.eval_s), perf=perf,
                   losses=losses, steps_per_epoch=steps, num_pos=data["num_pos"],
-                  split_name=data["split_name"])
+                  split_name=data["split_name"], **_data_report(data))
     return stats, loggers, report
 
 
@@ -376,8 +506,9 @@ def _kd_label(cfg) -> str:
 def run_student(cfg: StudentConfig, *, max_epochs: Optional[int] = None,
                 verbose: bool = True, device="cuda"):
     """Distill an MLP student from the teacher artifact at
-    ``<save_dir>/<dataset>-<encoder>_transductive`` (written by either
-    package) and export the best-validation student.
+    ``<save_dir>/<dataset>-<encoder>_<setting>`` (written by either package;
+    in production its table holds the old nodes) and export the
+    best-validation student.  Walks and batches run over the training graph.
 
     Runs on ``device``: the card unless ``device="cpu"``.  Returns ``(stats,
     loggers, report)`` as :func:`run_teacher` does; the report adds the node
@@ -385,7 +516,7 @@ def run_student(cfg: StudentConfig, *, max_epochs: Optional[int] = None,
     refuse_unported(cfg)
     cfg.finalize()
     device = setup_device(device)
-    data = prepare_transductive(cfg, device)
+    data = _prepare(cfg, device)
     x = data["x"]
     n, in_dim = x.shape
 
@@ -441,8 +572,7 @@ def run_student(cfg: StudentConfig, *, max_epochs: Optional[int] = None,
             if epoch % max(cfg.eval_steps, 1) != 0:
                 continue
             meter.start()
-            results, _ = evaluate_transductive(model["encoder"], model["predictor"], None, x,
-                                               data["eval_edges"], hits_ks=cfg.hits_ks)
+            results = evaluate_student(model, data, hits_ks=cfg.hits_ks)
             meter.end_eval()
             val = results[cfg.metric][0]
             if val >= best_val:
@@ -476,5 +606,5 @@ def run_student(cfg: StudentConfig, *, max_epochs: Optional[int] = None,
               f"perf={perf}")
     report = dict(epoch_s=list(meter.epoch_s), eval_s=list(meter.eval_s), perf=perf,
                   losses=losses, steps_per_epoch=steps, node_batch=min(node_bs, n),
-                  num_pos=data["num_pos"], split_name=data["split_name"])
+                  num_pos=data["num_pos"], split_name=data["split_name"], **_data_report(data))
     return stats, loggers, report

@@ -8,6 +8,8 @@ cutoffs, and dense or uniform negatives (uniform for collab only).  Unlike
 the JAX package it consults no device: the port has one SpMM route per
 device, the segsum kernel on the card and its plain version on the CPU, so
 ``spmm_impl`` is ``auto`` or ``segsum`` and anything else is refused.
+
+:class:`SplitConfig` holds the production splitter's ratios per dataset.
 """
 
 from __future__ import annotations
@@ -54,6 +56,7 @@ class CommonConfig:
     checkpoint_every: int = 0
     epochs_per_jit: int = 1
     resume: bool = False
+    profile_dir: str = ""  # as in JAX; nothing reads it
     num_devices: int = 1
     sharding: str = "dp"
     reorder: str = "none"
@@ -132,3 +135,22 @@ class StudentConfig(CommonConfig):
         return max(
             1, int(num_nodes / (num_train_edges / min(self.link_batch_size, num_train_edges)))
         )
+
+
+@dataclass
+class SplitConfig:
+    """The production splitter's ratios (reference ``train_teacher_gnn.py:352-365``):
+    0.3 of the edges, of the nodes and of the training graph's edges held out
+    for ``cora`` and ``citeseer``, 0.1 elsewhere."""
+
+    test_ratio: float = 0.1
+    val_node_ratio: float = 0.1
+    val_ratio: float = 0.1
+    old_old_extra_ratio: float = 0.1
+    seed: int = 234
+
+    @classmethod
+    def for_dataset(cls, name: str) -> "SplitConfig":
+        if name in ("cora", "citeseer"):
+            return cls(test_ratio=0.3, val_node_ratio=0.3, val_ratio=0.3)
+        return cls()

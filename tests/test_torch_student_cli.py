@@ -22,6 +22,7 @@ from llp_tpu_torch.cli import serve as torch_serve
 from llp_tpu_torch.cli import train_student, train_teacher
 from llp_tpu_torch.data.io import save_dataset_npz
 from llp_tpu_torch.data.registry import get_dataset
+from test_torch_train_cli import assert_same_config_line
 
 DATASET = "synthetic:sbm:300:4:6.0:1:48:gauss"
 STUDENT = f"{DATASET}-student_transductive"
@@ -82,6 +83,10 @@ def test_cli_writes_the_artifact_meta_and_kd_file_as_jax(students):
         text = (root / "results" / f"{DATASET}_KD_transductive.txt").read_text()
         return [s.split(":")[0] for s in text.splitlines()[1:]]
 
+    def config_line(root):
+        return (root / "results" / f"{DATASET}_KD_transductive.txt").read_text().splitlines()[0]
+
+    assert_same_config_line(config_line(ours), config_line(ref))
     assert lines(ours) == lines(ref)
     assert lines(ours)[0] == "LLP (Relational Distillation)"
     assert [_shape(s) for s in our_out[:-1]] == [_shape(s) for s in ref_out[:-1]]
@@ -166,12 +171,14 @@ def test_use_edge_weight_changes_nothing_in_the_student(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    "--transductive=production", "--num_devices=2", "--sharding=halo", "--resume",
+    # production runs (tests/test_torch_production_driver.py); with --reorder it exits
+    pytest.param("--transductive=production --reorder=rcm", id="--transductive=production"),
+    "--num_devices=2", "--sharding=halo", "--resume",
     "--checkpoint_every=5", "--reorder=rcm", "--epochs_per_jit=2", "--spmm_impl=xla",
 ])
 def test_unported_settings_exit(flag, tmp_path):
     with pytest.raises(SystemExit) as exc:
-        train_student.main(["--device=cpu", *_flags(tmp_path), flag])
+        train_student.main(["--device=cpu", *_flags(tmp_path), *flag.split()])
     assert re.search(r"not yet ported.*ROADMAP A1[024]|TPU mechanism|one SpMM route",
                      str(exc.value.code))
     assert not os.path.exists(tmp_path / "data")  # refused before any work

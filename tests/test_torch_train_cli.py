@@ -1,11 +1,14 @@
 """The slice as a whole: the port's training CLI on the CPU writes the teacher
 artifact, the results file and the split cache; both packages' serving CLIs
 serve the artifact and agree on the pair scores (atol=1e-5); the JAX
-package's training CLI prints and writes the same lines; ``--use_edge_weight``
-and ``--encoder=gcn`` train; settings not ported yet exit (``--use_valedges_as_input``
-trains: ``tests/test_torch_valedges.py``); and without
-``--device cpu`` on a host with no card the CLI exits."""
+package's training CLI prints and writes the same lines, the results file's
+config line included; ``--use_edge_weight`` and ``--encoder=gcn`` train;
+settings not ported yet exit (``--use_valedges_as_input`` trains:
+``tests/test_torch_valedges.py``; ``--transductive production``:
+``tests/test_torch_production_driver.py``); and without ``--device cpu`` on
+a host with no card the CLI exits."""
 
+import ast
 import json
 import os
 import re
@@ -95,19 +98,39 @@ def test_stdout_and_results_lines_match_the_jax_cli(tmp_path, capsys):
 
     def lines(root):
         path = root / "results" / f"{DATASET}_supervised_transductive.txt"
-        return [s.split(":")[0] for s in path.read_text().splitlines()[1:]]
+        return path.read_text().splitlines()
 
-    assert lines(tmp_path / "torch") == lines(tmp_path / "jax")
+    ours, ref = lines(tmp_path / "torch"), lines(tmp_path / "jax")
+    assert_same_config_line(ours[0], ref[0])
+    assert [s.split(":")[0] for s in ours[1:]] == [s.split(":")[0] for s in ref[1:]]
+
+
+# The fields a test sets to directories of each package's own.
+DIRS = ("dataset_dir", "save_dir", "results_dir")
+
+
+def assert_same_config_line(ours: str, ref: str) -> None:
+    """A results file's first line (``str(asdict(cfg))``) against JAX's: the
+    same keys in the same order and the same values, apart from the
+    directories and the resolved ``spmm_impl``, which names each package's
+    route on the CPU (the port: segsum's plain version; JAX: XLA)."""
+    a, b = ast.literal_eval(ours), ast.literal_eval(ref)
+    assert list(a) == list(b)
+    assert (a.pop("spmm_impl"), b.pop("spmm_impl")) == ("segsum", "xla")
+    assert {k: v for k, v in a.items() if k not in DIRS} == {
+        k: v for k, v in b.items() if k not in DIRS}
 
 
 @pytest.mark.parametrize("flag", [
-    "--transductive=production", "--num_devices=2", "--sharding=halo", "--resume",
+    # production runs (tests/test_torch_production_driver.py); with --reorder it exits
+    pytest.param("--transductive=production --reorder=rcm", id="--transductive=production"),
+    "--num_devices=2", "--sharding=halo", "--resume",
     "--checkpoint_every=5", "--reorder=rcm", "--reorder=locality",
     "--epochs_per_jit=2", "--spmm_impl=xla",
 ])
 def test_unported_settings_exit(flag, tmp_path):
     with pytest.raises(SystemExit) as exc:
-        train_teacher.main(["--device=cpu", *_flags(tmp_path), flag])
+        train_teacher.main(["--device=cpu", *_flags(tmp_path), *flag.split()])
     assert exc.value.code not in (None, 0)
     assert re.search(r"not yet ported|TPU mechanism|one SpMM route", str(exc.value.code))
     assert not os.path.exists(tmp_path / "data")  # refused before any work

@@ -114,10 +114,12 @@ def test_eval_hoist_is_taken_per_graph(tmp_path):
     cfg, _ = _configs(tmp_path, "weighted")
     data = prepare_transductive(cfg, torch.device("cpu"))
     aggs = eval_first_aggregations("sage", "sage", data)
-    assert set(aggs) == {id(data["graph"]), id(data["eval_graph"])}
-    for g in (data["graph"], data["eval_graph"]):
-        torch.testing.assert_close(aggs[id(g)], mean_aggregate(g, data["x"]))
-    assert not torch.allclose(aggs[id(data["graph"])], aggs[id(data["eval_graph"])])
+    x = data["x"]
+    keys = [(id(g), id(x)) for g in (data["graph"], data["eval_graph"])]  # (graph, features)
+    assert set(aggs) == set(keys)
+    for g, key in zip((data["graph"], data["eval_graph"]), keys):
+        torch.testing.assert_close(aggs[key], mean_aggregate(g, x))
+    assert not torch.allclose(aggs[keys[0]], aggs[keys[1]])
     assert eval_first_aggregations("gcn", "sage", data) == {}  # the hoist is off for gcn
 
 
