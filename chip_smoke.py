@@ -10,7 +10,8 @@ failure exits non-zero.
 1. device       -- the card's name and power limit (nvidia-smi), torch and
                    CUDA versions.
 2. build        -- compiles every kernel of ``llp_tpu_torch/csrc`` (one
-                   ``nvcc`` per source, all started together).
+                   ``nvcc`` per source, all started together) and the host
+                   partitioner ``csrc/partition.cpp`` (``g++``).
 3. kernel_check -- each kernel against its plain PyTorch version on the card,
                    at stated tolerances: segsum in its three unweighted
                    instances (fp32, bf16 -> fp32, bf16 -> bf16) and its two
@@ -21,7 +22,12 @@ failure exits non-zero.
                    the plain edge dots), SDDMM, and the fused retrieval
                    kernel (mlp_topk) in its four instances (fp32 or bf16,
                    dense or int8 candidates) at heads of 2 to 4 layers and
-                   ragged Q and B. With more than one card visible
+                   ragged Q and B, and the tile SpMM (spmm_tiles, B5) in its
+                   four instances (fp32 or bf16 x, unweighted or weighted
+                   tiles) with min_tile_edges 0 and 16 at D = 64, 128, 256
+                   and 37 on a hub-and-isolated and a banded graph, its
+                   hybrid forward and backward (sum, mean) and the empty
+                   tile set. With more than one card visible
                    (other_card), segsum and SDDMM run again on the last card
                    while card 0 stays current.
 4. serve        -- the serving CLI (``llp_tpu_torch.cli.serve.main``) at full
@@ -84,11 +90,30 @@ failure exits non-zero.
                    evaluation agrees on the card and the CPU, and its
                    artifact, served with ``--reencode``, answers alike on
                    both.
-9. kernels      -- one JSON line: each kernel's launches on the serving,
-                   training, student and production paths, its time at the
-                   collab shapes, the plain version's time, a library
-                   call's time where one exists, and the least time the
-                   card could take. A ``top_k_partners:`` line gives the
+9. reorder      -- ``--reorder rcm|locality`` and the tile SpMM: the
+                   orders of the collab stand-in (their host time) and the
+                   tile fill under each (min_tile_edges 16 and 0); on the
+                   RCM graph the hybrid ``spmm_tiles`` mean forward and
+                   backward (fp32, and bf16 forward) and the weighted tiles
+                   of the mean (fp32 and bf16 x) against their plain
+                   versions (the plain segment sum and backward,
+                   ``spmm_tiles_apply_plain``);
+                   the teacher CLI with ``--reorder rcm`` and ``locality``
+                   (cora 20 epochs, collab 2, fp32), a ``--reorder
+                   locality`` student from the natural-order cora teacher,
+                   the production setting relabeled (cora, teacher and
+                   student), the RCM cora artifact served on the card and
+                   the CPU. Then, after the path's counters are read, the
+                   hybrid's tiles and the min_tile_edges 0 tiles against
+                   ``spmm_tiles_apply_plain`` (fp32 and bf16 x), B1's
+                   forward at D=256 on each order's CSR and B5's times
+                   (the hybrid beside B1 and ``torch.sparse.mm``, and
+                   ``spmm_tiles_apply`` at min_tile_edges 0).
+10. kernels     -- one JSON line: each kernel's launches on the serving,
+                   training, student, production and reorder paths, its
+                   time at the collab shapes, the plain version's time, a
+                   library call's time where one exists, and the least time
+                   the card could take. A ``top_k_partners:`` line gives the
                    fused and unfused top-K times at Q=256 over collab.
 
 The last line is ``{"ok": true, "device": {...}}``. Without CUDA, or outside
@@ -221,6 +246,7 @@ def phase_device() -> dict:
 
 
 def phase_build() -> None:
+    from llp_tpu_torch.data import native
     from llp_tpu_torch.ops.build import build_all
 
     t0 = time.perf_counter()
@@ -229,9 +255,17 @@ def phase_build() -> None:
         for line in r["ptxas"].splitlines():
             if "registers" in line or "spill" in line:
                 log(f"ptxas[{name}]", line.strip())
+    # the host partitioner of --reorder locality (g++); its numpy fallback
+    # would take hours on the collab stand-in
+    cached = native.library_path().exists()
+    t = time.perf_counter()
+    if not native.native_available():
+        raise AssertionError("the host partitioner (csrc/partition.cpp) did not build: no g++")
     log("build", {"seconds": time.perf_counter() - t0,
                   "kernels": {n: {"seconds": r["seconds"], "cached": r["cached"]}
-                              for n, r in report.items()}})
+                              for n, r in report.items()},
+                  "partitioner": {"library": native.library_path().name, "cached": cached,
+                                  "seconds": time.perf_counter() - t}})
 
 
 def _check_graph(n: int, e: int, hub_deg: int, isolated: int, seed: int):
@@ -423,6 +457,7 @@ def phase_kernel_check(gen) -> dict:
     sddmm_case(5_000, 2048, 300, 700)    # z staged in two chunks, two groups of units
     sddmm_case(5_000, 1813, 70, 2048)    # chunked, with a ragged last chunk
     worst.update(mlp_topk_check(gen))
+    worst.update(spmm_tiles_check(gen))
     return worst
 
 
@@ -490,6 +525,116 @@ def mlp_topk_check(gen) -> dict:
                 key = f"mlp_topk_{tag}_{kind}"
                 worst[key] = max(worst[key], err["max_abs"])
                 log("kernel_check", {"kernel": key, "dims": dims, "q": q, "b": b, **err, **tol})
+    return worst
+
+
+def _banded_graph(n: int, e: int, band: int, isolated: int, seed: int):
+    """Senders within ``band`` ids of their receiver (modulo n, so no node
+    sends far more than the mean), so tiles near the diagonal fill and hold
+    several chunks; the last ``isolated`` nodes receive nothing (whole row
+    blocks with no chunk); parallel edges occur."""
+    import numpy as np
+
+    from llp_tpu_torch.core.graph import build_graph
+
+    rng = np.random.default_rng(seed)
+    recv = rng.integers(0, n - isolated, e)
+    send = (recv + rng.integers(-band, band + 1, e)) % n
+    return build_graph(np.stack([send, recv]), n, device="cuda")
+
+
+def spmm_tiles_check(gen) -> dict:
+    """The tile SpMM kernel (B5) in its four instances (fp32 or bf16 x,
+    unweighted or weighted tiles) against ``spmm_tiles_apply_plain``, on a
+    graph with a hub row and isolated receivers and on a banded one, with
+    ``min_tile_edges`` 0 and 16, at D = 64, 128, 256 and 37; the hybrid
+    ``spmm_tiles`` forward and backward (sum and mean) against the plain
+    segment sum and the plain backward; the empty tile set."""
+    import numpy as np
+    import torch
+
+    from llp_tpu_torch.data.tiles import build_tiles, tile_fill
+    from llp_tpu_torch.ops.segsum import segsum_plain
+    from llp_tpu_torch.ops.spmm import spmm_backward_plain
+    from llp_tpu_torch.ops.spmm_tiles import spmm_tiles, spmm_tiles_apply, spmm_tiles_apply_plain
+
+    worst = {k: 0.0 for k in ("spmm_tiles_f32", "spmm_tiles_bf16", "spmm_tiles_w_f32",
+                              "spmm_tiles_w_bf16", "spmm_tiles_hybrid",
+                              "spmm_tiles_hybrid_bf16", "spmm_tiles_hybrid_bwd")}
+    graphs = {"hub+isolated": _check_graph(50_000, 200_000, 12_000, 5_000, seed=0),
+              "banded": _banded_graph(20_000, 600_000, 150, 1_000, seed=1)}
+    for label, g in graphs.items():
+        n = g.num_nodes
+        send, recv = g.senders.cpu().numpy(), g.receivers.cpu().numpy()
+        # weights: multiples of 1/8 in [-2, 2], a seventh of them 0
+        w = np.random.default_rng(2).integers(-16, 17, g.num_edges).astype(np.float32) / 8
+        w[::7] = 0.0
+        for min_edges in (0, 16):
+            for weighted in (False, True):
+                tiles = build_tiles(recv, send, n, w if weighted else None,
+                                    min_tile_edges=min_edges, device="cuda")[0]
+                fill = tile_fill(tiles)
+                for d in (64, 128, 256, 37):
+                    # multiples of 1/256 in [-4, 4]: their bf16 roundings too, so
+                    # the sums of x are exact in fp32 in any order
+                    x = torch.randint(-1024, 1025, (n, d), generator=gen,
+                                      device="cuda").float() / 256
+                    for xt, tag in ((x, "f32"), (x.bfloat16(), "bf16")):
+                        key = f"spmm_tiles{'_w' if weighted else ''}_{tag}"
+                        before = spmm_tiles_apply.launches
+                        got = spmm_tiles_apply(tiles, xt, n)
+                        torch.cuda.synchronize()
+                        if spmm_tiles_apply.launches != before + 1:
+                            raise AssertionError(f"{key} {label}: the kernel did not launch")
+                        ref = spmm_tiles_apply_plain(tiles, xt, n)
+                        err = compare(got, ref, **SEGSUM_TOL,
+                                      what=f"{key} {label} min={min_edges} d={d}")
+                        worst[key] = max(worst[key], err["max_abs"])
+                        log("kernel_check", {"kernel": key, "case": label,
+                                             "min_tile_edges": min_edges, "n": n,
+                                             "e": g.num_edges, "d": d, **fill, **err})
+        # the hybrid: tiles of >= 16 edges through the kernel, the rest residual
+        for d in (256, 37):
+            # exact multiples again: the hub row's 12,000-term sums agree in
+            # any order (the hybrid sums tiles, then the residual)
+            x, gout = (torch.randint(-1024, 1025, (n, d), generator=gen,
+                                     device="cuda").float() / 256 for _ in range(2))
+            for reduce in ("sum", "mean"):
+                scale = g.inv_in_degree if reduce == "mean" else None
+                xr = x.clone().requires_grad_(True)
+                before = (spmm_tiles_apply.launches, spmm_tiles.backward_launches)
+                out = spmm_tiles(g, xr, reduce)
+                (dx,) = torch.autograd.grad(out, xr, gout)
+                torch.cuda.synchronize()
+                if (spmm_tiles_apply.launches, spmm_tiles.backward_launches) != (
+                        before[0] + 2, before[1] + 1):
+                    raise AssertionError(f"spmm_tiles {label} {reduce}: expected one forward "
+                                         f"and one backward launch")
+                what = f"spmm_tiles hybrid {label} d={d} {reduce}"
+                err = compare(out, segsum_plain(x, g.senders, g.in_ptr, scale), **SEGSUM_TOL,
+                              what=what)
+                bwd = compare(dx, spmm_backward_plain(g, gout, reduce), **SEGSUM_TOL,
+                              what=f"{what} backward")
+                xb = x.bfloat16()
+                got16 = spmm_tiles(g, xb, reduce)
+                err16 = compare_bf16(got16, segsum_plain(xb.float(), g.senders, g.in_ptr,
+                                                         scale).bfloat16(),
+                                     **BF16_TOL, what=f"{what} bf16")
+                worst["spmm_tiles_hybrid"] = max(worst["spmm_tiles_hybrid"], err["max_abs"])
+                worst["spmm_tiles_hybrid_bwd"] = max(worst["spmm_tiles_hybrid_bwd"],
+                                                     bwd["max_abs"])
+                worst["spmm_tiles_hybrid_bf16"] = max(worst["spmm_tiles_hybrid_bf16"],
+                                                      err16["max_abs"])
+                log("kernel_check", {"kernel": "spmm_tiles_hybrid", "case": label,
+                                     "reduce": reduce, "n": n, "e": g.num_edges, "d": d,
+                                     **err, "backward": bwd, "bf16": err16})
+    empty = build_tiles(np.zeros(0), np.zeros(0), 1000, device="cuda")[0]
+    before = spmm_tiles_apply.launches
+    got = spmm_tiles_apply(empty, torch.randn(1000, 64, generator=gen, device="cuda"), 1000)
+    torch.cuda.synchronize()
+    if spmm_tiles_apply.launches != before + 1 or bool(got.any()):
+        raise AssertionError("spmm_tiles on the empty tile set: expected one launch and zeros")
+    log("kernel_check", {"kernel": "spmm_tiles_f32", "case": "empty tile set", "zeros": True})
     return worst
 
 
@@ -1495,6 +1640,273 @@ def phase_production() -> dict:
     return {"runs": runs, "launches": launches}
 
 
+REORDER = WORK / "reorder"  # the relabeled runs' artifacts
+# The teacher runs with --reorder: (dataset, epochs, order), fp32, beside the
+# train phase's natural-order runs of the same dataset.
+REORDER_RUNS = (("cora", 20, "rcm"), ("cora", 20, "locality"), ("collab", 2, "rcm"),
+                ("collab", 2, "locality"))
+
+
+def _b5_timing(name: str, tiles, x, n: int, launches: int, worst: float, what: str) -> dict:
+    """The tile kernel's kernels-line entry at these tiles and x: its time,
+    the plain version's, ``torch.sparse.mm`` over a CSR of the same tiled
+    edges (and weights), and the least time: what the function needs read
+    once (each valid slot's coordinate and weight, the chunks' tile rows and
+    columns, the row blocks' offsets, the rows of x the tiles point at) and
+    out written once, or 2 D operations a tiled edge at the fp32 rate,
+    whichever is longer.  Padding slots are not charged: a chunk's edges
+    fill its first slots and neither the function nor the kernel reads past
+    them."""
+    import torch
+
+    from llp_tpu_torch.ops.spmm_tiles import spmm_tiles_apply, spmm_tiles_apply_plain
+
+    d = x.shape[1]
+    coords = tiles.coords.reshape(-1)
+    slots = torch.nonzero(coords >= 0).squeeze(1)
+    c = coords[slots].long()
+    rows = tiles.tile_rows.long()[slots // 128] * 128 + c // 128
+    cols = tiles.tile_cols.long()[slots // 128] * 128 + c % 128
+    vals = (torch.ones(slots.numel(), device="cuda") if tiles.weights is None
+            else tiles.weights.reshape(-1)[slots])
+    adj = torch.sparse_coo_tensor(torch.stack([rows, cols]), vals, (n, n)).coalesce()
+    adj = adj.to_sparse_csr()
+    edges = int(slots.numel())
+    t = {"ms": time_ms(lambda: spmm_tiles_apply(tiles, x, n)),
+         "plain_ms": time_ms(lambda: spmm_tiles_apply_plain(tiles, x, n))}
+    try:  # does torch.sparse.mm take this type?
+        adj_x = adj.to(x.dtype)
+        t["library_ms"] = time_ms(lambda: torch.sparse.mm(adj_x, x))
+    except RuntimeError as exc:
+        t["library_ms"] = None
+        t["library_note"] = f"torch.sparse.mm refuses {x.dtype} here: {str(exc)[:120]}"
+    chunks = int(tiles.tile_rows.numel())
+    x_rows = int(torch.unique(cols).numel())
+    nbytes = (edges * 4 * (2 if tiles.weights is not None else 1) + chunks * 8
+              + tiles.block_ptr.numel() * 8 + x_rows * d * x.element_size() + n * d * 4)
+    flops = 2 * edges * d
+    bytes_ms, flops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
+    t.update(bytes=nbytes, flops=flops, bound_ms=max(bytes_ms, flops_ms),
+             bound_by="bytes" if bytes_ms >= flops_ms else "operations")
+    log("timing", {"kernel": name, "n": n, "d": d, "chunks": chunks, "tiled_edges": edges,
+                   "x_rows": x_rows, "fill": edges / (chunks * 128), **t})
+    entry = {"name": name, "route": "cuda", "source": "llp_tpu_torch/csrc/spmm_tiles.cu",
+             "replaces": "docs/archived/spmm_tile_kernel.py:56", "launches": launches,
+             "max_abs_err": worst, "ms": t["ms"], "plain_ms": t["plain_ms"],
+             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+             "library_ms": t["library_ms"],
+             "shapes": f"{what}: n={n}, {chunks} chunks, {edges} tiled edges, d={d}"}
+    if "library_note" in t:
+        entry["library_note"] = t["library_note"]
+    return entry
+
+
+def phase_reorder(gen, train: dict, worst: dict) -> dict:
+    """The relabeled path on the card: the orders of the collab stand-in and
+    their tile fill; the tile SpMM (B5) on the RCM graph (the hybrid forward
+    and backward, the weighted tiles of the mean); the training CLIs with
+    ``--reorder`` (teachers, a student from the natural-order teacher, the
+    production setting) and the reordered artifact served on the card and
+    the CPU. The launch counters are read after that path; then B1 on each
+    order and B5 are timed. Returns the path's launches and B5's kernels-line
+    entries."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from llp_tpu_torch.core.graph import build_graph
+    from llp_tpu_torch.data.partition import locality_order
+    from llp_tpu_torch.data.registry import get_dataset
+    from llp_tpu_torch.data.reorder import rcm_order
+    from llp_tpu_torch.data.tiles import build_tiles, tile_fill
+    from llp_tpu_torch.ops.sddmm import sddmm_mlp_score
+    from llp_tpu_torch.ops.segsum import segsum, segsum_plain
+    from llp_tpu_torch.ops.spmm import spmm, spmm_backward_plain
+    from llp_tpu_torch.ops.spmm_tiles import spmm_tiles, spmm_tiles_apply, spmm_tiles_apply_plain
+
+    # the reorder path starts here
+    segsum.launches = spmm.backward_launches = sddmm_mlp_score.launches = 0
+    spmm.weighted_backward_launches = spmm_tiles_apply.launches = 0
+    spmm_tiles.backward_launches = 0
+    segsum.launch_counts.clear()
+    spmm_tiles_apply.launch_counts.clear()
+
+    ds = get_dataset(STANDINS, "collab")
+    n, ei = ds.num_nodes, ds.edge_index
+    t = time.perf_counter()
+    orders = {"natural": np.arange(n), "rcm": rcm_order(ei, n)}
+    rcm_s = time.perf_counter() - t
+    t = time.perf_counter()
+    orders["locality"] = locality_order(ei, n, 64)
+    log("reorder_order", {"dataset": "collab", "nodes": n, "edges": int(ei.shape[1]),
+                          "rcm_s": rcm_s, "locality_s": time.perf_counter() - t,
+                          "locality_parts": 64})
+    graphs, fill = {}, []
+    for name, order in orders.items():
+        inv = np.empty(n, np.int64)
+        inv[order] = np.arange(n)
+        g = graphs[name] = build_graph(inv[ei], n, device="cuda")
+        recv, send = g.receivers.cpu().numpy(), g.senders.cpu().numpy()
+        for min_edges in (16, 0):
+            tiles, res_recv, _, _ = build_tiles(recv, send, n, min_tile_edges=min_edges,
+                                                device="cpu")
+            row = {"order": name, "min_tile_edges": min_edges, **tile_fill(tiles),
+                   "residual_edges": int(res_recv.size),
+                   "residual_share": res_recv.size / g.num_edges}
+            log("reorder_fill", row)
+            fill.append(row)
+    g = graphs["rcm"]
+    recv, send = g.receivers.cpu().numpy(), g.senders.cpu().numpy()
+
+    # B5 on the RCM graph: the hybrid mean aggregation forward and backward
+    # (fp32, and the bf16 forward), each against its plain version
+    scale = g.inv_in_degree
+    x = torch.randn(n, 256, generator=gen, device="cuda")
+    xb = x.bfloat16()
+    gout = torch.randn(n, 256, generator=gen, device="cuda")
+    xr = x.clone().requires_grad_(True)
+    out = spmm_tiles(g, xr, "mean")
+    (dx,) = torch.autograd.grad(out, xr, gout)
+    b5 = {"hybrid": compare(out, segsum_plain(x, g.senders, g.in_ptr, scale), **SEGSUM_TOL,
+                            what="spmm_tiles hybrid rcm"),
+          "hybrid_backward": compare(dx, spmm_backward_plain(g, gout, "mean"), **SEGSUM_TOL,
+                                     what="spmm_tiles bwd rcm"),
+          "hybrid_bf16": compare_bf16(spmm_tiles(g, xb, "mean"),
+                                      segsum_plain(xb.float(), g.senders, g.in_ptr,
+                                                   scale).bfloat16(),
+                                      **BF16_TOL, what="spmm_tiles hybrid bf16 rcm")}
+    # the weighted tiles of the mean (1/deg on every edge, no residual): the
+    # whole aggregation in the kernel
+    mean_w = scale[g.receivers].cpu().numpy()
+    tiles_w = build_tiles(recv, send, n, mean_w, device="cuda")[0]
+    for xt, key in ((x, "weighted_f32"), (xb, "weighted_bf16")):
+        b5[key] = compare(spmm_tiles_apply(tiles_w, xt, n),
+                          spmm_tiles_apply_plain(tiles_w, xt, n), **SEGSUM_TOL,
+                          what=f"spmm_tiles {key} rcm")
+    log("reorder_b5", b5)
+
+    results = WORK / "results"
+    runs = {}
+    for name, epochs, reorder in REORDER_RUNS:
+        label = f"reorder {reorder} {name}"
+        before = _counts()
+        stats, report, _ = _train([f"--datasets={name}", f"--epochs={epochs}",
+                                   f"--dataset_dir={STANDINS}", f"--reorder={reorder}",
+                                   f"--save_dir={REORDER / reorder}",
+                                   f"--results_dir={results}", *TRAIN_FLAGS])
+        counts = _delta(_counts(), before)
+        line = _train_line(name, "float32", f"reorder {reorder}", stats, report, counts)
+        natural = train["runs"][(name, "float32", "")]["line"]
+        runs[(name, reorder)] = {"epoch_s": line["epoch_s"], "natural_epoch_s": natural["epoch_s"],
+                                 "metric": line["metric"], "valid": line["valid"],
+                                 "natural_valid": natural["valid"]}
+        log("reorder_train", {"dataset": name, "reorder": reorder, **runs[(name, reorder)]})
+        if line["losses"][-1] >= line["losses"][0]:
+            raise AssertionError(f"{label}: the loss did not fall: {line['losses']}")
+        _check_train_launches(label, "", "float32", counts,
+                              report["steps_per_epoch"] * len(report["epoch_s"]))
+    _serve_trained(REORDER / "rcm" / "cora-sage_transductive", expect_segsum=2)
+
+    # a relabeled student from the natural-order cora teacher, then the
+    # production setting relabeled, teacher and student
+    student_dir = REORDER / "student"
+    student_dir.mkdir(parents=True, exist_ok=True)
+    for ext in (".npz", ".json"):
+        shutil.copy(WORK / "teacher_cora" / f"cora-sage_transductive{ext}", student_dir)
+    jobs = (("student", "transductive", student_dir, STUDENT_FLAGS, True),
+            ("teacher", "production", REORDER / "production", TRAIN_FLAGS, False),
+            ("student", "production", REORDER / "production", STUDENT_FLAGS, True))
+    for role, setting, save, flags, student in jobs:
+        label = f"reorder locality cora {role} {setting}"
+        before = _counts()
+        stats, report, _ = _train(["--datasets=cora", "--epochs=20", f"--dataset_dir={STANDINS}",
+                                   "--reorder=locality", f"--transductive={setting}",
+                                   f"--save_dir={save}", f"--results_dir={results}", *flags],
+                                  student=student)
+        counts = _delta(_counts(), before)
+        losses = report["losses"][0]
+        metric = stats["Hits@20"]
+        log("reorder_train", {"dataset": "cora", "reorder": "locality", "role": role,
+                              "setting": setting, "epoch_s": report["epoch_s"][1:],
+                              "losses": losses, "Hits@20": {k: v[0] for k, v in metric.items()},
+                              "launches": counts})
+        if losses[-1] >= losses[0]:
+            raise AssertionError(f"{label}: the loss did not fall: {losses}")
+        if setting == "production":
+            _check_production_launches(label, role, counts, report, 1433)
+        elif counts["segsum"] or counts["sddmm"] != 4 * len(report["eval_s"]):
+            raise AssertionError(f"{label}: {counts['segsum']} segsum and {counts['sddmm']} "
+                                 f"sddmm launches, expected none and 4 an eval")
+
+    launches = {"segsum": segsum.launches, "sddmm": sddmm_mlp_score.launches,
+                "spmm_tiles": spmm_tiles_apply.launches,
+                "spmm_tiles_backward": spmm_tiles.backward_launches,
+                "spmm_tiles_by_shape": {f"{k[0]} d={k[1]}{' weighted' if k[2] else ''}": v
+                                        for k, v in spmm_tiles_apply.launch_counts.items()}}
+    path_counts = dict(spmm_tiles_apply.launch_counts)  # the timings below launch more
+    log("reorder_launches", launches)
+    if not spmm_tiles.backward_launches or any(
+            not spmm_tiles_apply.launch_counts[(dt, 256, wt)]
+            for dt in ("float32", "bfloat16") for wt in (False, True)):
+        raise AssertionError(f"reorder: a tile kernel instance did not launch: {launches}")
+
+    # the tiles alone against the plain version on the RCM graph: the
+    # hybrid's (>= 16 edges) and every edge's (min_tile_edges 0), after the
+    # counters
+    fwd, _ = g.hybrid_tiles
+    tiles0 = build_tiles(recv, send, n, device="cuda")[0]
+    for tiles, label in ((fwd.tiles, "tiles"), (tiles0, "min0")):
+        for xt, tag in ((x, "f32"), (xb, "bf16")):
+            b5[f"{label}_{tag}"] = compare(spmm_tiles_apply(tiles, xt, n),
+                                           spmm_tiles_apply_plain(tiles, xt, n), **SEGSUM_TOL,
+                                           what=f"spmm_tiles {label} {tag} rcm")
+    log("reorder_b5_tiles", {k: b5[k] for k in ("tiles_f32", "tiles_bf16", "min0_f32",
+                                                "min0_bf16")})
+
+    # B1 on each order, B5 beside it on the RCM graph
+    seg = {}
+    for name, gr in graphs.items():
+        adj = torch.sparse_csr_tensor(gr.in_ptr, gr.senders,
+                                      gr.inv_in_degree[gr.receivers], (n, n))
+        seg[name] = _segsum_timing(x, gr.senders, gr.in_ptr, gr.inv_in_degree, adj)
+        log("reorder_segsum", {"order": name, "n": n, "e": gr.num_edges, "d": 256,
+                               **seg[name]})
+    hybrid = {"order": "rcm", "d": 256, "reduce": "mean",
+              "hybrid_ms": time_ms(lambda: spmm_tiles(g, x, "mean")),
+              "tiles_only_ms": time_ms(lambda: spmm_tiles_apply(fwd.tiles, x, n)),
+              "residual_edges": int(fwd.res_recv.numel()),
+              "segsum_ms": seg["rcm"]["ms"], "sparse_mm_ms": seg["rcm"]["library_ms"],
+              "apply_min0_ms": time_ms(lambda: spmm_tiles_apply(tiles0, x, n)),
+              "apply_min0": tile_fill(tiles0)}
+    log("reorder_b5_timing", hybrid)
+
+    def err(*keys):  # the worst error of an instance, on the check graphs and here
+        return max([worst[k] for k in keys if k in worst]
+                   + [b5[k]["max_abs"] for k in keys if k in b5])
+
+    entries = [
+        _b5_timing("spmm_tiles.f32", fwd.tiles, x, n, path_counts.get(("float32", 256, False), 0),
+                   err("spmm_tiles_f32", "spmm_tiles_hybrid", "spmm_tiles_hybrid_bwd",
+                       "hybrid", "hybrid_backward", "tiles_f32", "min0_f32"),
+                   "collab stand-in in RCM order, the hybrid's tiles (>= 16 edges), fp32"),
+        _b5_timing("spmm_tiles.bf16", fwd.tiles, xb, n,
+                   path_counts.get(("bfloat16", 256, False), 0),
+                   err("spmm_tiles_bf16", "spmm_tiles_hybrid_bf16", "hybrid_bf16",
+                       "tiles_bf16", "min0_bf16"),
+                   "the same tiles, bf16 x"),
+        _b5_timing("spmm_tiles.weighted.f32", tiles_w, x, n,
+                   path_counts.get(("float32", 256, True), 0),
+                   err("spmm_tiles_w_f32", "weighted_f32"),
+                   "collab stand-in in RCM order, every edge, weights 1/deg (the mean)"),
+        _b5_timing("spmm_tiles.weighted.bf16", tiles_w, xb, n,
+                   path_counts.get(("bfloat16", 256, True), 0),
+                   err("spmm_tiles_w_bf16", "weighted_bf16"),
+                   "the same weighted tiles, bf16 x"),
+    ]
+    return {"launches": launches, "runs": runs, "fill": fill, "entries": entries}
+
+
 def _segsum_timing(x, senders, in_ptr, scale, adj, out_dtype=None, weights=None) -> dict:
     """Kernel, plain and library times of one segsum at these inputs, and the
     bytes it must move: x once, the index arrays (the scale and the weights)
@@ -1682,11 +2094,12 @@ def _mlp_topk_entries(gen, launches: dict, worst: dict) -> list:
 
 
 def phase_kernels(gen, launches: dict, train: dict, student: dict, production: dict,
-                  worst: dict) -> list:
+                  reorder: dict, worst: dict) -> list:
     """Times at the collab serving and training shapes; returns the kernels
-    line's entries. The segsum entry's launches count the serving and
-    production paths; the sddmm ones the serving, training, student and
-    production paths; mlp_topk's the serving and student paths."""
+    line's entries, with the tile kernel's from the reorder phase. The
+    segsum entry's launches count the serving, production and reorder
+    paths; the sddmm ones the serving, training, student, production and
+    reorder paths; mlp_topk's the serving and student paths."""
     import torch
 
     from llp_tpu_torch.core.graph import build_graph
@@ -1744,9 +2157,11 @@ def phase_kernels(gen, launches: dict, train: dict, student: dict, production: d
     entries = [
         {"name": "segsum", "route": "cuda", "source": "llp_tpu_torch/csrc/segsum.cu",
          "replaces": "llp_tpu/ops/pallas/segsum_kernel.py:148",
-         "launches": launches["segsum"] + production["launches"]["segsum"],
+         "launches": (launches["segsum"] + production["launches"]["segsum"]
+                      + reorder["launches"]["segsum"]),
          "launches_by_path": {"serve": launches["segsum"],
-                              "production": production["launches"]["segsum"]},
+                              "production": production["launches"]["segsum"],
+                              "reorder": reorder["launches"]["segsum"]},
          "max_abs_err": worst["segsum"],
          "ms": seg["ms"], "plain_ms": seg["plain_ms"], "bound_ms": seg_bound_ms,
          "bound_by": "bytes", "library_ms": seg["library_ms"],
@@ -1754,10 +2169,12 @@ def phase_kernels(gen, launches: dict, train: dict, student: dict, production: d
         {"name": "sddmm", "route": "cuda", "source": "llp_tpu_torch/csrc/sddmm.cu",
          "replaces": "llp_tpu/ops/pallas/sddmm_kernel.py:41",
          "launches": (launches["sddmm"] + train["launches"]["sddmm"]
-                      + student["launches"]["sddmm"] + production["launches"]["sddmm"]),
+                      + student["launches"]["sddmm"] + production["launches"]["sddmm"]
+                      + reorder["launches"]["sddmm"]),
          "launches_by_path": {"serve": launches["sddmm"], "train": train["launches"]["sddmm"],
                               "student": student["launches"]["sddmm"],
-                              "production": production["launches"]["sddmm"]},
+                              "production": production["launches"]["sddmm"],
+                              "reorder": reorder["launches"]["sddmm"]},
          "max_abs_err": worst["sddmm"],
          "ms": sd["ms"], "plain_ms": sd["plain_ms"],
          "bound_ms": max(sd_bytes_ms, sd_flops_ms),
@@ -1826,7 +2243,7 @@ def phase_kernels(gen, launches: dict, train: dict, student: dict, production: d
     x = torch.randn(tn, 256, generator=gen, device="cuda").bfloat16()
     t = _segsum_timing(x, tg.senders, tg.in_ptr, tscale, fwd_adj, out_dtype=torch.float32)
     log("timing", {"kernel": "segsum.fwd.bf16->f32", "n": tn, "e": te, "d": 256, **t})
-    return entries + _weighted_entries(gen, train, worst)
+    return entries + _weighted_entries(gen, train, worst) + reorder["entries"]
 
 
 def main() -> int:
@@ -1865,7 +2282,9 @@ def main() -> int:
     train = timed("train", phase_train)
     student = timed("student", phase_student)
     production = timed("production", phase_production)
-    kernels = timed("kernels", phase_kernels, gen, launches, train, student, production, worst)
+    reorder = timed("reorder", phase_reorder, gen, train, worst)
+    kernels = timed("kernels", phase_kernels, gen, launches, train, student, production,
+                    reorder, worst)
     log("total", {"seconds": time.perf_counter() - t0, "phases": seconds})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": info["name"],

@@ -59,8 +59,14 @@ def add_common_flags(p: argparse.ArgumentParser) -> None:
                    help="halo is not yet ported (ROADMAP A14)")
     p.add_argument("--reorder", type=str, default="none",
                    choices=["none", "locality", "rcm"],
-                   help="locality and rcm are not yet ported (ROADMAP A12)")
-    p.add_argument("--reorder_parts", type=int, default=0)
+                   help="node-id relabel at data-prep time (isomorphism; artifacts "
+                        "stay in the dataset's original id space): 'locality' groups "
+                        "low-cut clusters into contiguous id ranges (clusters SpMM "
+                        "gathers, fills the tile SpMM's tiles), 'rcm' is reverse "
+                        "Cuthill-McKee")
+    p.add_argument("--reorder_parts", type=int, default=0,
+                   help="cluster count for --reorder locality (0 = auto: num_devices "
+                        "when multi-device, else 64)")
     p.add_argument("--checkpoint_every", type=int, default=0,
                    help="not yet ported (ROADMAP A12)")
     p.add_argument("--resume", action="store_true", help="not yet ported (ROADMAP A12)")

@@ -87,6 +87,16 @@ class Graph:
         deg_hat = deg + 1.0
         return torch.rsqrt(deg_hat), 1.0 / deg_hat
 
+    @cached_property
+    def hybrid_tiles(self) -> tuple:
+        """``(forward, backward)`` :class:`llp_tpu_torch.ops.spmm_tiles.
+        HybridTiles` of the tile SpMM: the tiles and residual of the receiver
+        rows and of the sender rows, on the graph's device.  Only
+        :func:`llp_tpu_torch.ops.spmm_tiles.spmm_tiles` reads them, so they
+        are built on first use, once per graph, and freed with it."""
+        from llp_tpu_torch.ops.spmm_tiles import hybrid_tiles
+        return hybrid_tiles(self), hybrid_tiles(self, transpose=True)
+
 
 def build_graph(edge_index: np.ndarray, num_nodes: int, *, device="cuda",
                 edge_weight: Optional[np.ndarray] = None) -> Graph:

@@ -39,6 +39,7 @@ SIGNATURES = {
               [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P]),
     "mlp_topk": ("llp_mlp_topk",
                  [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P, _INT, _INT, _P]),
+    "spmm_tiles": ("llp_spmm_tiles", [_P, _P, _P, _P, _P, _P, _I64, _I64, _INT, _P]),
 }
 
 

@@ -40,9 +40,20 @@ only a split shipped in the dataset, whose message graph is the dataset's
 own edge list (collab), and the production setting refuses them, as in JAX.
 The student's walks are uniform whatever the weights, as in JAX.
 ``use_valedges_as_input`` evaluates the test edges over a second message
-graph holding the validation edges too.  Not ported yet, refused by
-:func:`refuse_unported`: resume, snapshots and node reordering (A12), more
-than one device (A14); ``epochs_per_jit`` is a TPU mechanism.
+graph holding the validation edges too.
+
+``reorder`` (``locality`` or ``rcm``) relabels the nodes when the data are
+prepared, an isomorphism (:func:`_node_order`): the features, the message
+edges (their weights stay in edge order), the split and the evaluated edge
+sets move to the new ids, and every metric is unchanged.  In production the
+old nodes' training space and the inference space are relabeled apart.  The
+split caches stay in the dataset's original ids, the teacher exports its
+table in them, and the student gathers that table into its own relabeled
+space, so artifacts of runs with and without ``reorder``, of either
+package, interoperate.
+
+Not ported yet, refused by :func:`refuse_unported`: resume and snapshots
+(A12), more than one device (A14); ``epochs_per_jit`` is a TPU mechanism.
 """
 
 from __future__ import annotations
@@ -63,7 +74,9 @@ from llp_tpu_torch.data.io import (
     save_production_split_npz,
     save_split_npz,
 )
+from llp_tpu_torch.data.partition import locality_order
 from llp_tpu_torch.data.registry import get_dataset
+from llp_tpu_torch.data.reorder import rcm_order
 from llp_tpu_torch.data.splits import do_edge_split, do_production_edge_split
 from llp_tpu_torch.evaln.logger import ProductionRunLogger, RunLogger
 from llp_tpu_torch.evaln.production import evaluate_production
@@ -93,8 +106,6 @@ def refuse_unported(cfg) -> None:
         raise _not_ported("--resume", "A12")
     if cfg.checkpoint_every:
         raise _not_ported("--checkpoint_every", "A12")
-    if cfg.reorder != "none":
-        raise _not_ported(f"--reorder {cfg.reorder}", "A12")
     if cfg.epochs_per_jit != 1:
         raise SystemExit(
             f"--epochs_per_jit {cfg.epochs_per_jit}: fusing epochs into one device "
@@ -125,6 +136,38 @@ def _dataset_edge_weight(cfg, ds):
             f"edge weights (only the ogbl-collab download ships them)"
         )
     return ds.edge_weight
+
+
+def _node_order(cfg, edge_index: np.ndarray, num_nodes: int) -> np.ndarray:
+    """The relabeling permutation of ``cfg.reorder`` (``order[i]`` = original
+    id of new node i): reverse Cuthill-McKee, or the locality partition into
+    ``reorder_parts`` parts (default: the device count when above 1, else
+    64), as ``llp_tpu/train/loop.py:132-146``."""
+    edge_index = np.asarray(edge_index, np.int64)
+    if cfg.reorder == "rcm":
+        return rcm_order(edge_index, num_nodes)
+    parts = cfg.reorder_parts or (cfg.num_devices if cfg.num_devices > 1 else 64)
+    return locality_order(edge_index, num_nodes, max(1, min(parts, num_nodes)))
+
+
+def _inverse_order(order: np.ndarray) -> np.ndarray:
+    inv = np.empty(order.shape[0], np.int64)
+    inv[order] = np.arange(order.shape[0])
+    return inv
+
+
+def _relabel_split(split: dict, inv: np.ndarray) -> dict:
+    """Every node id of a transductive split dict mapped through ``inv``
+    (the weights, in edge order, are kept)."""
+    out = {}
+    for part, d in split.items():
+        nd = dict(d)
+        for key in ("edge", "edge_neg"):
+            if nd.get(key) is not None:
+                arr = np.asarray(nd[key])
+                nd[key] = inv[arr.astype(np.int64)].astype(arr.dtype)
+        out[part] = nd
+    return out
 
 
 def eval_message_graph(message_ei: np.ndarray, split: dict, num_nodes: int,
@@ -167,7 +210,10 @@ def prepare_transductive(cfg, device) -> dict:
     dataset's weights; they are aligned with its edge list, so a re-split
     raises ``build_graph``'s length ``ValueError``, as in the JAX package.
     ``eval_graph`` is the graph itself, or with ``use_valedges_as_input``
-    the train+valid graph of :func:`eval_message_graph`."""
+    the train+valid graph of :func:`eval_message_graph`.  With ``reorder``
+    the message edges, the split and the feature rows are relabeled after
+    the split is read (its cache stays in the original ids);
+    ``node_order``/``node_inverse`` give the permutation (None without)."""
     ds = get_dataset(cfg.dataset_dir, cfg.datasets)
     ew = _dataset_edge_weight(cfg, ds)
     if ds.split is not None:
@@ -184,6 +230,15 @@ def prepare_transductive(cfg, device) -> dict:
         split_name = "do_edge_split:seed=234"
         message_ei = split["train"]["edge"].astype(np.int64).T
 
+    node_order = node_inverse = None
+    x_rows = ds.x
+    if cfg.reorder != "none":
+        node_order = _node_order(cfg, message_ei, ds.num_nodes)
+        node_inverse = _inverse_order(node_order)
+        message_ei = node_inverse[np.asarray(message_ei, np.int64)]
+        split = _relabel_split(split, node_inverse)
+        x_rows = np.asarray(ds.x)[node_order]
+
     def edges(a):
         return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int64)).to(device)
 
@@ -197,7 +252,7 @@ def prepare_transductive(cfg, device) -> dict:
         ds=ds,
         graph=graph,
         eval_graph=eval_graph,
-        x=torch.from_numpy(ds.x).to(device),
+        x=torch.from_numpy(np.ascontiguousarray(x_rows)).to(device),
         pos_edges=edges(pos),
         neg_keys=(edge_keys(message_ei, ds.num_nodes, device=device)
                   if cfg.neg_mode == "dense" else None),
@@ -209,13 +264,14 @@ def prepare_transductive(cfg, device) -> dict:
         },
         num_pos=int(pos.shape[0]),
         split_name=split_name,
+        node_order=node_order,
+        node_inverse=node_inverse,
     )
 
 
 def prepare_production(cfg, device) -> dict:
     """Dataset, production split, graphs and the device tensors of a
-    production run (counterpart of ``llp_tpu/train/loop.py::prepare_production``
-    without its ``--reorder`` relabeling, ROADMAP A12).
+    production run (counterpart of ``llp_tpu/train/loop.py::prepare_production``).
 
     The split is read from ``<dataset_dir>/<name>_production.npz`` when that
     cache carries the dataset's fingerprint, else made with the dataset's
@@ -225,7 +281,13 @@ def prepare_production(cfg, device) -> dict:
     node and the whole feature matrix.  Edge sets are (M, 2) int64: the
     validation edges in the old nodes' ids, ``test_edges`` (``merged``,
     ``old_old``, ``old_new``, ``new_new`` and the shared ``neg``) in the
-    original ids.  Dense negatives avoid the training graph's edges."""
+    original ids.  Dense negatives avoid the training graph's edges.
+
+    With ``reorder`` the two id spaces are relabeled apart, each by its own
+    graph's order: the training graph, its features and the validation
+    edges by ``node_order`` (returned with ``node_inverse``), the inference
+    graph, its features and the test edges by the inference graph's order.
+    ``ps`` stays the cached split, in the original ids."""
     ds = get_dataset(cfg.dataset_dir, cfg.datasets)
     cache = os.path.join(cfg.dataset_dir, f"{cfg.datasets}_production.npz")
     fp = dataset_fingerprint(ds.x, ds.edge_index)
@@ -238,7 +300,27 @@ def prepare_production(cfg, device) -> dict:
             val_ratio=sc.val_ratio, old_old_extra_ratio=sc.old_old_extra_ratio, seed=sc.seed)
         save_production_split_npz(cache, ps, fingerprint=fp)
     n_old, n_all = ps.training_x.shape[0], ps.inference_x.shape[0]
-    tr_ei = ps.training_edge_index
+    tr_ei, tr_x, val_pos, val_neg = (ps.training_edge_index, ps.training_x, ps.val_pos,
+                                     ps.val_neg)
+    inf_ei, inf_x = ps.inference_edge_index, ps.inference_x
+    test = {"merged": ps.test_merged, "old_old": ps.test_old_old,
+            "old_new": ps.test_old_new, "new_new": ps.test_new_new,
+            "neg": ps.negative_samples}
+    node_order = node_inverse = None
+    if cfg.reorder != "none":
+        node_order = _node_order(cfg, tr_ei, n_old)
+        node_inverse = _inverse_order(node_order)
+        tr_ei, val_pos, val_neg = (node_inverse[np.asarray(a, np.int64)]
+                                   for a in (tr_ei, val_pos, val_neg))
+        tr_x = np.asarray(tr_x)[node_order]
+        inf_order = _node_order(cfg, inf_ei, n_all)
+        inf_inverse = _inverse_order(inf_order)
+        inf_ei = inf_inverse[np.asarray(inf_ei, np.int64)]
+        inf_x = np.asarray(inf_x)[inf_order]
+        test = {k: inf_inverse[np.asarray(a, np.int64)] for k, a in test.items()}
+
+    def rows(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
     def edges(a):  # a host (2, M) array as (M, 2) int64 on the device
         return torch.from_numpy(np.ascontiguousarray(np.asarray(a, np.int64).T)).to(device)
@@ -247,18 +329,18 @@ def prepare_production(cfg, device) -> dict:
         ds=ds,
         ps=ps,
         graph=build_graph(tr_ei, n_old, device=device),
-        x=torch.from_numpy(ps.training_x).to(device),
-        inf_graph=build_graph(ps.inference_edge_index, n_all, device=device),
-        inf_x=torch.from_numpy(ps.inference_x).to(device),
+        x=rows(tr_x),
+        inf_graph=build_graph(inf_ei, n_all, device=device),
+        inf_x=rows(inf_x),
         pos_edges=edges(tr_ei),
         neg_keys=edge_keys(tr_ei, n_old, device=device) if cfg.neg_mode == "dense" else None,
-        val_pos=edges(ps.val_pos),
-        val_neg=edges(ps.val_neg),
-        test_edges={"merged": edges(ps.test_merged), "old_old": edges(ps.test_old_old),
-                    "old_new": edges(ps.test_old_new), "new_new": edges(ps.test_new_new),
-                    "neg": edges(ps.negative_samples)},
+        val_pos=edges(val_pos),
+        val_neg=edges(val_neg),
+        test_edges={k: edges(a) for k, a in test.items()},
         num_pos=int(tr_ei.shape[1]),
         split_name="do_production_edge_split:seed=234",
+        node_order=node_order,
+        node_inverse=node_inverse,
     )
 
 
@@ -473,6 +555,10 @@ def run_teacher(cfg: TeacherConfig, *, max_epochs: Optional[int] = None,
 
     if best_artifact is not None:
         params, h, meta = best_artifact
+        if data["node_inverse"] is not None:
+            # the table goes out in the dataset's original ids (row j of the
+            # export is original node j, new node node_inverse[j])
+            h = h.index_select(0, torch.from_numpy(data["node_inverse"]).to(h.device))
         save_checkpoint(_teacher_ckpt_path(cfg),
                         {"params": params, "features": h.cpu().numpy()}, meta=meta)
 
@@ -525,6 +611,10 @@ def run_student(cfg: StudentConfig, *, max_epochs: Optional[int] = None,
     if t_h.shape[0] != n:
         raise ValueError(f"the teacher artifact {_teacher_ckpt_path(cfg)} holds "
                          f"{t_h.shape[0]} rows for a dataset of {n} nodes")
+    if data["node_order"] is not None:
+        # the artifact is in the original ids: row i of this run is
+        # original node node_order[i]
+        t_h = t_h.index_select(0, torch.from_numpy(data["node_order"]).to(device))
     teacher_pred = from_jax(ckpt["params"]["predictor"]).to(device)
     node_bs = cfg.coupled_node_batch_size(n, data["num_pos"])
 

@@ -4,7 +4,8 @@ defaults, so a YAML file or a flag set means the same in both packages.
 
 ``finalize()`` applies the dataset-dependent overrides the reference
 hardcodes: the selection metric (Hits@20; Hits@50 for collab), the hits
-cutoffs, and dense or uniform negatives (uniform for collab only).  Unlike
+cutoffs, and dense or uniform negatives (uniform for collab only); it also
+refuses a ``reorder`` other than ``none``, ``locality`` or ``rcm``.  Unlike
 the JAX package it consults no device: the port has one SpMM route per
 device, the segsum kernel on the card and its plain version on the CPU, so
 ``spmm_impl`` is ``auto`` or ``segsum`` and anything else is refused.
@@ -76,6 +77,8 @@ class CommonConfig:
                 f"norm_type={self.norm_type!r}; expected one of {VALID_NORM_TYPES}"
             )
         resolve_dtype(self.compute_dtype)
+        if self.reorder not in ("none", "locality", "rcm"):
+            raise ValueError(f"reorder must be 'none', 'locality' or 'rcm', got {self.reorder!r}")
         if self.use_edge_weight and self.transductive == "production":
             raise ValueError(
                 "use_edge_weight is a transductive capability (the production "

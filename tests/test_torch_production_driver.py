@@ -8,7 +8,8 @@ production teacher alike (atol 1e-5); the eval hoist is taken per (graph,
 features); three single-step epochs with injected negatives and dropout 0
 on the production training graph equal JAX's jitted epoch (losses rtol
 2e-4, the first epoch's parameters rtol 2e-4 and atol 2e-5);
-``--reorder`` (A12) and ``--use_edge_weight`` are still refused."""
+``--use_edge_weight`` is still refused, and so are the snapshot flags
+(A12)."""
 
 import json
 import re
@@ -264,8 +265,10 @@ def test_epochs_on_the_production_graph_match_the_jitted_jax_epoch(tmp_path, mon
 @pytest.mark.parametrize("main", [train_teacher.main, train_student.main],
                          ids=["teacher", "student"])
 def test_refused_settings_in_production(main, tmp_path):
-    with pytest.raises(SystemExit, match=r"--reorder rcm is not yet ported.*ROADMAP A12"):
-        main(["--device=cpu", *_flags(tmp_path), "--reorder=rcm"])
+    # --reorder runs in production (tests/test_torch_reorder_driver.py); the
+    # snapshot flags still exit
+    with pytest.raises(SystemExit, match=r"--checkpoint_every is not yet ported.*ROADMAP A12"):
+        main(["--device=cpu", *_flags(tmp_path), "--checkpoint_every=5"])
     with pytest.raises(ValueError, match="use_edge_weight is a transductive capability"):
         main(["--device=cpu", *_flags(tmp_path), "--use_edge_weight"])
     assert not (tmp_path / "data").exists()  # refused before any work

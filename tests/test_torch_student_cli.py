@@ -171,10 +171,10 @@ def test_use_edge_weight_changes_nothing_in_the_student(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    # production runs (tests/test_torch_production_driver.py); with --reorder it exits
-    pytest.param("--transductive=production --reorder=rcm", id="--transductive=production"),
-    "--num_devices=2", "--sharding=halo", "--resume",
-    "--checkpoint_every=5", "--reorder=rcm", "--epochs_per_jit=2", "--spmm_impl=xla",
+    # production and --reorder run (tests/test_torch_production_driver.py,
+    # tests/test_torch_reorder_driver.py)
+    "--num_devices=2", "--sharding=halo", "--resume", "--checkpoint_every=5",
+    "--epochs_per_jit=2", "--spmm_impl=xla",
 ])
 def test_unported_settings_exit(flag, tmp_path):
     with pytest.raises(SystemExit) as exc:

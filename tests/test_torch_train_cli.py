@@ -122,10 +122,9 @@ def assert_same_config_line(ours: str, ref: str) -> None:
 
 
 @pytest.mark.parametrize("flag", [
-    # production runs (tests/test_torch_production_driver.py); with --reorder it exits
-    pytest.param("--transductive=production --reorder=rcm", id="--transductive=production"),
-    "--num_devices=2", "--sharding=halo", "--resume",
-    "--checkpoint_every=5", "--reorder=rcm", "--reorder=locality",
+    # production and --reorder run (tests/test_torch_production_driver.py,
+    # tests/test_torch_reorder_driver.py)
+    "--num_devices=2", "--sharding=halo", "--resume", "--checkpoint_every=5",
     "--epochs_per_jit=2", "--spmm_impl=xla",
 ])
 def test_unported_settings_exit(flag, tmp_path):
