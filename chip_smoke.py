@@ -11,7 +11,12 @@ failure exits non-zero.
                    CUDA versions.
 2. build        -- compiles every kernel of ``llp_tpu_torch/csrc`` (one
                    ``nvcc`` per source, all started together) and the host
-                   partitioner ``csrc/partition.cpp`` (``g++``).
+                   partitioner ``csrc/partition.cpp`` (``g++``); logs each
+                   kernel's registers, spills and static shared memory
+                   (``ptxas[...]:`` lines, from ``-Xptxas -v``) and the
+                   retrieval kernel's HMMA/HGMMA count (``sass[mlp_topk]:``,
+                   from ``cuobjdump -sass``), which must not be 0 for its
+                   tensor-core route.
 3. kernel_check -- each kernel against its plain PyTorch version on the card,
                    at stated tolerances: segsum in its three unweighted
                    instances (fp32, bf16 -> fp32, bf16 -> bf16) and its two
@@ -22,12 +27,16 @@ failure exits non-zero.
                    the plain edge dots), SDDMM, and the fused retrieval
                    kernel (mlp_topk) in its four instances (fp32 or bf16,
                    dense or int8 candidates) at heads of 2 to 4 layers and
-                   ragged Q and B, and the tile SpMM (spmm_tiles, B5) in its
-                   four instances (fp32 or bf16 x, unweighted or weighted
-                   tiles) with min_tile_edges 0 and 16 at D = 64, 128, 256
-                   and 37 on a hub-and-isolated and a banded graph, its
-                   hybrid forward and backward (sum, mean) and the empty
-                   tile set. With more than one card visible
+                   ragged Q and B (Q = 1, B off the 64-candidate tile; bf16
+                   on its tensor-core route and, for a head too wide for
+                   it, the SIMT one), and the tile SpMM (spmm_tiles, B5) in
+                   its four instances (fp32 or bf16 x, unweighted or
+                   weighted tiles) with min_tile_edges 0 and 16 at D = 64,
+                   128, 256 and 37 on a hub-and-isolated and a banded graph
+                   and on one whose row blocks hold 789 chunks and exactly
+                   one, its hybrid forward and backward (sum, mean; the
+                   residual through segsum) and the empty tile set. With
+                   more than one card visible
                    (other_card), segsum and SDDMM run again on the last card
                    while card 0 stays current.
 4. serve        -- the serving CLI (``llp_tpu_torch.cli.serve.main``) at full
@@ -107,14 +116,16 @@ failure exits non-zero.
                    hybrid's tiles and the min_tile_edges 0 tiles against
                    ``spmm_tiles_apply_plain`` (fp32 and bf16 x), B1's
                    forward at D=256 on each order's CSR and B5's times
-                   (the hybrid beside B1 and ``torch.sparse.mm``, and
-                   ``spmm_tiles_apply`` at min_tile_edges 0).
+                   (the hybrid beside B1 and ``torch.sparse.mm``, its
+                   residual segment sum alone, and ``spmm_tiles_apply`` at
+                   min_tile_edges 0).
 10. kernels     -- one JSON line: each kernel's launches on the serving,
                    training, student, production and reorder paths, its
                    time at the collab shapes, the plain version's time, a
                    library call's time where one exists, and the least time
                    the card could take. A ``top_k_partners:`` line gives the
-                   fused and unfused top-K times at Q=256 over collab.
+                   fused and unfused top-K times at Q=256 over collab, fp32
+                   and bf16, from dense and int8 tables.
 
 The last line is ``{"ok": true, "device": {...}}``. Without CUDA, or outside
 a checkout, the script exits 1 and prints no result.
@@ -142,8 +153,9 @@ WEIGHTED = str(WORK / "weighted")
 WEIGHTED_SMALL = str(WORK / "weighted_small")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, fp32 outside the
-# tensor cores, and bf16 on the tensor cores (dense). The kernels here run
-# no tensor-core instruction; a bf16 input's bound is held to the bf16 peak.
+# tensor cores, and bf16 on the tensor cores (dense). A bf16 input's bound
+# is held to the bf16 peak; of the kernels here only the retrieval kernel's
+# bf16 route runs on the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12
@@ -245,16 +257,83 @@ def phase_device() -> dict:
     return info
 
 
+def _demangle(names) -> dict:
+    """C++ names of mangled kernel symbols (c++filt), or the symbols as given."""
+    import shutil
+
+    names = sorted(set(names))
+    if not names or not shutil.which("c++filt"):
+        return {n: n for n in names}
+    out = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True, text=True,
+                         timeout=60).stdout.splitlines()
+    return dict(zip(names, out)) if len(out) == len(names) else {n: n for n in names}
+
+
+def _ptxas_resources(log_text: str) -> dict:
+    """Registers, static shared memory and spill bytes of each kernel that
+    ``nvcc -Xptxas -v`` reports (dynamic shared memory is the launch's)."""
+    import re
+
+    out, fn = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = m.group(1)
+            out[fn] = {}
+        elif fn and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            out[fn].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        elif fn and (m := re.search(r"Used (\d+) registers", line)):
+            out[fn]["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            out[fn]["static_smem"] = int(sm.group(1)) if sm else 0
+    names = _demangle(out)
+    return {names[k]: v for k, v in out.items()}
+
+
+def _sass_counts(path, opcodes=("HMMA", "HGMMA")) -> dict:
+    """Per kernel of a built library, the count of each opcode in its SASS
+    (``cuobjdump -sass``)."""
+    import os
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = dict.fromkeys(opcodes, 0)
+        elif fn:
+            for op in opcodes:
+                if re.search(rf"\b{op}\.", line):
+                    counts[fn][op] += 1
+    names = _demangle(counts)
+    return {names[k]: v for k, v in counts.items()}
+
+
 def phase_build() -> None:
+    """Build every kernel; log each kernel's registers, spills and shared
+    memory (ptxas) and the retrieval kernel's tensor-core instructions
+    (SASS), which must be there for every instance of its tensor-core
+    route."""
     from llp_tpu_torch.data import native
-    from llp_tpu_torch.ops.build import build_all
+    from llp_tpu_torch.ops.build import build_all, library_path
 
     t0 = time.perf_counter()
     report = build_all()
     for name, r in report.items():
-        for line in r["ptxas"].splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"ptxas[{name}]", line.strip())
+        for fn, res in _ptxas_resources(r["ptxas"]).items():
+            log(f"ptxas[{name}]", {"kernel": fn, **res})
+    sass = _sass_counts(library_path("mlp_topk"))
+    for fn, c in sass.items():
+        log("sass[mlp_topk]", {"kernel": fn, **c})
+    mma = {fn: c for fn, c in sass.items() if "mlp_mma_kernel" in fn}
+    if len(mma) != 2 or any(not c["HMMA"] + c["HGMMA"] for c in mma.values()):
+        raise AssertionError(f"mlp_topk: the tensor-core route's kernels hold no HMMA: {mma}")
     # the host partitioner of --reorder locality (g++); its numpy fallback
     # would take hours on the collab stand-in
     cached = native.library_path().exists()
@@ -475,13 +554,16 @@ def _mlp_head(dims, seed: int) -> list:
 def mlp_topk_check(gen) -> dict:
     """The four instances of the fused retrieval kernel (fp32 or bf16, dense
     or int8 candidates) against ``mlp_block_logits_plain`` on the card, at
-    ragged Q and B, heads of 2 to 4 layers, and the collab serving shape."""
+    ragged Q and B, heads of 2 to 4 layers, and the collab serving shape; bf16
+    on the tensor-core route wherever ``mma_supported`` says so, and on the
+    SIMT route for the wider heads."""
     import torch
 
     from llp_tpu_torch.ops.mlp_topk import (
         bf16_tolerance,
         mlp_block_logits,
         mlp_block_logits_plain,
+        mma_supported,
     )
     from llp_tpu_torch.serve.quant import quantize_table
 
@@ -494,6 +576,13 @@ def mlp_topk_check(gen) -> dict:
         ((64, 300, 1), 2, 77),          # 300 units: two passes of 256
         ((48, 96, 40, 72, 1), 4, 65),   # 4 layers: two buffers in turn
         ((256, 256, 1), 1, 1),
+        # Q = 1 and B off the 64-candidate tile, 2 to 4 layers (bf16: the
+        # tensor-core route, its passes of 256 units and its activations)
+        ((256, 256, 1), 1, 1000),
+        ((128, 128, 128, 1), 1, 777),
+        ((64, 320, 1), 1, 150),         # 320 units: two passes
+        ((64, 96, 80, 48, 1), 1, 130),
+        ((128, 256, 256, 1), 1, 301),   # bf16 too wide for the tensor cores: SIMT
     )
     for i, (dims, q, b) in enumerate(cases):
         lins = _mlp_head(dims, seed=40 + i)
@@ -504,11 +593,14 @@ def mlp_topk_check(gen) -> dict:
             q_h = queries.to(dt)
             for kind, cand, scales in (("dense", table.to(dt), None),
                                        ("int8", qt.q, qt.scale)):
-                before = mlp_block_logits.launches
+                before = mlp_block_logits.launches, mlp_block_logits.tensor_core_launches
                 got = mlp_block_logits(lins, q_h, cand, scales=scales)
                 torch.cuda.synchronize()
-                if mlp_block_logits.launches != before + 1:
-                    raise AssertionError(f"mlp_topk {tag} {kind}: the kernel did not launch")
+                mma = dt == torch.bfloat16 and mma_supported(dims)
+                if (mlp_block_logits.launches, mlp_block_logits.tensor_core_launches) != (
+                        before[0] + 1, before[1] + mma):
+                    raise AssertionError(f"mlp_topk {tag} {kind}: the kernel did not launch "
+                                         f"on the {'tensor-core' if mma else 'SIMT'} route")
                 ref = mlp_block_logits_plain(lins, q_h, cand, scales=scales)
                 what = f"mlp_topk {tag} {kind} dims={dims} q={q} b={b}"
                 if dt == torch.float32:
@@ -524,7 +616,8 @@ def mlp_topk_check(gen) -> dict:
                     tol = {"bound": "2 * 2^-7 * sum_u z_u |w_L,u| + 1e-5"}
                 key = f"mlp_topk_{tag}_{kind}"
                 worst[key] = max(worst[key], err["max_abs"])
-                log("kernel_check", {"kernel": key, "dims": dims, "q": q, "b": b, **err, **tol})
+                log("kernel_check", {"kernel": key, "dims": dims, "q": q, "b": b,
+                                     "route": "tensor cores" if mma else "SIMT", **err, **tol})
     return worst
 
 
@@ -547,14 +640,15 @@ def spmm_tiles_check(gen) -> dict:
     """The tile SpMM kernel (B5) in its four instances (fp32 or bf16 x,
     unweighted or weighted tiles) against ``spmm_tiles_apply_plain``, on a
     graph with a hub row and isolated receivers and on a banded one, with
-    ``min_tile_edges`` 0 and 16, at D = 64, 128, 256 and 37; the hybrid
-    ``spmm_tiles`` forward and backward (sum and mean) against the plain
-    segment sum and the plain backward; the empty tile set."""
+    ``min_tile_edges`` 0 and 16, at D = 64, 128, 256 and 37; a row block of
+    at least 500 chunks and one of exactly one; the hybrid ``spmm_tiles``
+    forward and backward (sum and mean; the residual through segsum) against
+    the plain segment sum and the plain backward; the empty tile set."""
     import numpy as np
     import torch
 
     from llp_tpu_torch.data.tiles import build_tiles, tile_fill
-    from llp_tpu_torch.ops.segsum import segsum_plain
+    from llp_tpu_torch.ops.segsum import segsum, segsum_plain
     from llp_tpu_torch.ops.spmm import spmm_backward_plain
     from llp_tpu_torch.ops.spmm_tiles import spmm_tiles, spmm_tiles_apply, spmm_tiles_apply_plain
 
@@ -602,14 +696,18 @@ def spmm_tiles_check(gen) -> dict:
             for reduce in ("sum", "mean"):
                 scale = g.inv_in_degree if reduce == "mean" else None
                 xr = x.clone().requires_grad_(True)
-                before = (spmm_tiles_apply.launches, spmm_tiles.backward_launches)
+                residuals = sum(bool(t.res_send.numel()) for t in g.hybrid_tiles)
+                before = (spmm_tiles_apply.launches, spmm_tiles.backward_launches,
+                          segsum.launches)
                 out = spmm_tiles(g, xr, reduce)
                 (dx,) = torch.autograd.grad(out, xr, gout)
                 torch.cuda.synchronize()
-                if (spmm_tiles_apply.launches, spmm_tiles.backward_launches) != (
-                        before[0] + 2, before[1] + 1):
+                if (spmm_tiles_apply.launches, spmm_tiles.backward_launches,
+                        segsum.launches) != (before[0] + 2, before[1] + 1,
+                                             before[2] + residuals):
                     raise AssertionError(f"spmm_tiles {label} {reduce}: expected one forward "
-                                         f"and one backward launch")
+                                         f"and one backward launch, and segsum once per "
+                                         f"residual ({residuals})")
                 what = f"spmm_tiles hybrid {label} d={d} {reduce}"
                 err = compare(out, segsum_plain(x, g.senders, g.in_ptr, scale), **SEGSUM_TOL,
                               what=what)
@@ -628,6 +726,37 @@ def spmm_tiles_check(gen) -> dict:
                 log("kernel_check", {"kernel": "spmm_tiles_hybrid", "case": label,
                                      "reduce": reduce, "n": n, "e": g.num_edges, "d": d,
                                      **err, "backward": bwd, "bf16": err16})
+    # row block 0 receives from every tile column (>= 500 chunks, and
+    # thousands of valid slots: several of the kernel's 1,024-slot batches);
+    # row block 1 holds exactly one chunk
+    rng = np.random.default_rng(3)
+    n = 100_000
+    recv = np.concatenate([rng.integers(0, 128, 80_000), np.full(5, 130),
+                           rng.integers(256, n, 200_000)])
+    send = np.concatenate([rng.integers(0, n, 80_000), rng.integers(384, 512, 5),
+                           rng.integers(0, n, 200_000)])
+    w = rng.integers(-16, 17, recv.size).astype(np.float32) / 8
+    for weighted in (False, True):
+        tiles = build_tiles(recv, send, n, w if weighted else None, device="cuda")[0]
+        chunks = (tiles.block_ptr[1:] - tiles.block_ptr[:-1]).tolist()
+        if chunks[0] < 500 or chunks[1] != 1:
+            raise AssertionError(f"spmm_tiles: row blocks 0 and 1 hold {chunks[:2]} chunks")
+        for d in (256, 37):
+            x = torch.randint(-1024, 1025, (n, d), generator=gen, device="cuda").float() / 256
+            for xt, tag in ((x, "f32"), (x.bfloat16(), "bf16")):
+                key = f"spmm_tiles{'_w' if weighted else ''}_{tag}"
+                before = spmm_tiles_apply.launches
+                got = spmm_tiles_apply(tiles, xt, n)
+                torch.cuda.synchronize()
+                if spmm_tiles_apply.launches != before + 1:
+                    raise AssertionError(f"{key} many chunks: the kernel did not launch")
+                err = compare(got, spmm_tiles_apply_plain(tiles, xt, n), **SEGSUM_TOL,
+                              what=f"{key} many chunks d={d}")
+                worst[key] = max(worst[key], err["max_abs"])
+                log("kernel_check", {"kernel": key, "case": "row block of many chunks",
+                                     "chunks_row_block_0": chunks[0],
+                                     "chunks_row_block_1": chunks[1], "n": n,
+                                     "e": int(recv.size), "d": d, **err})
     empty = build_tiles(np.zeros(0), np.zeros(0), 1000, device="cuda")[0]
     before = spmm_tiles_apply.launches
     got = spmm_tiles_apply(empty, torch.randn(1000, 64, generator=gen, device="cuda"), 1000)
@@ -867,6 +996,7 @@ def phase_serve() -> dict:
     runs = {}
     # the serving path starts here
     segsum.launches = sddmm_mlp_score.launches = mlp_block_logits.launches = 0
+    mlp_block_logits.tensor_core_launches = 0
     mlp_block_logits.launch_counts.clear()
     for name, (n, _) in datasets.items():
         queries, pairs = _requests(n, seed=n)
@@ -909,10 +1039,15 @@ def phase_serve() -> dict:
                          "vs_cli_pairs": _check_pairs(daemon, variants["--quantize=int8"],
                                                       "daemon vs CLI int8")})
     launches = {"segsum": segsum.launches, "sddmm": sddmm_mlp_score.launches,
-                "mlp_topk": dict(mlp_block_logits.launch_counts)}
+                "mlp_topk": dict(mlp_block_logits.launch_counts),
+                "mlp_topk_tensor_core": mlp_block_logits.tensor_core_launches}
     for inst in (("float32", "dense"), ("float32", "int8"), ("bfloat16", "dense")):
         if not mlp_block_logits.launch_counts[inst]:
             raise AssertionError(f"mlp_topk {inst}: no launch on the serving path")
+    if mlp_block_logits.tensor_core_launches != mlp_block_logits.launch_counts[
+            ("bfloat16", "dense")]:
+        raise AssertionError("mlp_topk: the bf16 top-K of the 256-wide head did not run on "
+                             "the tensor-core route")
 
     # The kernels' answers against the plain routes on the same card and
     # table.  bf16: the kernel and the unfused bf16 expression round at the
@@ -1876,6 +2011,8 @@ def phase_reorder(gen, train: dict, worst: dict) -> dict:
               "hybrid_ms": time_ms(lambda: spmm_tiles(g, x, "mean")),
               "tiles_only_ms": time_ms(lambda: spmm_tiles_apply(fwd.tiles, x, n)),
               "residual_edges": int(fwd.res_recv.numel()),
+              "residual_segsum_ms": time_ms(lambda: segsum(x, fwd.res_send, fwd.res_ptr,
+                                                           out_dtype=torch.float32)),
               "segsum_ms": seg["rcm"]["ms"], "sparse_mm_ms": seg["rcm"]["library_ms"],
               "apply_min0_ms": time_ms(lambda: spmm_tiles_apply(tiles0, x, n)),
               "apply_min0": tile_fill(tiles0)}
@@ -2007,7 +2144,7 @@ def _weighted_entries(gen, train: dict, worst: dict) -> list:
 def _mlp_topk_entries(gen, launches: dict, worst: dict) -> list:
     """The fused retrieval kernel at the collab serving shape: Q = 256 queries
     against all 235,868 rows, H = F = 256, a 2-layer head. The kernel in its
-    fp32 dense, int8 and bf16 dense instances; its plain version over the
+    four instances (fp32 or bf16, dense or int8); its plain version over the
     candidate blocks the engine's unfused route takes (the whole (Q, B, H)
     Hadamard would be 62 GB); and top_k_partners through the kernel and
     through the unfused expression, the data for the ``mlp_fused=None``
@@ -2043,17 +2180,20 @@ def _mlp_topk_entries(gen, launches: dict, worst: dict) -> list:
         q_h, cand = table[qidx].to(dt), table.to(dt)
         times[tag] = {"ms": time_ms(lambda: mlp_block_logits(lins, q_h, cand), reps=3, warmup=1),
                       "plain_ms": time_ms(lambda: plain(q_h, cand), reps=3, warmup=1)}
-    q_h = table[qidx]
-    times["int8"] = {
-        "ms": time_ms(lambda: mlp_block_logits(lins, q_h, qt.q, scales=qt.scale), reps=3,
-                      warmup=1),
-        "plain_ms": time_ms(lambda: plain(q_h, qt.q, qt.scale), reps=3, warmup=1)}
+    for tag, dt in (("int8", torch.float32), ("bf16_int8", torch.bfloat16)):
+        q_h = table[qidx].to(dt)
+        times[tag] = {
+            "ms": time_ms(lambda: mlp_block_logits(lins, q_h, qt.q, scales=qt.scale), reps=3,
+                          warmup=1),
+            "plain_ms": time_ms(lambda: plain(q_h, qt.q, qt.scale), reps=3, warmup=1)}
     # each input read once, the (Q, B) logits written once
     out_bytes = q * n * 4
     nbytes = {"f32": n * h * 4 + q * h * 4 + weight_values * 4 + out_bytes,
               "bf16": n * h * 2 + q * h * 2 + weight_values * 4 + out_bytes,
-              "int8": n * h + n * 4 + q * h * 4 + weight_values * 4 + out_bytes}
-    peak = {"f32": FP32_FLOP_PER_S, "int8": FP32_FLOP_PER_S, "bf16": BF16_FLOP_PER_S}
+              "int8": n * h + n * 4 + q * h * 4 + weight_values * 4 + out_bytes,
+              "bf16_int8": n * h + n * 4 + q * h * 2 + weight_values * 4 + out_bytes}
+    peak = {"f32": FP32_FLOP_PER_S, "int8": FP32_FLOP_PER_S, "bf16": BF16_FLOP_PER_S,
+            "bf16_int8": BF16_FLOP_PER_S}
     for tag, t in times.items():
         t["bound_ms"] = max(flops / peak[tag], nbytes[tag] / HBM_BYTES_PER_S) * 1e3
         t["bound_by"] = ("operations" if flops / peak[tag] >= nbytes[tag] / HBM_BYTES_PER_S
@@ -2063,7 +2203,7 @@ def _mlp_topk_entries(gen, launches: dict, worst: dict) -> list:
 
     topk = {"q": q, "b": n, "k": 10, "block_unfused": block}
     for tag, tbl, cdt in (("f32", table, None), ("int8", qt, None),
-                          ("bf16", table, torch.bfloat16)):
+                          ("bf16", table, torch.bfloat16), ("bf16_int8", qt, torch.bfloat16)):
         for route in (True, False):
             topk[f"{tag}_{'fused' if route else 'unfused'}_ms"] = time_ms(
                 lambda: top_k_partners(pred, tbl, qidx, k=10, compute_dtype=cdt,
@@ -2076,7 +2216,7 @@ def _mlp_topk_entries(gen, launches: dict, worst: dict) -> list:
               "library_note": "no single PyTorch call takes the Hadamard product of every "
                               "query x candidate pair through an MLP head"}
     shapes = f"Q={q} queries x {n} candidates, H=F={h}, 2-layer head"
-    f32, bf16 = times["f32"], times["bf16"]
+    f32, bf16, bf16_int8 = times["f32"], times["bf16"], times["bf16_int8"]
     return [
         {"name": "mlp_topk", **common,
          "launches": sum(v for (dt, _), v in launches.items() if dt == "float32"),
@@ -2089,7 +2229,9 @@ def _mlp_topk_entries(gen, launches: dict, worst: dict) -> list:
          "launches": sum(v for (dt, _), v in launches.items() if dt == "bfloat16"),
          "max_abs_err": max(worst["mlp_topk_bf16_dense"], worst["mlp_topk_bf16_int8"]),
          "ms": bf16["ms"], "plain_ms": bf16["plain_ms"], "bound_ms": bf16["bound_ms"],
-         "bound_by": bf16["bound_by"], "shapes": f"{shapes}, bf16 dense"},
+         "bound_by": bf16["bound_by"], "int8_ms": bf16_int8["ms"],
+         "int8_plain_ms": bf16_int8["plain_ms"], "int8_bound_ms": bf16_int8["bound_ms"],
+         "shapes": f"{shapes}, bf16 dense on the tensor cores (int8_*: int8 codes + scales)"},
     ]
 
 

@@ -39,7 +39,11 @@ SIGNATURES = {
               [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P]),
     "mlp_topk": ("llp_mlp_topk",
                  [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P, _INT, _INT, _P]),
-    "spmm_tiles": ("llp_spmm_tiles", [_P, _P, _P, _P, _P, _P, _I64, _I64, _INT, _P]),
+    "spmm_tiles": ("llp_spmm_tiles", [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _INT, _P]),
+}
+# argtypes of further entry points (``load_library(name, entry)``).
+ENTRY_POINTS = {
+    "llp_mlp_topk_mma": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P, _INT, _I64, _I64, _P],
 }
 
 
@@ -95,13 +99,14 @@ def build_all(names=tuple(SIGNATURES)) -> dict:
 
 
 @functools.cache
-def load_library(name: str):
-    """The entry point of ``csrc/<name>.cu``, built if needed, with its
-    ``argtypes`` and ``restype`` (``int``, a ``cudaError_t``) declared."""
+def load_library(name: str, entry: str = ""):
+    """The entry point of ``csrc/<name>.cu`` (its ``SIGNATURES`` one, or
+    ``entry`` of ``ENTRY_POINTS``), built if needed, with its ``argtypes``
+    and ``restype`` (``int``, a ``cudaError_t``) declared."""
     path = library_path(name)
     if not path.exists():
         build_all((name,))
-    fn_name, argtypes = SIGNATURES[name]
+    fn_name, argtypes = (entry, ENTRY_POINTS[entry]) if entry else SIGNATURES[name]
     fn = getattr(ctypes.CDLL(str(path)), fn_name)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int

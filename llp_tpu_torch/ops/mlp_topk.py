@@ -15,23 +15,29 @@ the last layer stays fp32.
 On a CUDA tensor it launches the hand-written kernel ``csrc/mlp_topk.cu``
 (or raises); on a CPU tensor it runs :func:`mlp_block_logits_plain`.  The
 kernel keeps no (Q, B, H) tile in memory, so the caller may hand it the
-whole table at once.
+whole table at once.  It has two routes: bf16 heads whose hidden-layer
+weights fit a block's shared memory (:func:`mma_supported`, the serving
+head among them) run on the tensor cores from weights that
+:func:`prep_mma_weights` lays out once a call (transposed, zero-padded, the
+kernel's shared-memory layout); fp32, and wider bf16 heads, run on the FMA
+units from :func:`prep_weights`' matrices.
 """
 
 from __future__ import annotations
 
 import ctypes
 from collections import Counter
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
 from llp_tpu_torch.ops.build import load_library
 
-# The kernel's tiling (csrc/mlp_topk.cu): candidates per block, weight rows
-# per staged chunk, units per pass, layers, and a block's shared memory.
-_TB, _KC, _UNITS = 64, 16, 256
+# The kernel's tiling (csrc/mlp_topk.cu): candidates per block, the SIMT
+# route's weight rows per staged chunk and units per pass, the tensor-core
+# route's unit padding and queries a step, layers, and a block's shared memory.
+_TB, _KC, _UNITS, _MMA_N, _MMA_QS = 64, 16, 256, 64, 2
 _MAX_LAYERS = 8
 _MAX_SMEM = 232448
 _TYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -46,9 +52,10 @@ def _dims(lins) -> list:
 
 
 def smem_bytes(dims: Sequence[int]) -> int:
-    """Shared memory of one kernel block for a head of widths ``dims`` (H,
-    the hidden widths, 1): the candidate tile, a weight chunk, the query row
-    and up to two activation buffers.  Mirrors the count in the source."""
+    """Shared memory of one SIMT block for a head of widths ``dims`` (H, the
+    hidden widths, 1) in its single-buffered layout: the candidate tile, a
+    weight chunk, the query row and up to two activation buffers.  Mirrors
+    ``smem_simt`` in the source; every head within it runs."""
     layers = len(dims) - 1
     hp = _round_up(dims[0], _KC)
     act_rows = max((_round_up(d, _KC) for d in dims[1:layers - 1]), default=0)
@@ -70,6 +77,54 @@ def fused_mlp_supported(lins: Sequence[dict], h_dim: int) -> bool:
     return dims[0] == h_dim and dims[-1] == 1 and smem_bytes(dims) <= _MAX_SMEM
 
 
+class MmaLayout(NamedTuple):
+    """The tensor-core route's buffers (``csrc/mlp_topk.cu::MmaHead``).
+    Hidden layer l's ``W_l^T`` is ``[np[l]][stride[l]]`` bf16 at ``w_off[l]``
+    of the weight buffer: ``kp[l]`` is K_l padded to 16 (the previous layer's
+    ``np`` for l > 0), ``np[l]`` is N_l padded to 64, ``stride[l] = kp[l] +
+    8``.  The fp32 buffer holds each bias (``np[l]`` values) at ``b_off[l]``,
+    then the output weights ``w_L`` at ``wl_off`` and ``b_L`` at
+    ``bl_off``; ``smem`` counts a block's bytes."""
+
+    kp: tuple
+    np: tuple
+    stride: tuple
+    w_off: tuple
+    b_off: tuple
+    wl_off: int
+    bl_off: int
+    w_total: int
+    f_total: int
+    smem: int
+
+
+def mma_layout(dims: Sequence[int]) -> MmaLayout:
+    """The :class:`MmaLayout` of a head of widths ``dims`` (H, hidden..., 1)."""
+    nps = [_round_up(f, _MMA_N) for f in dims[1:-1]]
+    kps = [_round_up(dims[0], 16)] + nps[:-1]
+    strides = [k + 8 for k in kps]
+    sizes = [n * st for n, st in zip(nps, strides)]
+    w_off = [sum(sizes[:l]) for l in range(len(nps))]
+    b_off = [sum(nps[:l]) for l in range(len(nps))]
+    wl_off = sum(nps)
+    f_total = _round_up(wl_off + nps[-1] + 1, 4)
+    act_np = max(nps[:-1], default=0)
+    buffers = min(len(nps) - 1, 2)
+    rows = _MMA_QS * _TB  # pairs a step: two queries x the candidate tile
+    smem = (2 * sum(sizes) + 4 * f_total + 2 * _TB * (kps[0] + 8)
+            + 2 * _MMA_QS * _round_up(kps[0], 8) + 2 * buffers * rows * (act_np + 8)
+            + 4 * 4 * rows)
+    return MmaLayout(tuple(kps), tuple(nps), tuple(strides), tuple(w_off), tuple(b_off),
+                     wl_off, wl_off + nps[-1], sum(sizes), f_total, smem)
+
+
+def mma_supported(dims: Sequence[int]) -> bool:
+    """Whether a bf16 head of widths ``dims`` runs on the tensor cores: its
+    hidden layers' weights, the candidate tile and the activations fit a
+    block's shared memory (2-layer heads up to H = F = 272)."""
+    return mma_layout(dims).smem <= _MAX_SMEM
+
+
 def _as_tensor(a, device, dtype) -> torch.Tensor:
     t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.asarray(a, np.float32))
     return t.detach().to(device=device, dtype=dtype)
@@ -81,6 +136,25 @@ def prep_weights(lins, dtype, device) -> tuple:
     ws = [_as_tensor(lin["w"], device, dtype).contiguous() for lin in lins]
     bs = [_as_tensor(lin["b"], device, torch.float32).reshape(-1).contiguous() for lin in lins]
     return ws, bs
+
+
+def prep_mma_weights(lins, device) -> tuple:
+    """``(wpack, fpack)``: the tensor-core route's bf16 weight buffer and fp32
+    bias buffer in the :func:`mma_layout` of the head, zeros in every
+    padding; the weights round to bf16 as :func:`prep_weights` rounds them."""
+    dims = _dims(lins)
+    lay = mma_layout(dims)
+    ws, bs = prep_weights(lins, torch.bfloat16, device)
+    wpack = torch.zeros(lay.w_total, dtype=torch.bfloat16, device=device)
+    fpack = torch.zeros(lay.f_total, dtype=torch.float32, device=device)
+    for l, (w, b) in enumerate(zip(ws[:-1], bs[:-1])):
+        k, f = w.shape
+        wt = wpack[lay.w_off[l]:lay.w_off[l] + lay.np[l] * lay.stride[l]]
+        wt.view(lay.np[l], lay.stride[l])[:f, :k] = w.t()
+        fpack[lay.b_off[l]:lay.b_off[l] + f] = b
+    fpack[lay.wl_off:lay.wl_off + ws[-1].shape[0]] = ws[-1][:, 0].float()
+    fpack[lay.bl_off] = bs[-1][0]
+    return wpack, fpack
 
 
 def mlp_block_logits_plain(lins, q_h: torch.Tensor, cand: torch.Tensor, *,
@@ -125,30 +199,36 @@ def mlp_block_logits(lins, q_h: torch.Tensor, cand: torch.Tensor, *,
     out = torch.empty((q, b), dtype=torch.float32, device=q_h.device)
     if q == 0 or b == 0:
         return out
-    ws, bs = prep_weights(lins, q_h.dtype, q_h.device)
-    w = torch.cat([t.reshape(-1) for t in ws])
-    bias = torch.cat(bs)
     dims = _dims(lins)
     dims_arr = (ctypes.c_longlong * len(dims))(*dims)
-    launch = load_library("mlp_topk")
+    mma = q_h.dtype == torch.bfloat16 and mma_supported(dims)
+    if mma:
+        w, bias = prep_mma_weights(lins, q_h.device)
+        launch = load_library("mlp_topk", "llp_mlp_topk_mma")
+    else:
+        ws, bs = prep_weights(lins, q_h.dtype, q_h.device)
+        w, bias = torch.cat([t.reshape(-1) for t in ws]), torch.cat(bs)
+        launch = load_library("mlp_topk")
     mlp_block_logits.launches += 1
     mlp_block_logits.launch_counts[(str(q_h.dtype).removeprefix("torch."),
                                     "dense" if scales is None else "int8")] += 1
+    mlp_block_logits.tensor_core_launches += mma
+    args = [q_h.data_ptr(), cand.data_ptr(), None if scales is None else scales.data_ptr(),
+            w.data_ptr(), bias.data_ptr(), out.data_ptr(), q, b, q_h.shape[1], dims_arr,
+            len(dims) - 1]
+    args += [w.numel(), bias.numel()] if mma else [_TYPE_CODE[q_h.dtype]]
     with torch.cuda.device(q_h.device):  # the launch runs on the current device
-        rc = launch(q_h.data_ptr(), cand.data_ptr(),
-                    None if scales is None else scales.data_ptr(), w.data_ptr(),
-                    bias.data_ptr(), out.data_ptr(), q, b, q_h.shape[1], dims_arr,
-                    len(dims) - 1, _TYPE_CODE[q_h.dtype],
-                    torch.cuda.current_stream(q_h.device).cuda_stream)
+        rc = launch(*args, torch.cuda.current_stream(q_h.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"mlp_topk kernel launch failed: cudaError_t {rc}")
     return out
 
 
-# Kernel launches, for proving a run went through the kernel: in all, and
-# per (compute type, candidates) instance.
+# Kernel launches, for proving a run went through the kernel: in all, per
+# (compute type, candidates) instance, and those of the tensor-core route.
 mlp_block_logits.launches = 0
 mlp_block_logits.launch_counts = Counter()
+mlp_block_logits.tensor_core_launches = 0
 
 
 def bf16_tolerance(lins, q_h: torch.Tensor, cand: torch.Tensor, *,
