@@ -14,9 +14,10 @@ failure exits non-zero.
                    partitioner ``csrc/partition.cpp`` (``g++``); logs each
                    kernel's registers, spills and static shared memory
                    (``ptxas[...]:`` lines, from ``-Xptxas -v``) and the
-                   retrieval kernel's HMMA/HGMMA count (``sass[mlp_topk]:``,
-                   from ``cuobjdump -sass``), which must not be 0 for its
-                   tensor-core route.
+                   HMMA/HGMMA counts of the retrieval kernel's tensor-core
+                   route and of the pair scorer (``sass[mlp_topk]:``,
+                   ``sass[sddmm]:``, from ``cuobjdump -sass``), which must
+                   not be 0.
 3. kernel_check -- each kernel against its plain PyTorch version on the card,
                    at stated tolerances: segsum in its three unweighted
                    instances (fp32, bf16 -> fp32, bf16 -> bf16) and its two
@@ -24,7 +25,14 @@ failure exits non-zero.
                    negative values), the spmm backward, unweighted and
                    weighted (``torch.autograd.grad`` in x and in the weights
                    through the kernel route against the plain backward and
-                   the plain edge dots), SDDMM, and the fused retrieval
+                   the plain edge dots), on a hub-and-isolated graph, cora,
+                   collab and the collab-sized power-law graph
+                   ``ba_graph(235_868, 5)`` (D=256 and the scalar path, its
+                   hub rows run first); SDDMM (the tensor-core route with
+                   16- and 4-byte gathers, ragged B, D and H off every tile,
+                   H > 256); two launches of every segsum instance (both
+                   directions, Gaussian features) and of SDDMM at 2^20
+                   pairs on the same inputs give equal bits; the fused retrieval
                    kernel (mlp_topk) in its four instances (fp32 or bf16,
                    dense or int8 candidates) at heads of 2 to 4 layers and
                    ragged Q and B (Q = 1, B off the 64-candidate tile; bf16
@@ -66,8 +74,10 @@ failure exits non-zero.
                    export. Launch counters show the segsum kernel in both
                    directions on every step (the weighted instances on the
                    weighted runs, twice a step for GCN), over both graphs
-                   with the validation edges as input, and the SDDMM kernel
-                   in eval. The serving CLI serves both cora artifacts, on
+                   with the validation edges as input, the D=256 steps on
+                   128-byte feature slices, and the SDDMM kernel in eval, on
+                   its tensor-core route (as in every phase below). The
+                   serving CLI serves both cora artifacts, on
                    the card and on the CPU. Then 3 steps with dropout 0 and
                    fixed negatives, on the card and on the CPU, whose losses
                    must agree: SAGE on ``cora``, weighted GCN on the
@@ -125,7 +135,12 @@ failure exits non-zero.
                    library call's time where one exists, and the least time
                    the card could take. A ``top_k_partners:`` line gives the
                    fused and unfused top-K times at Q=256 over collab, fp32
-                   and bf16, from dense and int8 tables.
+                   and bf16, from dense and int8 tables. ``ba_segsum:``
+                   times segsum on the power-law graph beside
+                   ``torch.sparse.mm`` (and without its heavy-first order),
+                   ``segsum_l2:`` the D=256 forward's edge count gathered
+                   from a table that fits L2; ``sddmm_small:`` SDDMM at 700
+                   and 2,048 pairs.
 
 The last line is ``{"ok": true, "device": {...}}``. Without CUDA, or outside
 a checkout, the script exits 1 and prints no result.
@@ -135,11 +150,13 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import io
 import json
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -153,12 +170,13 @@ WEIGHTED = str(WORK / "weighted")
 WEIGHTED_SMALL = str(WORK / "weighted_small")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, fp32 outside the
-# tensor cores, and bf16 on the tensor cores (dense). A bf16 input's bound
-# is held to the bf16 peak; of the kernels here only the retrieval kernel's
-# bf16 route runs on the tensor cores.
+# tensor cores, and bf16 and TF32 on the tensor cores (dense). A bf16
+# input's bound is held to the bf16 peak; the retrieval kernel's bf16 route
+# runs on the tensor cores in bf16, the pair scorer's W1 product in TF32.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12
+TF32_FLOP_PER_S = 495e12
 
 SEGSUM_TOL = dict(rtol=1e-5, atol=1e-5)   # fp32, another summation order
 # bf16 results: one bf16 ulp of the reference value, as two summation orders
@@ -317,9 +335,9 @@ def _sass_counts(path, opcodes=("HMMA", "HGMMA")) -> dict:
 
 def phase_build() -> None:
     """Build every kernel; log each kernel's registers, spills and shared
-    memory (ptxas) and the retrieval kernel's tensor-core instructions
-    (SASS), which must be there for every instance of its tensor-core
-    route."""
+    memory (ptxas) and the tensor-core instructions (SASS) of the retrieval
+    kernel's tensor-core route and of the pair scorer, which must be there
+    for every instance of both."""
     from llp_tpu_torch.data import native
     from llp_tpu_torch.ops.build import build_all, library_path
 
@@ -328,12 +346,14 @@ def phase_build() -> None:
     for name, r in report.items():
         for fn, res in _ptxas_resources(r["ptxas"]).items():
             log(f"ptxas[{name}]", {"kernel": fn, **res})
-    sass = _sass_counts(library_path("mlp_topk"))
-    for fn, c in sass.items():
-        log("sass[mlp_topk]", {"kernel": fn, **c})
-    mma = {fn: c for fn, c in sass.items() if "mlp_mma_kernel" in fn}
-    if len(mma) != 2 or any(not c["HMMA"] + c["HGMMA"] for c in mma.values()):
-        raise AssertionError(f"mlp_topk: the tensor-core route's kernels hold no HMMA: {mma}")
+    for lib, kernel, instances in (("mlp_topk", "mlp_mma_kernel", 2),
+                                   ("sddmm", "sddmm_tc_kernel", 2)):
+        sass = _sass_counts(library_path(lib))
+        for fn, c in sass.items():
+            log(f"sass[{lib}]", {"kernel": fn, **c})
+        mma = {fn: c for fn, c in sass.items() if kernel in fn}
+        if len(mma) != instances or any(not c["HMMA"] + c["HGMMA"] for c in mma.values()):
+            raise AssertionError(f"{lib}: the tensor-core route's kernels hold no HMMA: {mma}")
     # the host partitioner of --reorder locality (g++); its numpy fallback
     # would take hours on the collab stand-in
     cached = native.library_path().exists()
@@ -360,6 +380,18 @@ def _check_graph(n: int, e: int, hub_deg: int, isolated: int, seed: int):
     return build_graph(np.stack([send, recv]), n, device="cuda")
 
 
+@functools.cache
+def _ba_graph():
+    """The collab-sized power-law graph of B1's checks and timing, on the
+    card: ``ba_graph(235_868, 5)``, both directions, 2,358,206 edges, hub
+    rows of in-degree up to 1,610 (made once a run, about 8 s of host
+    time)."""
+    from llp_tpu_torch.core.graph import build_graph
+    from llp_tpu_torch.data.synthetic import ba_graph
+
+    return build_graph(ba_graph(235_868, 5), 235_868, device="cuda")
+
+
 def phase_kernel_check(gen) -> dict:
     """Each kernel against its plain version on the card; returns the
     largest abs error per kernel, instance and direction."""
@@ -369,7 +401,14 @@ def phase_kernel_check(gen) -> dict:
     from llp_tpu_torch.data.registry import get_dataset
     from llp_tpu_torch.core.graph import build_graph
     from llp_tpu_torch.models.predictor import LinkPredictor
-    from llp_tpu_torch.ops.sddmm import head_weights, sddmm_mlp_score, sddmm_mlp_score_plain
+    from llp_tpu_torch.ops.sddmm import (
+        gather_route,
+        head_weights,
+        sddmm_mlp_score,
+        sddmm_mlp_score_plain,
+        split_w1,
+        split_w1_plain,
+    )
     from llp_tpu_torch.ops.segsum import segsum, segsum_plain
     from llp_tpu_torch.ops.spmm import spmm, spmm_backward_plain
 
@@ -405,11 +444,19 @@ def phase_kernel_check(gen) -> dict:
                                      "n": graph.num_nodes, "e": graph.num_edges,
                                      "d": x.shape[1], **err})
 
-    def backward_case(label, graph, d):
+    def exact(n, d):
+        """Multiples of 1/256 in [-4, 4]: they and their bf16 roundings sum
+        exactly in fp32 in any order (the partial sums stay far below 2^16)."""
+        return torch.randint(-1024, 1025, (n, d), generator=gen, device="cuda").float() / 256
+
+    def backward_case(label, graph, d, reduces=("sum", "mean"), exact_values=False):
         for dtype, key in ((torch.float32, "spmm_bwd"), (torch.bfloat16, "spmm_bwd_bf16")):
-            x = torch.randn(graph.num_nodes, d, generator=gen, device="cuda").to(dtype)
-            g = torch.randn(graph.num_nodes, d, generator=gen, device="cuda").to(dtype)
-            for reduce in ("sum", "mean"):
+            if exact_values:
+                x, g = exact(graph.num_nodes, d).to(dtype), exact(graph.num_nodes, d).to(dtype)
+            else:
+                x = torch.randn(graph.num_nodes, d, generator=gen, device="cuda").to(dtype)
+                g = torch.randn(graph.num_nodes, d, generator=gen, device="cuda").to(dtype)
+            for reduce in reduces:
                 x.requires_grad_(True)
                 before = spmm.backward_launches
                 (got,) = torch.autograd.grad(spmm(graph, x, reduce), x, g)
@@ -448,15 +495,17 @@ def phase_kernel_check(gen) -> dict:
                                      "n": graph.num_nodes, "e": graph.num_edges,
                                      "d": x.shape[1], **err})
 
-    def weighted_backward_case(label, graph, x32, w):
+    def weighted_backward_case(label, graph, x32, w, reduces=("sum", "mean"),
+                               exact_values=False):
         """torch.autograd.grad through the weighted route against the plain
         backward (dx) and the plain edge dots (dw)."""
         for dtype, key in ((torch.float32, "spmm_bwd_w"), (torch.bfloat16, "spmm_bwd_w_bf16")):
             d = x32.shape[1]
             x = x32.to(dtype).requires_grad_(True)
-            g = torch.randn(graph.num_nodes, d, generator=gen, device="cuda").to(dtype)
+            g = (exact(graph.num_nodes, d) if exact_values
+                 else torch.randn(graph.num_nodes, d, generator=gen, device="cuda")).to(dtype)
             wt = w.clone().requires_grad_(True)
-            for reduce in ("sum", "mean"):
+            for reduce in reduces:
                 before = spmm.weighted_backward_launches
                 dx, dw = torch.autograd.grad(spmm(graph, x, reduce, edge_weight=wt), (x, wt), g)
                 torch.cuda.synchronize()
@@ -484,13 +533,11 @@ def phase_kernel_check(gen) -> dict:
     w = torch.randint(-16, 17, (g.num_edges,), generator=gen, device="cuda").float() / 8
     w[::7] = 0.0
     for d in (8, 100, 128, 256, 1433):
-        x = torch.randint(-1024, 1025, (g.num_nodes, d), generator=gen,
-                          device="cuda").float() / 256
+        x = exact(g.num_nodes, d)
         segsum_case("hub+isolated", g, x)
         backward_case("hub+isolated", g, d)
     for d in (1, 37, 128, 256, 1433):
-        x = torch.randint(-1024, 1025, (g.num_nodes, d), generator=gen,
-                          device="cuda").float() / 256
+        x = exact(g.num_nodes, d)
         weighted_case("hub+isolated", g, x, w)
         weighted_backward_case("hub+isolated", g, x, w)
     empty = build_graph(np.zeros((2, 0), np.int64), 100, device="cuda")
@@ -510,34 +557,139 @@ def phase_kernel_check(gen) -> dict:
             for d in widths:
                 weighted_case(name, gs, torch.randn(gs.num_nodes, d, generator=gen,
                                                     device="cuda"), wc)
+            collab = gs
+    # The collab-sized power-law graph: every instance, both directions, at
+    # D=256 (the vector path) and D=37 (the scalar path). Its hub rows sum
+    # 1,610 terms, so the features and weights are the exact ones of the hub
+    # check above; the backward runs the sum, whose kernel call is the
+    # mean's (the backward's scale is applied before the kernel).
+    gb = _ba_graph()
+    wb = torch.randint(-16, 17, (gb.num_edges,), generator=gen, device="cuda").float() / 8
+    wb[::7] = 0.0
+    heavy_before = segsum.heavy_first_launches
+    for d in (256, 37):
+        x = exact(gb.num_nodes, d)
+        segsum_case("ba", gb, x)
+        backward_case("ba", gb, d, reduces=("sum",), exact_values=True)
+        weighted_case("ba", gb, x, wb)
+        weighted_backward_case("ba", gb, x, wb, reduces=("sum",), exact_values=True)
+    # its hub rows ran first, in every launch over it
+    heavy = segsum.heavy_first_launches - heavy_before
+    if heavy < 20:
+        raise AssertionError(f"segsum ba: {heavy} launches ran the heavy rows first")
+    log("kernel_check", {"kernel": "segsum_heavy_first", "case": "ba", "launches": heavy})
+    # Two launches on the same inputs give the same bits, in every instance
+    # and both directions, over hub rows and the collab graph, with Gaussian
+    # features whose sums show their order in the low bits.
+    repeats = 0
+    for name, gr in (("ba", gb), ("collab", collab)):
+        x = torch.randn(gr.num_nodes, 256, generator=gen, device="cuda")
+        wr = torch.rand(gr.num_edges, generator=gen, device="cuda")
+        for inst, inp, kw in (("float32->float32", x, {}),
+                              ("bfloat16->float32", x.bfloat16(), {"out_dtype": torch.float32}),
+                              ("bfloat16->bfloat16", x.bfloat16(), {}),
+                              ("weighted float32->float32", x, {"weights": wr}),
+                              ("weighted bfloat16->bfloat16", x.bfloat16(), {"weights": wr})):
+            for direction, idx, ptr, sc in (("fwd", gr.senders, gr.in_ptr, gr.inv_in_degree),
+                                            ("bwd", gr.col, gr.row_ptr, None)):
+                first, second = (segsum(inp, idx, ptr, sc, **kw) for _ in range(2))
+                if not torch.equal(first, second):
+                    raise AssertionError(f"segsum {inst} {direction} {name}: two launches on "
+                                         f"the same inputs differ")
+                repeats += 1
 
-    def sddmm_case(n, d, hid, b):
+    def sddmm_case(n, d, hid, b, misaligned=False):
         head = LinkPredictor("mlp", d, hid, generator=torch.Generator().manual_seed(d + hid))
         w = [t.cuda() for t in head_weights(head.lins)]
-        table = torch.randn(n, d, generator=gen, device="cuda")
+        table = torch.randn(n * d + 1, generator=gen, device="cuda")
+        # misaligned: the table starts 4 bytes into its allocation
+        table = table[1:] if misaligned else table[:-1]
+        table = table.view(n, d)
         src = torch.randint(0, n, (b,), generator=gen, device="cuda")
         dst = torch.randint(0, n, (b,), generator=gen, device="cuda")
-        before = sddmm_mlp_score.launches
+        route = gather_route(table, table)
+        before = sddmm_mlp_score.launch_counts[(route, d, hid)]
         got = sddmm_mlp_score(table, table, src, dst, *w)
         torch.cuda.synchronize()
-        if sddmm_mlp_score.launches != before + 1:
-            raise AssertionError("sddmm: the kernel did not launch")
+        if sddmm_mlp_score.launch_counts[(route, d, hid)] != before + 1:
+            raise AssertionError(f"sddmm: the kernel did not launch on route {route}")
+        if (route == "tensor_cores.gather16B") != (d % 4 == 0 and not misaligned):
+            raise AssertionError(f"sddmm d={d}: route {route}")
         err = compare(got, sddmm_mlp_score_plain(table, table, src, dst, *w),
-                      **SDDMM_TOL, what=f"sddmm d={d} h={hid} b={b}")
+                      **SDDMM_TOL, what=f"sddmm d={d} h={hid} b={b} {route}")
         worst["sddmm"] = max(worst["sddmm"], err["max_abs"])
-        log("kernel_check", {"kernel": "sddmm", "n": n, "d": d, "h": hid, "b": b,
-                             **err, **SDDMM_TOL})
+        log("kernel_check", {"kernel": "sddmm", "route": route, "n": n, "d": d, "h": hid,
+                             "b": b, **err, **SDDMM_TOL})
 
     for b in (1, 700, 2048, 1 << 20):
         sddmm_case(235_868, 256, 256, b)
-    sddmm_case(5_000, 100, 100, 700)     # D, H not multiples of 128
-    sddmm_case(5_000, 37, 70, 2048)      # ragged feature tail, fewer units than threads
-    sddmm_case(5_000, 512, 128, 700)     # shared memory above 48 KB
-    sddmm_case(5_000, 2048, 300, 700)    # z staged in two chunks, two groups of units
-    sddmm_case(5_000, 1813, 70, 2048)    # chunked, with a ragged last chunk
+    sddmm_case(5_000, 100, 100, 700)     # D, H not multiples of 8 (nor 128)
+    sddmm_case(5_000, 37, 70, 2048)      # D % 4 != 0: the 4-byte gathers; one warp of units
+    sddmm_case(5_000, 512, 128, 700)     # 16 feature steps, half the units padding
+    sddmm_case(5_000, 2048, 300, 700)    # H > 256: two passes over the features
+    sddmm_case(5_000, 1813, 70, 2048)    # a ragged last feature step, 4-byte gathers
+    sddmm_case(5_000, 256, 257, 129)     # H one past a pass; B one past a 128-pair tile
+    sddmm_case(5_000, 36, 8, 127)        # D a multiple of 4, not of 32; B under one tile
+    sddmm_case(5_000, 3, 1, 300)         # D = 3, H = 1
+    sddmm_case(5_000, 256, 256, 1000, misaligned=True)  # 4-byte gathers at D = 256
+    # two launches on the same inputs give the same bits
+    head = LinkPredictor("mlp", 256, 256, generator=torch.Generator().manual_seed(1))
+    w = [t.cuda() for t in head_weights(head.lins)]
+    table = torch.randn(235_868, 256, generator=gen, device="cuda")
+    src, dst = (torch.randint(0, 235_868, (1 << 20,), generator=gen, device="cuda")
+                for _ in range(2))
+    if not torch.equal(sddmm_mlp_score(table, table, src, dst, *w),
+                       sddmm_mlp_score(table, table, src, dst, *w)):
+        raise AssertionError("sddmm: two launches on the same inputs differ")
+    log("kernel_check", {"kernel": "repeat", "segsum_pairs_equal": repeats,
+                         "sddmm_pairs_equal": 1})
+    # W1's split as the kernel writes it, bit for bit its plain layout
+    for d, hid in ((256, 256), (100, 100), (37, 70), (2048, 300), (256, 257), (3, 1)):
+        w1 = torch.randn(d, hid, generator=gen, device="cuda")
+        if not torch.equal(split_w1(w1), split_w1_plain(w1)):
+            raise AssertionError(f"sddmm split_w1 d={d} h={hid}: the kernel's split differs "
+                                 f"from split_w1_plain")
+    log("kernel_check", {"kernel": "sddmm_split_w1", "cases": 6, "equal": True})
+    _check_route_refusals(head, gen)
     worst.update(mlp_topk_check(gen))
     worst.update(spmm_tiles_check(gen))
     return worst
+
+
+def _check_route_refusals(head, gen) -> None:
+    """The wrappers pick each kernel's path and count it; the C entry points
+    refuse a pick that disagrees with the shape (cudaErrorInvalidValue, 1),
+    so a route counter cannot name a path the kernel did not take."""
+    import torch
+
+    from llp_tpu_torch.ops.build import load_library
+    from llp_tpu_torch.ops.sddmm import head_weights, split_w1
+    from llp_tpu_torch.ops.segsum import index_int32
+
+    stream = torch.cuda.current_stream().cuda_stream
+    n = 64
+    send = torch.randint(0, n, (4 * n,), generator=gen, device="cuda")
+    ptr = torch.arange(n + 1, device="cuda") * 4
+    seg = load_library("segsum")
+    for d, vec in ((256, 0), (37, 1)):  # the vector path refused at D=37, scalar at 256
+        x = torch.randn(n, d, generator=gen, device="cuda")
+        out = torch.empty_like(x)
+        rc = seg(x.data_ptr(), index_int32(send).data_ptr(), ptr.data_ptr(), None, None,
+                 out.data_ptr(), n, d, 0, 0, vec, None, 0, 0, stream)
+        if rc != 1:
+            raise AssertionError(f"segsum d={d}: the entry took vec={vec} (rc {rc})")
+    sd = load_library("sddmm")
+    w1, b1, w2, b2 = (t.cuda() for t in head_weights(head.lins))
+    ws = split_w1(w1)
+    table = torch.randn(n, 256, generator=gen, device="cuda")
+    out = torch.empty(4 * n, device="cuda")
+    rc = sd(table.data_ptr(), table.data_ptr(), send.data_ptr(), send.data_ptr(),
+            w1.data_ptr(), ws.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+            out.data_ptr(), 4 * n, 256, 256, 0, stream)
+    if rc != 1:
+        raise AssertionError(f"sddmm: the entry took 4-byte gathers at D=256 (rc {rc})")
+    torch.cuda.synchronize()
+    log("kernel_check", {"kernel": "route_refusals", "segsum": 2, "sddmm": 1})
 
 
 def _mlp_head(dims, seed: int) -> list:
@@ -998,6 +1150,10 @@ def phase_serve() -> dict:
     segsum.launches = sddmm_mlp_score.launches = mlp_block_logits.launches = 0
     mlp_block_logits.tensor_core_launches = 0
     mlp_block_logits.launch_counts.clear()
+    segsum.launch_counts.clear()
+    segsum.route_counts.clear()
+    segsum.heavy_first_launches = 0
+    sddmm_mlp_score.launch_counts.clear()
     for name, (n, _) in datasets.items():
         queries, pairs = _requests(n, seed=n)
         argv = [f"--checkpoint={WORK / f'{name}-teacher'}", f"--datasets={name}",
@@ -1039,6 +1195,8 @@ def phase_serve() -> dict:
                          "vs_cli_pairs": _check_pairs(daemon, variants["--quantize=int8"],
                                                       "daemon vs CLI int8")})
     launches = {"segsum": segsum.launches, "sddmm": sddmm_mlp_score.launches,
+                "heavy_first": segsum.heavy_first_launches,
+                "sddmm_routes": _sddmm_routes(),
                 "mlp_topk": dict(mlp_block_logits.launch_counts),
                 "mlp_topk_tensor_core": mlp_block_logits.tensor_core_launches}
     for inst in (("float32", "dense"), ("float32", "int8"), ("bfloat16", "dense")):
@@ -1119,9 +1277,20 @@ def _counts() -> dict:
     from llp_tpu_torch.ops.spmm import spmm
 
     return {"segsum": segsum.launches, "by_shape": dict(segsum.launch_counts),
+            "routes": dict(segsum.route_counts),
+            "heavy_first": segsum.heavy_first_launches,
             "backward": spmm.backward_launches,
             "weighted_backward": spmm.weighted_backward_launches,
-            "sddmm": sddmm_mlp_score.launches}
+            "sddmm": sddmm_mlp_score.launches,
+            "sddmm_routes": dict(sddmm_mlp_score.launch_counts)}
+
+
+def _sddmm_routes() -> dict:
+    """The pair scorer's launches by route, D and H, since its counters were
+    last cleared."""
+    from llp_tpu_torch.ops.sddmm import sddmm_mlp_score
+
+    return {f"{r} d={d} h={h}": n for (r, d, h), n in sddmm_mlp_score.launch_counts.items()}
 
 
 def _shape_key(inst: str, d: int, weighted: bool) -> str:
@@ -1133,12 +1302,30 @@ def _delta(after: dict, before: dict) -> dict:
               for key, n in after["by_shape"].items()}
     by_shape = {k: v for k, v in shapes.items() if v}
     weighted = sum(v for k, v in by_shape.items() if k.endswith(" weighted"))
+    routes = {k: n - before["routes"].get(k, 0) for k, n in after["routes"].items()}
+    sddmm_routes = {f"{route} d={d} h={h}": n - before["sddmm_routes"].get((route, d, h), 0)
+                    for (route, d, h), n in after["sddmm_routes"].items()}
     return {"segsum": after["segsum"] - before["segsum"],
+            "heavy_first": after["heavy_first"] - before["heavy_first"],
             "backward": after["backward"] - before["backward"],
             "weighted": weighted,
             "weighted_backward": after["weighted_backward"] - before["weighted_backward"],
             "sddmm": after["sddmm"] - before["sddmm"],
-            "by_shape": by_shape}
+            "by_shape": by_shape,
+            "routes": {k: v for k, v in routes.items() if v},
+            "sddmm_routes": {k: v for k, v in sddmm_routes.items() if v}}
+
+
+# The route of the evals' pair scores: the 256-wide tables and head of the
+# runs here, through the tensor cores with 16-byte gathers.
+SDDMM_EVAL_ROUTE = "tensor_cores.gather16B d=256 h=256"
+
+
+def _check_sddmm_route(label: str, counts: dict) -> None:
+    """Every pair score of the run went through the tensor-core route."""
+    if counts["sddmm_routes"].get(SDDMM_EVAL_ROUTE, 0) != counts["sddmm"]:
+        raise AssertionError(f"{label}: {counts['sddmm']} sddmm launches, by route "
+                             f"{counts['sddmm_routes']}; expected all on {SDDMM_EVAL_ROUTE}")
 
 
 TRAIN_FLAGS = ["--hidden_channels=256", "--num_layers=2", "--predictor=mlp",
@@ -1327,7 +1514,8 @@ def _profile_trainer(trainer) -> dict:
                and not getattr(ev, "is_user_annotation", False)]
     by_kernel = {ev.key: ev.self_device_time_total / 1e3 for ev in kernels}
     device_ms = sum(by_kernel.values())
-    segsum_ms = sum(v for k, v in by_kernel.items() if "segsum_kernel" in k)
+    segsum_ms = sum(v for k, v in by_kernel.items()
+                    if "segsum_vec_kernel" in k or "segsum_scalar_kernel" in k)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
     steps = trainer.steps
     return {"steps": steps, "epoch_s": wall_s, "launches": counts,
@@ -1354,6 +1542,14 @@ def _check_train_launches(label: str, variant: str, dtype: str, counts: dict,
                              f"a step")
     if counts["sddmm"] == 0:
         raise AssertionError(f"{label}: eval did not launch the sddmm kernel")
+    _check_sddmm_route(label, counts)
+    # the steps' 256-wide aggregations, forward and backward, gather
+    # 128-byte feature slices that stay in L2
+    sliced = counts["routes"].get("vector128B", 0)
+    if sliced < 2 * aggregations * steps:
+        raise AssertionError(f"{label}: {sliced} segsum launches on 128-byte slices in {steps} "
+                             f"steps, expected {2 * aggregations} a step (routes "
+                             f"{counts['routes']})")
     shapes = counts["by_shape"]
     if "weighted" in variant:
         fwd = counts["weighted"] - counts["weighted_backward"]
@@ -1436,6 +1632,9 @@ def phase_train() -> dict:
     segsum.launches = spmm.backward_launches = sddmm_mlp_score.launches = 0
     spmm.weighted_backward_launches = 0
     segsum.launch_counts.clear()
+    segsum.route_counts.clear()
+    segsum.heavy_first_launches = 0
+    sddmm_mlp_score.launch_counts.clear()
     for name, epochs, dtype, data_dir, variant, save in TRAIN_RUNS:
         label = f"{name} {dtype} {variant or 'sage'}"
         before = _counts()
@@ -1453,7 +1652,7 @@ def phase_train() -> dict:
             _check_valedges_launches(label, variant, counts, steps, len(report["eval_s"]),
                                      1433 if name == "cora" else 128)
         runs[(name, dtype, variant)] = {"line": line, "counts": counts, "steps": steps}
-    launches = _counts()
+    launches = {**_counts(), "sddmm_routes": _sddmm_routes()}
 
     _serve_trained(WORK / "teacher_cora" / "cora-sage_transductive", expect_segsum=2)
     _serve_trained(WORK / "saved" / "cora-gcn_transductive", expect_segsum=2)
@@ -1594,6 +1793,9 @@ def phase_student() -> dict:
     segsum.launches = spmm.backward_launches = sddmm_mlp_score.launches = 0
     spmm.weighted_backward_launches = mlp_block_logits.launches = 0
     segsum.launch_counts.clear()
+    segsum.route_counts.clear()
+    segsum.heavy_first_launches = 0
+    sddmm_mlp_score.launch_counts.clear()
     mlp_block_logits.launch_counts.clear()
     for i, (name, epochs, dtype, data_dir, teacher, flags) in enumerate(STUDENT_RUNS):
         label = f"student {name} {dtype} {' '.join(flags) or 'default'}"
@@ -1611,6 +1813,7 @@ def phase_student() -> dict:
             raise AssertionError(f"{label}: {counts['sddmm']} sddmm launches in {evals} evals "
                                  f"(expected 4 each) and {counts['segsum']} segsum launches "
                                  f"(expected none: the student has no graph)")
+        _check_sddmm_route(label, counts)
         runs[(name, dtype, flags)] = {"line": line, "counts": counts}
         if i == 0:
             # the default cora student serves on the card (the top-K through
@@ -1621,6 +1824,8 @@ def phase_student() -> dict:
             if mlp_block_logits.launches == m0:
                 raise AssertionError("the cora student's top-K did not launch mlp_topk")
     launches = {"sddmm": sddmm_mlp_score.launches,
+                "heavy_first": segsum.heavy_first_launches,
+                "sddmm_routes": _sddmm_routes(),
                 "mlp_topk": dict(mlp_block_logits.launch_counts)}
     log("student_launches", {"sddmm": launches["sddmm"],
                              "mlp_topk": {f"{dt} {kind}": n for (dt, kind), n
@@ -1690,6 +1895,7 @@ def _check_production_launches(label: str, role: str, counts: dict, report: dict
         if counts["segsum"]:
             raise AssertionError(f"{label}: {counts['segsum']} segsum launches (the student "
                                  f"has no graph)")
+        _check_sddmm_route(label, counts)
         return
     steps = report["steps_per_epoch"] * len(report["epoch_s"])
     _check_train_launches(label, "", "float32", counts, steps)
@@ -1736,6 +1942,9 @@ def phase_production() -> dict:
     segsum.launches = spmm.backward_launches = sddmm_mlp_score.launches = 0
     spmm.weighted_backward_launches = 0
     segsum.launch_counts.clear()
+    segsum.route_counts.clear()
+    segsum.heavy_first_launches = 0
+    sddmm_mlp_score.launch_counts.clear()
     for name, t_epochs, s_epochs in PRODUCTION_RUNS:
         for role, epochs, flags in (("teacher", t_epochs, TRAIN_FLAGS),
                                     ("student", s_epochs, STUDENT_FLAGS)):
@@ -1752,8 +1961,10 @@ def phase_production() -> dict:
             _check_production_launches(label, role, counts, report,
                                        1433 if name == "cora" else 128)
             runs[(name, role)] = line
-    launches = {"segsum": segsum.launches, "sddmm": sddmm_mlp_score.launches}
+    launches = {"segsum": segsum.launches, "sddmm": sddmm_mlp_score.launches,
+                "heavy_first": segsum.heavy_first_launches}
     log("production_launches", launches)
+    launches["sddmm_routes"] = _sddmm_routes()
 
     # the cora teacher's evaluation, the card against the CPU
     gpu, h_gpu, data = _production_eval("cuda")
@@ -1865,6 +2076,9 @@ def phase_reorder(gen, train: dict, worst: dict) -> dict:
     spmm.weighted_backward_launches = spmm_tiles_apply.launches = 0
     spmm_tiles.backward_launches = 0
     segsum.launch_counts.clear()
+    segsum.route_counts.clear()
+    segsum.heavy_first_launches = 0
+    sddmm_mlp_score.launch_counts.clear()
     spmm_tiles_apply.launch_counts.clear()
 
     ds = get_dataset(STANDINS, "collab")
@@ -1973,8 +2187,12 @@ def phase_reorder(gen, train: dict, worst: dict) -> dict:
         elif counts["segsum"] or counts["sddmm"] != 4 * len(report["eval_s"]):
             raise AssertionError(f"{label}: {counts['segsum']} segsum and {counts['sddmm']} "
                                  f"sddmm launches, expected none and 4 an eval")
+        else:
+            _check_sddmm_route(label, counts)
 
     launches = {"segsum": segsum.launches, "sddmm": sddmm_mlp_score.launches,
+                "heavy_first": segsum.heavy_first_launches,
+                "sddmm_routes": _sddmm_routes(),
                 "spmm_tiles": spmm_tiles_apply.launches,
                 "spmm_tiles_backward": spmm_tiles.backward_launches,
                 "spmm_tiles_by_shape": {f"{k[0]} d={k[1]}{' weighted' if k[2] else ''}": v
@@ -2046,8 +2264,8 @@ def phase_reorder(gen, train: dict, worst: dict) -> dict:
 
 def _segsum_timing(x, senders, in_ptr, scale, adj, out_dtype=None, weights=None) -> dict:
     """Kernel, plain and library times of one segsum at these inputs, and the
-    bytes it must move: x once, the index arrays (the scale and the weights)
-    once, out once."""
+    bytes it must move: x once, the index arrays (the senders as int32, the
+    kernel's index type; the scale and the weights) once, out once."""
     import torch
 
     from llp_tpu_torch.ops.segsum import segsum, segsum_plain
@@ -2069,11 +2287,47 @@ def _segsum_timing(x, senders, in_ptr, scale, adj, out_dtype=None, weights=None)
             t["library_ms"] = None
             t["library_note"] = f"torch.sparse.mm refuses {x.dtype} here: {str(exc)[:120]}"
     out_bytes = torch.empty((), dtype=out_dtype).element_size()
-    t["bytes"] = (n * x.shape[1] * (x.element_size() + out_bytes) + senders.numel() * 8
+    t["bytes"] = (n * x.shape[1] * (x.element_size() + out_bytes) + senders.numel() * 4
                   + in_ptr.numel() * 8 + (0 if scale is None else n * 4)
                   + (0 if weights is None else weights.numel() * 4))
     t["bound_ms"] = t["bytes"] / HBM_BYTES_PER_S * 1e3
     return t
+
+
+def _segsum_design_timing(gen, tg) -> None:
+    """B1 where its design is decided: on the power-law graph (hub rows),
+    fp32 and bf16 at D=256 beside ``torch.sparse.mm``, with and without the
+    heavy-first order (``ba_segsum:``); and the collab training graph's edge
+    count gathered at D=256 from a table that fits L2, the rate the sliced
+    gathers can reach (``segsum_l2:``)."""
+    import torch
+
+    from llp_tpu_torch.ops import segsum as segsum_mod
+
+    gb = _ba_graph()
+    n = gb.num_nodes
+    adj = torch.sparse_csr_tensor(gb.in_ptr, gb.senders, gb.inv_in_degree[gb.receivers], (n, n))
+    deg = gb.in_degree
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(n, 256, generator=gen, device="cuda").to(dtype)
+        t = _segsum_timing(x, gb.senders, gb.in_ptr, gb.inv_in_degree, adj)
+        heavy = segsum_mod.HEAVY_EDGES
+        try:  # no row heavy enough: the plain slice-major order
+            segsum_mod.HEAVY_EDGES = gb.num_edges
+            t["ms_without_heavy_first"] = time_ms(
+                lambda: segsum_mod.segsum(x, gb.senders, gb.in_ptr, gb.inv_in_degree))
+        finally:
+            segsum_mod.HEAVY_EDGES = heavy
+        log("ba_segsum", {"n": n, "e": gb.num_edges, "d": 256, "dtype": str(dtype),
+                          "max_in_degree": int(deg.max()),
+                          "heavy_rows": int((deg > heavy).sum()), **t})
+    n2, e = 20_000, tg.num_edges
+    x = torch.randn(n2, 256, generator=gen, device="cuda")  # 20 MB: fits L2
+    send = torch.randint(0, n2, (e,), generator=gen, device="cuda")
+    ptr = torch.arange(n2 + 1, device="cuda") * e // n2
+    ms = time_ms(lambda: segsum_mod.segsum(x, send, ptr))
+    log("segsum_l2", {"n": n2, "e": e, "d": 256, "ms": ms,
+                      "gather_bytes_per_s": e * 256 * 4 / ms * 1e3})
 
 
 def _weighted_entries(gen, train: dict, worst: dict) -> list:
@@ -2284,6 +2538,10 @@ def phase_kernels(gen, launches: dict, train: dict, student: dict, production: d
                                                             w1, b1, w2, b2))}
     log("timing", {"kernel": "sddmm", "n": n, "b": b, "d": d, "h": hid,
                    "bytes": sd_bytes, "flops": sd_flops, "rows_touched": rows, **sd})
+    # a small batch: one wave of blocks, no longer than the launch itself
+    log("sddmm_small", {"table": [n, d], "h": hid, **{
+        f"b{bs}_ms": time_ms(lambda: sddmm_mlp_score(table, table, src[:bs], dst[:bs],
+                                                      w1, b1, w2, b2)) for bs in (700, 2048)}})
     # score_pairs through the kernel and through the unfused expression: the
     # data for the fused=None default.
     head = head.cuda()
@@ -2295,7 +2553,12 @@ def phase_kernels(gen, launches: dict, train: dict, student: dict, production: d
 
     seg_bound_ms = seg["bytes"] / HBM_BYTES_PER_S * 1e3
     sd_bytes_ms = sd_bytes / HBM_BYTES_PER_S * 1e3
-    sd_flops_ms = sd_flops / FP32_FLOP_PER_S * 1e3
+    # The kernel runs the W1 product as three TF32 products on the tensor
+    # cores (3xTF32) and the rest (Hadamard, bias, relu, w2) on fp32 units.
+    sd_tc_flops = 3 * b * 2 * d * hid
+    sd_flops_ms = (sd_tc_flops / TF32_FLOP_PER_S + (sd_flops - b * 2 * d * hid)
+                   / FP32_FLOP_PER_S) * 1e3
+    sd_fp32_ms = sd_flops / FP32_FLOP_PER_S * 1e3
     entries = [
         {"name": "segsum", "route": "cuda", "source": "llp_tpu_torch/csrc/segsum.cu",
          "replaces": "llp_tpu/ops/pallas/segsum_kernel.py:148",
@@ -2304,6 +2567,12 @@ def phase_kernels(gen, launches: dict, train: dict, student: dict, production: d
          "launches_by_path": {"serve": launches["segsum"],
                               "production": production["launches"]["segsum"],
                               "reorder": reorder["launches"]["segsum"]},
+         # launches that ran the blocks holding a row of more than
+         # HEAVY_EDGES edges first: none unless a path's graph has such rows
+         "heavy_first_by_path": {p: d["heavy_first"] for p, d in (
+             ("serve", launches), ("train", train["launches"]),
+             ("student", student["launches"]), ("production", production["launches"]),
+             ("reorder", reorder["launches"]))},
          "max_abs_err": worst["segsum"],
          "ms": seg["ms"], "plain_ms": seg["plain_ms"], "bound_ms": seg_bound_ms,
          "bound_by": "bytes", "library_ms": seg["library_ms"],
@@ -2321,6 +2590,13 @@ def phase_kernels(gen, launches: dict, train: dict, student: dict, production: d
          "ms": sd["ms"], "plain_ms": sd["plain_ms"],
          "bound_ms": max(sd_bytes_ms, sd_flops_ms),
          "bound_by": "operations" if sd_flops_ms >= sd_bytes_ms else "bytes",
+         "bound_note": ("3xTF32: three TF32 products of the W1 GEMM at the TF32 peak, the "
+                        "rest at the fp32 peak"),
+         "fp32_bound_ms": max(sd_bytes_ms, sd_fp32_ms),
+         "launches_by_route": dict(sum(
+             (Counter(p["launches"]["sddmm_routes"]) for p in (train, student, production,
+                                                             reorder)),
+             Counter(launches["sddmm_routes"]))),
          "library_ms": None,
          "library_note": "no single PyTorch call gathers, multiplies and runs the MLP head",
          "shapes": f"{b} pairs over a {n} x {d} table, H={hid}"},
@@ -2385,6 +2661,7 @@ def phase_kernels(gen, launches: dict, train: dict, student: dict, production: d
     x = torch.randn(tn, 256, generator=gen, device="cuda").bfloat16()
     t = _segsum_timing(x, tg.senders, tg.in_ptr, tscale, fwd_adj, out_dtype=torch.float32)
     log("timing", {"kernel": "segsum.fwd.bf16->f32", "n": tn, "e": te, "d": 256, **t})
+    _segsum_design_timing(gen, tg)
     return entries + _weighted_entries(gen, train, worst) + reorder["entries"]
 
 

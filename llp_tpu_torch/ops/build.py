@@ -34,15 +34,17 @@ _P, _I64, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 # c_void_p (a bare Python int would be cut to 32 bits), sizes as int64,
 # type codes as int.
 SIGNATURES = {
-    "segsum": ("llp_segsum", [_P, _P, _P, _P, _P, _P, _I64, _I64, _INT, _INT, _P]),
+    "segsum": ("llp_segsum",
+               [_P, _P, _P, _P, _P, _P, _I64, _I64, _INT, _INT, _INT, _P, _I64, _I64, _P]),
     "sddmm": ("llp_sddmm_mlp_f32",
-              [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P]),
+              [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _INT, _P]),
     "mlp_topk": ("llp_mlp_topk",
                  [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P, _INT, _INT, _P]),
     "spmm_tiles": ("llp_spmm_tiles", [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _INT, _P]),
 }
 # argtypes of further entry points (``load_library(name, entry)``).
 ENTRY_POINTS = {
+    "llp_sddmm_split_w1": [_P, _P, _I64, _I64, _P],
     "llp_mlp_topk_mma": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P, _INT, _I64, _I64, _P],
 }
 

@@ -6,9 +6,17 @@ of ``llp_tpu/ops/pallas/sddmm_kernel.py::_kernel``.
 with ``w1`` in the JAX layout (D, H).  On a CUDA tensor it launches the
 hand-written kernel ``csrc/sddmm.cu`` (or raises); on a CPU tensor it runs
 :func:`sddmm_mlp_score_plain`.  Forward only: serving is its one caller.
+
+The kernel runs the W1 product on the tensor cores in three TF32 products
+(:func:`tf32_split` is the split), over W1's hi and lo parts, which its
+entry point writes once a call in the kernel's layout (:func:`split_w1`
+runs that step alone; :func:`split_w1_plain` is the layout in plain
+PyTorch).
 """
 
 from __future__ import annotations
+
+from collections import Counter
 
 import numpy as np
 import torch
@@ -35,6 +43,87 @@ def sddmm_mlp_score_plain(ha, hb, src, dst, w1, b1, w2, b2) -> torch.Tensor:
     z = ha.index_select(0, src) * hb.index_select(0, dst)
     z1 = torch.relu(z @ w1 + b1)
     return torch.sigmoid(z1 @ w2 + b2)
+
+
+# The kernel's tiles: features per pipeline step and hidden units per pass
+# (csrc/sddmm.cu: kBK, kBN); the split W1 is padded to multiples of them.
+K_STEP = 32
+N_PASS = 256
+
+
+def tf32_split(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(hi, lo)`` fp32 tensors of TF32 values with ``a ≈ hi + lo``, as the
+    kernel splits each operand: ``hi`` is ``a`` rounded to TF32's 10
+    mantissa bits (to nearest, ties away from zero: PTX ``cvt.rna.tf32.f32``)
+    and ``lo`` is the rest ``a - hi`` (exact in fp32) rounded the same way,
+    so ``hi + lo`` is within 2^-22 of ``a``, relative.  Finite inputs."""
+    def rna(v):
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+    hi = rna(a.float())
+    return hi, rna(a.float() - hi)
+
+
+def split_w1_plain(w1: torch.Tensor) -> torch.Tensor:
+    """(2, steps, N_PASS * K_STEP) fp32: W1's hi and lo parts
+    (:func:`tf32_split`) in the kernel's layout, as :func:`split_w1`
+    writes them at the start of each call.  W1^T is zero-padded to (Hp, Dp),
+    the multiples of ``N_PASS`` and ``K_STEP`` at or above H and D, and cut
+    into the pipeline's steps (pass-major: step ``p * Dp / K_STEP + kk``
+    holds units ``p * N_PASS ...`` and features ``kk * K_STEP ...``); each
+    step lists wgmma's core matrices in order: [unit / 8][feature / 4]
+    [unit % 8][feature % 4]."""
+    d, h = w1.shape
+    kc, passes = -(-d // K_STEP), -(-h // N_PASS)
+    wt = torch.zeros((2, passes * N_PASS, kc * K_STEP), dtype=torch.float32, device=w1.device)
+    hi, lo = tf32_split(w1)
+    wt[0, :h, :d] = hi.t()
+    wt[1, :h, :d] = lo.t()
+    # (part, pass, unit / 8, unit % 8, step, feature / 4, feature % 4)
+    wt = wt.view(2, passes, N_PASS // 8, 8, kc, K_STEP // 4, 4)
+    return wt.permute(0, 1, 4, 2, 5, 3, 6).reshape(2, passes * kc, N_PASS * K_STEP)
+
+
+def split_w1(w1: torch.Tensor) -> torch.Tensor:
+    """:func:`split_w1_plain`'s result, written on a CUDA tensor by the
+    kernel ``csrc/sddmm.cu::split_w1_kernel`` (or raises); on a CPU tensor
+    :func:`split_w1_plain` itself.  ``w1`` (D, H) fp32, contiguous."""
+    if w1.dtype != torch.float32 or w1.dim() != 2:
+        raise TypeError("split_w1 takes a (D, H) float32 tensor")
+    if w1.device.type == "cpu":
+        return split_w1_plain(w1)
+    if w1.device.type != "cuda" or not w1.is_contiguous():
+        raise ValueError("split_w1 takes a contiguous cpu or cuda tensor")
+    out = _split_scratch(w1)
+    launch = load_library("sddmm", "llp_sddmm_split_w1")
+    split_w1.launches += 1
+    with torch.cuda.device(w1.device):
+        rc = launch(w1.data_ptr(), out.data_ptr(), *w1.shape,
+                    torch.cuda.current_stream(w1.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"split_w1 kernel launch failed: cudaError_t {rc}")
+    return out
+
+
+def _split_scratch(w1: torch.Tensor) -> torch.Tensor:
+    """An uninitialised tensor of :func:`split_w1_plain`'s shape for ``w1``."""
+    d, h = w1.shape
+    return torch.empty((2, -(-h // N_PASS) * -(-d // K_STEP), N_PASS * K_STEP),
+                       dtype=torch.float32, device=w1.device)
+
+
+split_w1.launches = 0
+
+
+def gather_route(ha: torch.Tensor, hb: torch.Tensor) -> str:
+    """The kernel's gather for these tables, which the wrapper passes to
+    ``csrc/sddmm.cu`` (it refuses a gather the shape does not call for):
+    16-byte copies of the rows where D is a multiple of 4 and both tables
+    are 16-byte aligned, else 4-byte copies.  Both run the tensor cores."""
+    if ha.shape[1] % 4 or ha.data_ptr() % 16 or hb.data_ptr() % 16:
+        return "tensor_cores.gather4B"
+    return "tensor_cores.gather16B"
 
 
 def sddmm_mlp_score(ha: torch.Tensor, hb: torch.Tensor, src: torch.Tensor,
@@ -66,18 +155,26 @@ def sddmm_mlp_score(ha: torch.Tensor, hb: torch.Tensor, src: torch.Tensor,
     if b == 0:
         return out
     launch = load_library("sddmm")
+    route = gather_route(ha, hb)
+    wsplit = _split_scratch(w1)  # the kernel's entry writes W1's split here first
     sddmm_mlp_score.launches += 1
-    with torch.cuda.device(ha.device):  # the launch runs on the current device
+    sddmm_mlp_score.launch_counts[(route, d, h)] += 1
+    with torch.cuda.device(ha.device):  # the launches run on the current device
         rc = launch(ha.data_ptr(), hb.data_ptr(), src.data_ptr(), dst.data_ptr(),
-                    w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-                    out.data_ptr(), b, d, h,
+                    w1.data_ptr(), wsplit.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                    b2.data_ptr(), out.data_ptr(), b, d, h, route == "tensor_cores.gather16B",
                     torch.cuda.current_stream(ha.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"sddmm kernel launch failed: cudaError_t {rc}")
     return out
 
 
-sddmm_mlp_score.launches = 0  # kernel launches, for proving a run went through the kernel
+# Kernel launches, for proving a run went through the kernel: in all, and
+# per (route, D, H), the route the kernel was told to take.  Each call
+# splits W1 first, in the same entry point (``split_w1.launches`` counts
+# only calls of :func:`split_w1`).
+sddmm_mlp_score.launches = 0
+sddmm_mlp_score.launch_counts = Counter()
 
 
 def head_weights(lins):

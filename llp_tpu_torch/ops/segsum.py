@@ -22,6 +22,13 @@ raises); on a CPU tensor it runs :func:`segsum_plain`, the same function in
 plain PyTorch.  Unlike the TPU kernel, the CUDA kernel gathers ``x[sender]``
 and the weight itself, so no (E, D) message tensor exists and the TPU's
 chunked message stream (``_CHUNK_MSG_BYTES``) has no counterpart here.
+
+The kernel walks the features in 128-byte slices, slowest-varying, so that
+the slice of ``x`` being gathered stays in L2, reads int32 senders (:func:`index_int32`, one copy per index tensor), and
+runs the blocks that hold a row of more than ``HEAVY_EDGES`` edges first
+(:func:`heavy_first`, one order per CSR), so that no hub row is left
+running alone at the end.  Only power-law graphs have such rows: none of
+the graphs the port trains on or serves does.
 """
 
 from __future__ import annotations
@@ -43,6 +50,64 @@ INSTANCES = {
 WEIGHTED_INSTANCES = {k: INSTANCES[k] for k in ((torch.float32, torch.float32),
                                                 (torch.bfloat16, torch.bfloat16))}
 _TYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+# Rows with more edges than this are heavy: their blocks run first.
+HEAVY_EDGES = 256
+# Warps of a kernel block (csrc/segsum.cu: kWarps), and the rows a warp
+# sums: four on the vector path (a row's 128-byte slice is eight lanes'
+# 16-byte vectors), one on the scalar path.
+BLOCK_WARPS = 8
+ROWS_PER_WARP = {"vector128B": 4, "scalar": 1}
+
+# The attributes that hold, on an index tensor itself, its int32 copy and
+# (on a CSR's offsets) its heavy-first orders: freed with the tensor, and
+# one attribute read on the wrapper's path, which a weak dictionary's
+# lookup costs several times over.
+_INDEX32_ATTR = "_llp_segsum_int32"
+_ORDERS_ATTR = "_llp_segsum_orders"
+
+
+def index_int32(index: torch.Tensor) -> torch.Tensor:
+    """The int32 copy of an int64 index tensor (values below 2^31), made on
+    its device the first time it is asked for and cached on the tensor: a
+    graph's views are converted once, and the copy dies with the tensor.  A
+    tensor written in place since (its ``_version`` moved on) is converted
+    anew."""
+    hit = index.__dict__.get(_INDEX32_ATTR)
+    if hit is not None and hit[0] == index._version:
+        return hit[1]
+    out = index.to(torch.int32)
+    index.__dict__[_INDEX32_ATTR] = (index._version, out)
+    return out
+
+
+def heavy_first(in_ptr: torch.Tensor, rows_per_block: int):
+    """``(order, n_heavy)``: the kernel's blocks of ``rows_per_block`` rows
+    of the CSR ``in_ptr``, those that hold a row of more than
+    ``HEAVY_EDGES`` edges first (``n_heavy`` of them), then the others, each
+    part in ascending order, as an int32 tensor on ``in_ptr``'s device; or
+    ``(None, 0)`` when no row is heavy.  Derived on the device once per CSR,
+    block size and threshold (one host read of ``n_heavy``), cached on
+    ``in_ptr`` and freed with it; a tensor written in place since is derived
+    anew."""
+    cache = in_ptr.__dict__.get(_ORDERS_ATTR)
+    if cache is None or cache[0] != in_ptr._version:
+        cache = in_ptr.__dict__[_ORDERS_ATTR] = (in_ptr._version, {})
+    key = (rows_per_block, HEAVY_EDGES)
+    hit = cache[1].get(key)
+    if hit is not None:
+        return hit
+    n = in_ptr.numel() - 1
+    blocks = -(-n // rows_per_block)
+    heavy = torch.zeros(blocks * rows_per_block, dtype=torch.bool, device=in_ptr.device)
+    heavy[:n] = (in_ptr[1:] - in_ptr[:-1]) > HEAVY_EDGES
+    heavy_block = heavy.view(blocks, rows_per_block).any(1)
+    n_heavy = int(heavy_block.sum())
+    order = None
+    if n_heavy:
+        order = torch.sort((~heavy_block).to(torch.int8), stable=True).indices.to(torch.int32)
+    hit = cache[1][key] = (order, n_heavy)
+    return hit
 
 
 def segsum_plain(x: torch.Tensor, senders: torch.Tensor, in_ptr: torch.Tensor,
@@ -103,25 +168,49 @@ def segsum(x: torch.Tensor, senders: torch.Tensor, in_ptr: torch.Tensor,
         raise ValueError(f"segsum runs on cpu or cuda tensors, not {x.device}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("segsum takes contiguous tensors")
+    if x.shape[0] >= 2 ** 31:
+        raise ValueError("segsum's kernel takes int32 senders: x must have < 2^31 rows")
     n, d = in_ptr.numel() - 1, x.shape[1]
     if n == 0 or d == 0 or senders.numel() == 0:
         return torch.zeros((n, d), dtype=out_dtype, device=x.device)
     out = torch.empty((n, d), dtype=out_dtype, device=x.device)
     launch = load_library("segsum")
+    route = _route(x, out)
+    rows = BLOCK_WARPS * ROWS_PER_WARP[route]
     segsum.launches += 1
     segsum.launch_counts[(instance, d, weights is not None)] += 1
+    segsum.route_counts[route] += 1
     with torch.cuda.device(x.device):  # the launch runs on the current device
-        rc = launch(x.data_ptr(), senders.data_ptr(), in_ptr.data_ptr(),
+        idx = index_int32(senders)
+        order, n_heavy = heavy_first(in_ptr, rows)
+        segsum.heavy_first_launches += order is not None
+        rc = launch(x.data_ptr(), idx.data_ptr(), in_ptr.data_ptr(),
                     None if scale is None else scale.data_ptr(),
                     None if weights is None else weights.data_ptr(), out.data_ptr(),
-                    n, d, _TYPE_CODE[x.dtype], _TYPE_CODE[out_dtype],
+                    n, d, _TYPE_CODE[x.dtype], _TYPE_CODE[out_dtype], route != "scalar",
+                    None if order is None else order.data_ptr(), n_heavy, rows,
                     torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"segsum kernel launch failed: cudaError_t {rc}")
     return out
 
 
-# Kernel launches, for proving a run went through the kernel: in all, and
-# per (instance, width, weighted).
+def _route(x: torch.Tensor, out: torch.Tensor) -> str:
+    """The kernel's path for these tensors, which the wrapper passes to
+    ``csrc/segsum.cu`` (it refuses a path the shape does not call for):
+    16-byte vectors in 128-byte feature slices where D is a multiple of the
+    vector width and ``x`` and ``out`` are 16-byte aligned, else scalars."""
+    vec = 16 // x.element_size()
+    if x.shape[1] % vec or x.data_ptr() % 16 or out.data_ptr() % 16:
+        return "scalar"
+    return "vector128B"
+
+
+# Wrapper calls that launched the kernel, for proving a run went through it:
+# in all, per (instance, width, weighted), per path ("vector128B" or
+# "scalar", the path the kernel was told to take), and those that ran heavy
+# rows first.
 segsum.launches = 0
 segsum.launch_counts = Counter()
+segsum.route_counts = Counter()
+segsum.heavy_first_launches = 0
