@@ -109,7 +109,30 @@ failure exits non-zero.
                    evaluation agrees on the card and the CPU, and its
                    artifact, served with ``--reencode``, answers alike on
                    both.
-9. reorder      -- ``--reorder rcm|locality`` and the tile SpMM: the
+9. tooling      -- raw downloads, snapshots, the reference's artifacts and
+                   the sweep and parity CLIs at full width: a Planetoid raw
+                   cora (2,708 x 1,433, 10,556 directed edges) and a
+                   GNN-benchmark coauthor-cs (18,333 x 6,805 CSR attributes,
+                   163,788 directed edges) written from a seed under
+                   ``build/chip_smoke/raw/`` and loaded through
+                   ``get_dataset`` (features as written, edges symmetric,
+                   unique, no self-loops); the collab teacher 4 epochs
+                   straight and cut at 2 with ``--checkpoint_every 2`` and
+                   resumed to 4, and the same for the cora student, under
+                   PyTorch's deterministic algorithms (the losses, final
+                   weights, Adam state and generator state equal bit for
+                   bit, full histories, the resumed run's artifact at its
+                   best validation); ``tests/golden``'s cora split and SAGE
+                   teacher through ``llp_tpu_torch.cli.import_reference``, a
+                   student distilled from it (5 epochs) and the teacher
+                   served with ``--reencode`` on the card and the CPU alike;
+                   ``run_sweep`` with a dict spec (2 teacher trials on the
+                   raw cora, 3 epochs each, then a third by resume, on the
+                   uninterrupted stream); ``cli.parity`` over the raw cora
+                   and coauthor-cs (1 run, 3 epochs). Launch counters show
+                   segsum in both directions on every teacher step and
+                   SDDMM four times in every eval.
+10. reorder     -- ``--reorder rcm|locality`` and the tile SpMM: the
                    orders of the collab stand-in (their host time) and the
                    tile fill under each (min_tile_edges 16 and 0); on the
                    RCM graph the hybrid ``spmm_tiles`` mean forward and
@@ -129,8 +152,8 @@ failure exits non-zero.
                    (the hybrid beside B1 and ``torch.sparse.mm``, its
                    residual segment sum alone, and ``spmm_tiles_apply`` at
                    min_tile_edges 0).
-10. kernels     -- one JSON line: each kernel's launches on the serving,
-                   training, student, production and reorder paths, its
+11. kernels     -- one JSON line: each kernel's launches on the serving,
+                   training, student, production, tooling and reorder paths, its
                    time at the collab shapes, the plain version's time, a
                    library call's time where one exists, and the least time
                    the card could take. A ``top_k_partners:`` line gives the
@@ -1986,6 +2009,344 @@ def phase_production() -> dict:
     return {"runs": runs, "launches": launches}
 
 
+TOOLING = WORK / "tooling"  # the tooling phase's runs, imports, sweep and report
+RAW = WORK / "raw"  # the raw downloads it writes: Cora/raw/ and CS/raw/
+GOLD = ROOT / "tests" / "golden"  # the reference's genuine artifacts (cora, 300 nodes)
+
+
+def _write_raw_cora(base: Path, seed: int):
+    """Planetoid raw files at cora's shape: 2,708 nodes, 1,433 binary
+    features (1,708 ``allx`` rows, 1,000 ``tx`` rows for the test ids
+    1,708-2,707, listed shuffled), ``graph`` a defaultdict of adjacency
+    lists over 5,278 undirected edges (10,556 directed). Returns the
+    features and the directed edge count the parse must give."""
+    import collections
+    import pickle
+
+    import numpy as np
+    import scipy.sparse as sp
+
+    n, d, n_allx, n_und = 2708, 1433, 1708, 5278
+    rng = np.random.default_rng(seed)
+    x = sp.random(n, d, density=0.0127, random_state=seed, format="csr", dtype=np.float32)
+    x.data[:] = 1.0
+    pairs = np.sort(rng.integers(0, n, (4 * n_und, 2)), axis=1)
+    pairs = np.unique(pairs[pairs[:, 0] != pairs[:, 1]], axis=0)
+    pairs = pairs[rng.permutation(len(pairs))[:n_und]]
+    graph = collections.defaultdict(list)
+    for u, v in pairs.tolist():
+        graph[u].append(v)
+        graph[v].append(u)
+    test_ids = rng.permutation(np.arange(n_allx, n))
+    base.mkdir(parents=True, exist_ok=True)
+    # tx's row i holds the features of node test_ids[i]
+    for suffix, obj in (("allx", x[:n_allx]), ("tx", x[test_ids]), ("graph", graph)):
+        with open(base / f"ind.cora.{suffix}", "wb") as f:
+            pickle.dump(obj, f, protocol=2)
+    np.savetxt(base / "ind.cora.test.index", test_ids, fmt="%d")
+    return x, 2 * n_und
+
+
+def _write_raw_cs(path: Path, seed: int):
+    """A GNN-benchmark ``ms_academic_cs.npz`` at coauthor-cs's shape: a CSR
+    adjacency over 18,333 nodes holding both directions of 81,894 edges
+    (163,788 entries), and 18,333 x 6,805 binary CSR attributes. Returns the
+    attributes and the directed edge count the parse must give."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    n, d, n_und = 18_333, 6_805, 81_894
+    rng = np.random.default_rng(seed)
+    pairs = np.sort(rng.integers(0, n, (2 * n_und, 2)), axis=1)
+    pairs = np.unique(pairs[pairs[:, 0] != pairs[:, 1]], axis=0)
+    pairs = pairs[rng.permutation(len(pairs))[:n_und]]
+    both = np.concatenate([pairs, pairs[:, ::-1]])
+    adj = sp.csr_matrix((np.ones(len(both), np.float32), (both[:, 0], both[:, 1])), (n, n))
+    attr = sp.random(n, d, density=0.0088, random_state=seed, format="csr", dtype=np.float32)
+    attr.data[:] = 1.0
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(path, adj_data=adj.data, adj_indices=adj.indices, adj_indptr=adj.indptr,
+             adj_shape=np.array(adj.shape), attr_data=attr.data, attr_indices=attr.indices,
+             attr_indptr=attr.indptr, attr_shape=np.array(attr.shape))
+    return attr, 2 * n_und
+
+
+def _check_raw(name: str, written, directed: int) -> dict:
+    """Load a raw download through ``get_dataset``: its features as written,
+    ``directed`` edges, symmetric, sorted and unique, no self-loops."""
+    import numpy as np
+
+    from llp_tpu_torch.data.registry import get_dataset
+
+    t = time.perf_counter()
+    ds = get_dataset(str(RAW), name)
+    parse_s = time.perf_counter() - t
+    ei, n = ds.edge_index, ds.num_nodes
+    keys = ei[0] * n + ei[1]
+    if (ds.synthetic or ds.x.shape != written.shape or ei.shape != (2, directed)
+            or not np.array_equal(ds.x, written.toarray())):
+        raise AssertionError(f"raw {name}: {ds.x.shape} features and {ei.shape} edges "
+                             f"(synthetic {ds.synthetic}), expected {written.shape} as "
+                             f"written and (2, {directed})")
+    if ((ei[0] == ei[1]).any() or not (np.diff(keys) > 0).all()
+            or not np.array_equal(np.sort(ei[1] * n + ei[0]), keys)):
+        raise AssertionError(f"raw {name}: the edge set is not symmetric, unique and free "
+                             f"of self-loops")
+    line = {"step": "raw", "dataset": name, "nodes": n, "features": ds.num_features,
+            "edges": int(ei.shape[1]), "parse_s": parse_s}
+    log("tooling", line)
+    return line
+
+
+def _split_steps(dataset_dir: str, name: str, batch: int = 65536) -> int:
+    """Steps per teacher epoch: the cached split's training positives over
+    the batch."""
+    import numpy as np
+
+    with np.load(Path(dataset_dir) / f"{name}_split.npz") as z:
+        return -(-int(z["train__edge"].shape[0]) // batch)
+
+
+def _check_path(label: str, counts: dict, *, steps: int, evals: int) -> None:
+    """B1 forward and backward on every teacher step (none with no step),
+    B3 four times an eval (valid and test, positives and negatives), on
+    the tensor-core route."""
+    if steps:
+        _check_train_launches(label, "", "float32", counts, steps)
+    elif counts["segsum"]:
+        raise AssertionError(f"{label}: {counts['segsum']} segsum launches (no graph)")
+    if counts["sddmm"] != 4 * evals:
+        raise AssertionError(f"{label}: {counts['sddmm']} sddmm launches in {evals} evals, "
+                             f"expected 4 each")
+    _check_sddmm_route(label, counts)
+
+
+def _check_serve_launches(label: str, counts: dict) -> None:
+    """A 2-layer re-encode (segsum once a layer) and the pairs in one SDDMM."""
+    if counts["segsum"] != 2 or counts["sddmm"] != 1:
+        raise AssertionError(f"{label}: {counts['segsum']} segsum and {counts['sddmm']} sddmm "
+                             f"launches, expected 2 and 1")
+
+
+def _resume_check(role: str, name: str, epochs: int, flags: list, teacher=None) -> dict:
+    """``epochs`` epochs straight through, and the same cut at half way and
+    resumed, each with a snapshot every ``epochs // 2``, under PyTorch's
+    deterministic algorithms: the same losses, final weights, Adam state and
+    generator state bit for bit, full histories, and the resumed run's
+    artifact holding its best validation. Then the straight run once more
+    in the default mode, where the gathers' backward (``index_add_``) sums
+    with atomics: how far that moves the losses is logged
+    (``default_mode_rel_gap``), the distance a resumed run keeps there."""
+    import shutil
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from llp_tpu_torch.train.state import load_run_state
+    from llp_tpu_torch.utils.checkpoint import load_checkpoint
+
+    student = role == "student"
+    every = epochs // 2
+    out, snaps = {}, {}
+    mode = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    runs = (("straight", [(epochs, [])], True),
+            ("cut", [(every, []), (epochs, ["--resume"])], True),
+            ("default", [(epochs, [])], False))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for kind, calls, deterministic in runs:
+            save = TOOLING / f"resume_{role}_{kind}"
+            if teacher is not None:
+                save.mkdir(parents=True, exist_ok=True)
+                for ext in (".npz", ".json"):
+                    shutil.copy(f"{teacher}{ext}", save / f"{Path(teacher).name}{ext}")
+            torch.use_deterministic_algorithms(deterministic, warn_only=True)
+            try:
+                for n_epochs, extra in calls:
+                    before = _counts()
+                    stats, report, _ = _train([f"--datasets={name}", f"--epochs={n_epochs}",
+                                               f"--dataset_dir={STANDINS}", f"--save_dir={save}",
+                                               f"--results_dir={WORK / 'results'}",
+                                               f"--checkpoint_every={every}", *flags, *extra],
+                                              student=student)
+                    counts = _delta(_counts(), before)
+                    ran = len(report["epoch_s"])
+                    _check_path(f"resume {role} {kind} {extra}", counts,
+                                steps=0 if student else report["steps_per_epoch"] * ran,
+                                evals=len(report["eval_s"]))
+            finally:
+                torch.use_deterministic_algorithms(mode[0], warn_only=mode[1])
+            artifact = save / f"{name}-{'student' if student else 'sage'}_transductive"
+            out[kind] = {"losses": report["losses"][0], "ran_last_call": ran,
+                         "snapshot_s": report["snapshot_s"]}
+            snaps[kind] = load_run_state(f"{artifact}_trainstate")
+            ckpt, meta = load_checkpoint(str(artifact))
+            hist = snaps[kind][1]["logger_results"]
+            metric = "Hits@50" if name == "collab" else "Hits@20"
+            if [len(h[0]) for h in hist.values()] != [epochs] * len(hist) or "params" not in ckpt:
+                raise AssertionError(f"resume {role} {kind}: histories "
+                                     f"{[len(h[0]) for h in hist.values()]}, artifact keys "
+                                     f"{sorted(ckpt)}")
+            if not student and meta["val"] != max(v for v, _ in hist[metric][0]):
+                raise AssertionError(f"resume {role} {kind}: the artifact holds val "
+                                     f"{meta['val']}, the history's best is "
+                                     f"{max(v for v, _ in hist[metric][0])}")
+    with (np.load(TOOLING / f"resume_{role}_straight" / f"{artifact.name}_trainstate.npz") as a,
+          np.load(TOOLING / f"resume_{role}_cut" / f"{artifact.name}_trainstate.npz") as b):
+        differ = sorted(k for k in {*a.files, *b.files}
+                        if k not in a.files or k not in b.files or not np.array_equal(a[k], b[k]))
+    ref, other = np.array(out["straight"]["losses"]), np.array(out["default"]["losses"])
+    line = {"step": "resume", "role": role, "dataset": name, "epochs": epochs,
+            "every": every, **{f"{k}_{f}": v[f] for k, v in out.items() for f in v},
+            "losses_equal": out["straight"]["losses"] == out["cut"]["losses"],
+            "snapshot_arrays_differing": differ,
+            "default_mode_rel_gap": float(np.max(np.abs(other - ref) / np.abs(ref))),
+            # the card's generator state is its seed and offset (16 bytes)
+            "rng_state": snaps["cut"][0]["rng"].tolist()[:16],
+            "rng_equal_default_mode": bool(np.array_equal(snaps["default"][0]["rng"],
+                                                          snaps["cut"][0]["rng"])),
+            "nondeterminism_warnings": sorted({str(w.message)[:120] for w in caught})}
+    log("tooling", line)
+    if len(out["straight"]["losses"]) != epochs or out["cut"]["ran_last_call"] != epochs - every:
+        raise AssertionError(f"resume {role}: {len(out['straight']['losses'])} losses, the "
+                             f"resumed call ran {out['cut']['ran_last_call']} epochs")
+    if not line["losses_equal"] or differ:
+        raise AssertionError(f"resume {role}: the resumed run is not the straight one: losses "
+                             f"equal {line['losses_equal']}, arrays differing {differ}")
+    return line
+
+
+def phase_tooling() -> dict:
+    """The port's tooling on the card: raw downloads (Planetoid cora and a
+    GNN-benchmark coauthor-cs at their real shapes) through the registry;
+    a collab teacher and a cora student cut and resumed; the reference's
+    genuine cora artifacts imported, distilled from and served (the card
+    against the CPU); a sweep with a resume; the parity report on the raw
+    downloads. Returns the path's launches."""
+    import random
+
+    from llp_tpu_torch.cli import import_reference, parity, sweep
+    from llp_tpu_torch.ops.mlp_topk import mlp_block_logits
+    from llp_tpu_torch.ops.sddmm import sddmm_mlp_score
+    from llp_tpu_torch.ops.segsum import segsum
+    from llp_tpu_torch.ops.spmm import spmm
+
+    lines = {}
+    # the tooling path starts here
+    segsum.launches = spmm.backward_launches = sddmm_mlp_score.launches = 0
+    spmm.weighted_backward_launches = mlp_block_logits.launches = 0
+    segsum.launch_counts.clear()
+    segsum.route_counts.clear()
+    segsum.heavy_first_launches = 0
+    sddmm_mlp_score.launch_counts.clear()
+    mlp_block_logits.launch_counts.clear()
+
+    # 1. raw downloads at the real shapes
+    before = _counts()
+    cora_x, cora_e = _write_raw_cora(RAW / "Cora" / "raw", seed=11)
+    cs_x, cs_e = _write_raw_cs(RAW / "CS" / "raw" / "ms_academic_cs.npz", seed=12)
+    lines["raw"] = [_check_raw("cora", cora_x, cora_e), _check_raw("coauthor-cs", cs_x, cs_e)]
+    _check_path("raw", _delta(_counts(), before), steps=0, evals=0)
+
+    # 2. resume: the collab teacher and the cora student, cut and resumed
+    lines["resume"] = [
+        _resume_check("teacher", "collab", 4, TRAIN_FLAGS),
+        _resume_check("student", "cora", 4, STUDENT_FLAGS,
+                      teacher=str(WORK / "teacher_cora" / "cora-sage_transductive"))]
+
+    # 3. the reference's artifacts: import, distil, serve with --reencode
+    ref_data, ref_saved = TOOLING / "ref" / "data", TOOLING / "ref" / "saved"
+    before = _counts()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        import_reference.main([
+            "--datasets=cora", f"--dataset_dir={ref_data}", f"--save_dir={ref_saved}",
+            f"--split_pkl={GOLD / 'data' / 'cora.pkl'}",
+            f"--dataset_npz={GOLD / 'data' / 'cora.npz'}",
+            f"--models_pkl={GOLD / 'saved-models' / 'cora-sage_transductive.pkl'}",
+            f"--features_pkl={GOLD / 'saved-features' / 'cora-sage_transductive.pkl'}"])
+    import_s = time.perf_counter() - t
+    stats, report, _ = _train(["--datasets=cora", "--epochs=5", f"--dataset_dir={ref_data}",
+                               f"--save_dir={ref_saved}", f"--results_dir={WORK / 'results'}",
+                               *STUDENT_FLAGS], student=True)
+    counts = _delta(_counts(), before)
+    losses = report["losses"][0]
+    if losses[-1] >= losses[0]:
+        raise AssertionError(f"the student of the imported teacher: losses {losses}")
+    _check_path("imported teacher's student", counts, steps=0, evals=len(report["eval_s"]))
+    ckpt = ref_saved / "cora-sage_transductive"
+    queries, pairs = _requests(300, seed=5)
+    argv = [f"--checkpoint={ckpt}", "--datasets=cora", f"--dataset_dir={ref_data}",
+            "--reencode", "--topk=10", f"--queries={queries}", f"--pairs={pairs}"]
+    before = _counts()
+    summary, served = _serve(argv)
+    counts = _delta(_counts(), before)
+    if summary["nodes"] != 300:
+        raise AssertionError(f"serving the imported teacher: {summary}")
+    _check_serve_launches("the imported teacher served", counts)
+    _, cpu = _serve(argv + ["--device=cpu"])
+    lines["import"] = {"step": "import", "import_s": import_s, "student_losses": losses,
+                       "student_Hits@20": stats["Hits@20"]["test"][0],
+                       "serve": {k: summary[k] for k in ("nodes", "dim")},
+                       "serve_launches": {"segsum": counts["segsum"], "sddmm": counts["sddmm"]},
+                       "vs_cpu_pairs_max_abs": _check_pairs(served, cpu, "imported teacher"),
+                       "vs_cpu_topk": _check_topk(served, cpu, 10, "imported teacher")}
+    log("tooling", lines["import"])
+
+    # 4. a sweep of two teacher trials on the raw cora, then a third by resume
+    spec = {"program": "train_teacher_gnn.py", "metric": {"name": "Hits@20"}, "trials": 3,
+            "parameters": {"lr": {"values": [0.001, 0.005, 0.01]},
+                           "dropout": {"values": [0.0, 0.5]}},
+            "base": {"datasets": "cora", "dataset_dir": str(RAW), "epochs": 3, "runs": 1,
+                     "hidden_channels": 256, "num_layers": 2, "predictor": "mlp",
+                     "batch_size": 65536, "eval_steps": 1, "patience": 100,
+                     "save_dir": str(TOOLING / "sweep"), "results_dir": ""}}
+    out = str(TOOLING / "sweep.json")
+    before = _counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        first = sweep.run_sweep(spec, out_path=out, seed=0, max_trials=2, device="cuda")
+        resumed = sweep.run_sweep(spec, out_path=out, seed=0, resume=True, device="cuda")
+    counts = _delta(_counts(), before)
+    rng = random.Random(0)
+    stream = [sweep.trial_config(spec, rng)[1] for _ in range(3)]
+    if (resumed["history"][:2] != first["history"]
+            or [r["params"] for r in resumed["history"]] != stream):
+        raise AssertionError(f"the resumed sweep left the stream: {resumed['history']}")
+    _check_path("sweep", counts, steps=3 * 3 * _split_steps(str(RAW), "cora"), evals=3 * 3)
+    lines["sweep"] = {"step": "sweep", "history": resumed["history"], "best": resumed["best"]}
+    log("tooling", lines["sweep"])
+
+    # 5. the parity report on both raw downloads
+    before = _counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        (report,) = parity.main([f"--dataset_dir={RAW}", "--datasets=cora,coauthor-cs",
+                                 "--setting=transductive", "--runs=1", "--epochs=3",
+                                 f"--results_dir={TOOLING / 'parity'}",
+                                 f"--save_dir={TOOLING / 'parity'}"])
+    counts = _delta(_counts(), before)
+    entries = {e["dataset"]: e for e in report["entries"]}
+    if (set(entries) != {"cora", "coauthor-cs"}
+            or any(e["synthetic_standin"] for e in entries.values())
+            or not all(Path(report[k]).exists() for k in ("json_path", "md_path"))):
+        raise AssertionError(f"the parity report: {report}")
+    steps = 3 * sum(_split_steps(str(RAW), name) for name in entries)
+    _check_path("parity", counts, steps=steps, evals=2 * 3 * len(entries))
+    lines["parity"] = {"step": "parity", "report": report["md_path"], **{
+        name: {who: {"Hits@20": e[who]["stats"]["Hits@20"]["test"][0],
+                     "seconds": e[who]["seconds"]} for who in ("teacher", "student")}
+        for name, e in entries.items()}}
+    log("tooling", lines["parity"])
+
+    launches = {"segsum": segsum.launches, "sddmm": sddmm_mlp_score.launches,
+                "heavy_first": segsum.heavy_first_launches}
+    log("tooling_launches", launches)
+    launches["sddmm_routes"] = _sddmm_routes()
+    launches["mlp_topk"] = dict(mlp_block_logits.launch_counts)
+    return {"lines": lines, "launches": launches}
+
+
 REORDER = WORK / "reorder"  # the relabeled runs' artifacts
 # The teacher runs with --reorder: (dataset, epochs, order), fp32, beside the
 # train phase's natural-order runs of the same dataset.
@@ -2490,12 +2851,13 @@ def _mlp_topk_entries(gen, launches: dict, worst: dict) -> list:
 
 
 def phase_kernels(gen, launches: dict, train: dict, student: dict, production: dict,
-                  reorder: dict, worst: dict) -> list:
+                  tooling: dict, reorder: dict, worst: dict) -> list:
     """Times at the collab serving and training shapes; returns the kernels
     line's entries, with the tile kernel's from the reorder phase. The
-    segsum entry's launches count the serving, production and reorder
-    paths; the sddmm ones the serving, training, student, production and
-    reorder paths; mlp_topk's the serving and student paths."""
+    segsum entry's launches count the serving, production, tooling and
+    reorder paths; the sddmm ones the serving, training, student,
+    production, tooling and reorder paths; mlp_topk's the serving, student
+    and tooling paths."""
     import torch
 
     from llp_tpu_torch.core.graph import build_graph
@@ -2563,16 +2925,17 @@ def phase_kernels(gen, launches: dict, train: dict, student: dict, production: d
         {"name": "segsum", "route": "cuda", "source": "llp_tpu_torch/csrc/segsum.cu",
          "replaces": "llp_tpu/ops/pallas/segsum_kernel.py:148",
          "launches": (launches["segsum"] + production["launches"]["segsum"]
-                      + reorder["launches"]["segsum"]),
+                      + tooling["launches"]["segsum"] + reorder["launches"]["segsum"]),
          "launches_by_path": {"serve": launches["segsum"],
                               "production": production["launches"]["segsum"],
+                              "tooling": tooling["launches"]["segsum"],
                               "reorder": reorder["launches"]["segsum"]},
          # launches that ran the blocks holding a row of more than
          # HEAVY_EDGES edges first: none unless a path's graph has such rows
          "heavy_first_by_path": {p: d["heavy_first"] for p, d in (
              ("serve", launches), ("train", train["launches"]),
              ("student", student["launches"]), ("production", production["launches"]),
-             ("reorder", reorder["launches"]))},
+             ("tooling", tooling["launches"]), ("reorder", reorder["launches"]))},
          "max_abs_err": worst["segsum"],
          "ms": seg["ms"], "plain_ms": seg["plain_ms"], "bound_ms": seg_bound_ms,
          "bound_by": "bytes", "library_ms": seg["library_ms"],
@@ -2581,10 +2944,11 @@ def phase_kernels(gen, launches: dict, train: dict, student: dict, production: d
          "replaces": "llp_tpu/ops/pallas/sddmm_kernel.py:41",
          "launches": (launches["sddmm"] + train["launches"]["sddmm"]
                       + student["launches"]["sddmm"] + production["launches"]["sddmm"]
-                      + reorder["launches"]["sddmm"]),
+                      + tooling["launches"]["sddmm"] + reorder["launches"]["sddmm"]),
          "launches_by_path": {"serve": launches["sddmm"], "train": train["launches"]["sddmm"],
                               "student": student["launches"]["sddmm"],
                               "production": production["launches"]["sddmm"],
+                              "tooling": tooling["launches"]["sddmm"],
                               "reorder": reorder["launches"]["sddmm"]},
          "max_abs_err": worst["sddmm"],
          "ms": sd["ms"], "plain_ms": sd["plain_ms"],
@@ -2595,15 +2959,13 @@ def phase_kernels(gen, launches: dict, train: dict, student: dict, production: d
          "fp32_bound_ms": max(sd_bytes_ms, sd_fp32_ms),
          "launches_by_route": dict(sum(
              (Counter(p["launches"]["sddmm_routes"]) for p in (train, student, production,
-                                                             reorder)),
+                                                             tooling, reorder)),
              Counter(launches["sddmm_routes"]))),
          "library_ms": None,
          "library_note": "no single PyTorch call gathers, multiplies and runs the MLP head",
          "shapes": f"{b} pairs over a {n} x {d} table, H={hid}"},
-        *_mlp_topk_entries(gen, {k: launches["mlp_topk"].get(k, 0)
-                                 + student["launches"]["mlp_topk"].get(k, 0)
-                                 for k in {*launches["mlp_topk"],
-                                           *student["launches"]["mlp_topk"]}}, worst),
+        *_mlp_topk_entries(gen, dict(sum((Counter(p["mlp_topk"]) for p in (
+            student["launches"], tooling["launches"])), Counter(launches["mlp_topk"]))), worst),
     ]
 
     # The training shapes: the message graph of the collab split (the train
@@ -2701,9 +3063,10 @@ def main() -> int:
     train = timed("train", phase_train)
     student = timed("student", phase_student)
     production = timed("production", phase_production)
+    tooling = timed("tooling", phase_tooling)
     reorder = timed("reorder", phase_reorder, gen, train, worst)
     kernels = timed("kernels", phase_kernels, gen, launches, train, student, production,
-                    reorder, worst)
+                    tooling, reorder, worst)
     log("total", {"seconds": time.perf_counter() - t0, "phases": seconds})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": info["name"],

@@ -68,8 +68,12 @@ def add_common_flags(p: argparse.ArgumentParser) -> None:
                    help="cluster count for --reorder locality (0 = auto: num_devices "
                         "when multi-device, else 64)")
     p.add_argument("--checkpoint_every", type=int, default=0,
-                   help="not yet ported (ROADMAP A12)")
-    p.add_argument("--resume", action="store_true", help="not yet ported (ROADMAP A12)")
+                   help="every N epochs, snapshot the run (weights, Adam and generator "
+                        "state, counters, logger history) to <artifact>_trainstate and "
+                        "write the pending best-val artifact (0 = never)")
+    p.add_argument("--resume", action="store_true",
+                   help="continue from the <artifact>_trainstate snapshot, if any, at its "
+                        "run and epoch")
 
 
 def config_from_args(cls, args: argparse.Namespace, rename: dict,

@@ -5,22 +5,30 @@ The port of ``llp_tpu/data/registry.py``, in the same order of preference:
 1. ``synthetic:sbm:<n>:<k>:<deg>[:seed[:dim[:binary|gauss]]]`` and
    ``synthetic:ba:<n>:<m>[:seed]`` specs;
 2. ``<root>/<name>.npz``, the interchange file (:mod:`llp_tpu_torch.data.io`);
-3. an OGB ``ogbl_collab`` download (``edge.csv.gz`` + ``node-feat.csv.gz``,
+3. the raw Planetoid files (``ind.<name>.{allx,tx,graph,test.index}``, for
+   cora, citeseer and pubmed) under ``<root>/<Name>/raw``,
+   ``<root>/<name>/raw`` or ``<root>``;
+4. a GNN-benchmark ``.npz`` (``ms_academic_cs.npz`` and the other files
+   PyG's Coauthor and Amazon classes download) under ``<root>``,
+   ``<root>/<name>[/raw]`` or ``<root>/<PyG name>/raw``;
+5. an OGB ``ogbl_collab`` download (``edge.csv.gz`` + ``node-feat.csv.gz``,
    ``edge_weight.csv.gz`` and the shipped ``split/<scheme>/*.pt``), the only
    source of real edge weights, parsed once and cached in
    ``<root>/<name>_parsed.npz`` under a fingerprint of the download;
-4. a seeded synthetic stand-in with the real dataset's (N, D, avg-degree)
+6. a seeded synthetic stand-in with the real dataset's (N, D, avg-degree)
    shape, byte-identical to the JAX package's stand-in for the same name.
 
-The raw Planetoid and GNN-benchmark parsers are not ported yet.  Where their
-files are present the JAX package would load the real data, so this
-registry raises instead of silently serving a stand-in in their place.
+Both raw parsers give the arrays the JAX package's give on the same files:
+an undirected edge list, both directions, sorted and unique, with no
+self-loops.  They read the files without torch_geometric; scipy, which
+holds the sparse matrices inside them, is imported by the parsers only.
 """
 
 from __future__ import annotations
 
 import gzip
 import os
+import pickle
 import zipfile
 import zlib
 from dataclasses import dataclass
@@ -42,30 +50,6 @@ _REAL_SHAPES = {
     "amazon-photos": (7650, 745, 31.1, "binary", 8),
     "collab": (235868, 128, 8.2, "gauss", 64),
 }
-
-# Raw files the JAX registry parses before it falls back to a stand-in, of
-# the parsers not ported yet.
-_RAW_MARKERS = {
-    "cora": ["Cora/raw/ind.cora.allx", "cora/raw/ind.cora.allx", "ind.cora.allx"],
-    "citeseer": ["Citeseer/raw/ind.citeseer.allx", "citeseer/raw/ind.citeseer.allx",
-                 "ind.citeseer.allx"],
-    "pubmed": ["Pubmed/raw/ind.pubmed.allx", "pubmed/raw/ind.pubmed.allx",
-               "ind.pubmed.allx"],
-    "coauthor-cs": ["ms_academic_cs.npz", "coauthor-cs/ms_academic_cs.npz",
-                    "coauthor-cs/raw/ms_academic_cs.npz", "CS/raw/ms_academic_cs.npz"],
-    "coauthor-physics": ["ms_academic_phy.npz", "coauthor-physics/ms_academic_phy.npz",
-                         "coauthor-physics/raw/ms_academic_phy.npz",
-                         "Physics/raw/ms_academic_phy.npz"],
-    "amazon-computers": ["amazon_electronics_computers.npz",
-                         "amazon-computers/amazon_electronics_computers.npz",
-                         "amazon-computers/raw/amazon_electronics_computers.npz",
-                         "Computers/raw/amazon_electronics_computers.npz"],
-    "amazon-photos": ["amazon_electronics_photo.npz",
-                      "amazon-photos/amazon_electronics_photo.npz",
-                      "amazon-photos/raw/amazon_electronics_photo.npz",
-                      "Photo/raw/amazon_electronics_photo.npz"],
-}
-
 
 @dataclass
 class Dataset:
@@ -99,14 +83,13 @@ def get_dataset(root: str, name: str) -> Dataset:
             split=d["split"], split_name=d["split_name"],
         )
 
-    for rel in _RAW_MARKERS.get(name, ()):
-        if os.path.exists(os.path.join(root, rel)):
-            raise NotImplementedError(
-                f"{os.path.join(root, rel)} is a raw {name} download; the port "
-                f"reads only {name}.npz so far (ROADMAP Queue A: raw dataset "
-                f"parsers). Export it once with "
-                f"llp_tpu.data.io.save_dataset_npz."
-            )
+    planetoid = _try_planetoid(root, name)
+    if planetoid is not None:
+        return planetoid
+
+    gnn_bench = _try_gnn_benchmark(root, name)
+    if gnn_bench is not None:
+        return gnn_bench
 
     ogb = _try_ogb_collab(root, name)
     if ogb is not None:
@@ -298,3 +281,93 @@ def _load_ogb_split(raw_base: str):
             out[part] = d
         return out, f"ogb:{scheme}"
     return None, ""
+
+
+# The raw files PyG's Coauthor and Amazon classes download (the reference
+# loads these names through those classes, src/utils.py:35-43), and PyG's
+# folder for each.
+_GNN_BENCHMARK_FILES = {
+    "coauthor-cs": ("ms_academic_cs.npz", "CS"),
+    "coauthor-physics": ("ms_academic_phy.npz", "Physics"),
+    "amazon-computers": ("amazon_electronics_computers.npz", "Computers"),
+    "amazon-photos": ("amazon_electronics_photo.npz", "Photo"),
+}
+
+
+def _try_gnn_benchmark(root: str, name: str):
+    """A GNN-benchmark ``.npz`` (CSR adjacency, CSR or dense attributes) of
+    ``name``, parsed, or None."""
+    if name not in _GNN_BENCHMARK_FILES:
+        return None
+    fname, pyg_dir = _GNN_BENCHMARK_FILES[name]
+    for base in (root, os.path.join(root, name), os.path.join(root, name, "raw"),
+                 os.path.join(root, pyg_dir, "raw")):
+        path = os.path.join(base, fname)
+        if os.path.exists(path):
+            return _parse_gnn_benchmark(path, name)
+    return None
+
+
+def _parse_gnn_benchmark(path: str, name: str) -> Dataset:
+    import scipy.sparse as sp
+
+    # The files hold plain arrays: a download is never allowed to unpickle.
+    with np.load(path, allow_pickle=False) as z:
+        adj = sp.csr_matrix((z["adj_data"], z["adj_indices"], z["adj_indptr"]),
+                            shape=tuple(z["adj_shape"])).tocoo()
+        if "attr_data" in z:
+            x = np.asarray(sp.csr_matrix((z["attr_data"], z["attr_indices"],
+                                          z["attr_indptr"]),
+                                         shape=tuple(z["attr_shape"])).todense(),
+                           dtype=np.float32)
+        else:
+            x = np.asarray(z["attr_matrix"], dtype=np.float32)
+    ei = np.stack([adj.row.astype(np.int64), adj.col.astype(np.int64)])
+    # PyG loads these graphs undirected with the self-loops removed
+    # (torch_geometric.io.npz).
+    return Dataset(name, x, _symmetrize_dedup(ei, x.shape[0]))
+
+
+_PLANETOID_FOLDERS = {"cora": "Cora", "citeseer": "Citeseer", "pubmed": "Pubmed"}
+
+
+def _try_planetoid(root: str, name: str):
+    """The raw Planetoid files (``ind.<name>.{x,tx,allx,graph,test.index}``)
+    of ``name``, parsed, or None."""
+    if name not in _PLANETOID_FOLDERS:
+        return None
+    for base in (os.path.join(root, _PLANETOID_FOLDERS[name], "raw"),
+                 os.path.join(root, name, "raw"), root):
+        if os.path.exists(os.path.join(base, f"ind.{name}.allx")):
+            return _parse_planetoid(base, name)
+    return None
+
+
+def _parse_planetoid(base: str, name: str) -> Dataset:
+    """Features: ``allx`` then ``tx``, the test rows put back at their ids;
+    edges: the ``graph`` dict of adjacency lists, self-loops dropped, made
+    undirected and unique."""
+    import scipy.sparse as sp
+
+    def load_pickle(suffix):
+        # Python 2 pickles of scipy matrices and a defaultdict
+        with open(os.path.join(base, f"ind.{name}.{suffix}"), "rb") as f:
+            return pickle.load(f, encoding="latin1")
+
+    allx, tx, graph = load_pickle("allx"), load_pickle("tx"), load_pickle("graph")
+    test_idx = np.loadtxt(os.path.join(base, f"ind.{name}.test.index"), dtype=np.int64)
+    test_idx_range = np.sort(test_idx)
+    if name == "citeseer":
+        # citeseer's test ids leave gaps (isolated nodes): zero rows fill them
+        full = np.arange(test_idx_range.min(), test_idx_range.max() + 1)
+        tx_ext = sp.lil_matrix((len(full), allx.shape[1]))
+        tx_ext[test_idx_range - test_idx_range.min(), :] = tx
+        tx = tx_ext
+    x = sp.vstack([allx, tx]).tolil()
+    x[test_idx, :] = x[test_idx_range, :]
+    x = np.asarray(x.todense(), dtype=np.float32)
+    edges = [(u, v) for u, nbrs in graph.items() for v in nbrs if u != v]
+    ei = np.array(edges, dtype=np.int64).T
+    n = x.shape[0]
+    keys = np.unique(np.concatenate([ei[0] * n + ei[1], ei[1] * n + ei[0]]))
+    return Dataset(name, x, np.stack([keys // n, keys % n]))

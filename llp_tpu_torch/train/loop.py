@@ -52,8 +52,15 @@ table in them, and the student gathers that table into its own relabeled
 space, so artifacts of runs with and without ``reorder``, of either
 package, interoperate.
 
-Not ported yet, refused by :func:`refuse_unported`: resume and snapshots
-(A12), more than one device (A14); ``epochs_per_jit`` is a TPU mechanism.
+``checkpoint_every`` N writes a snapshot of the run every N epochs at
+``<artifact>_trainstate`` (:mod:`llp_tpu_torch.train.state`: the weights,
+Adam's state, the generator's state, the counters, the loggers' histories
+and the losses), first writing the pending best-validation artifact;
+``resume`` starts from that snapshot's run and epoch, so a run that was cut
+ends as an uninterrupted one does (bit for bit on the CPU).
+
+Not ported yet, refused by :func:`refuse_unported`: more than one device
+(A14); ``epochs_per_jit`` is a TPU mechanism.
 """
 
 from __future__ import annotations
@@ -84,6 +91,7 @@ from llp_tpu_torch.evaln.transductive import evaluate_transductive
 from llp_tpu_torch.models.encoder import hoists_first_aggregation, precompute_first_aggregation
 from llp_tpu_torch.sample.negative import edge_keys
 from llp_tpu_torch.train.student import StudentTrainer, init_student
+from llp_tpu_torch.train.state import RunSnapshots
 from llp_tpu_torch.train.teacher import TeacherTrainer, init_teacher
 from llp_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from llp_tpu_torch.utils.config import SPMM_IMPLS, SplitConfig, StudentConfig, TeacherConfig
@@ -102,10 +110,6 @@ def refuse_unported(cfg) -> None:
         raise _not_ported(f"--num_devices {cfg.num_devices}", "A14")
     if cfg.sharding != "dp":
         raise _not_ported(f"--sharding {cfg.sharding}", "A14")
-    if cfg.resume:
-        raise _not_ported("--resume", "A12")
-    if cfg.checkpoint_every:
-        raise _not_ported("--checkpoint_every", "A12")
     if cfg.epochs_per_jit != 1:
         raise SystemExit(
             f"--epochs_per_jit {cfg.epochs_per_jit}: fusing epochs into one device "
@@ -475,8 +479,9 @@ def run_teacher(cfg: TeacherConfig, *, max_epochs: Optional[int] = None,
     loggers, report)``: ``stats`` ``{metric: {'valid'|'test': (mean, std)}}``
     (production: ``'val'|'test'|'old_old'|'old_new'|'new_new'``) and
     ``loggers`` as the JAX package's, ``report`` this call's timings
-    (``epoch_s``, ``eval_s``, ``perf``), per-run epoch losses, steps per
-    epoch, split and graph sizes."""
+    (``epoch_s``, ``eval_s``, ``perf``, ``snapshot_s``), per-run epoch
+    losses (a resumed run's from its first epoch), steps per epoch, split
+    and graph sizes."""
     refuse_unported(cfg)
     cfg.finalize()
     device = setup_device(device)
@@ -487,15 +492,31 @@ def run_teacher(cfg: TeacherConfig, *, max_epochs: Optional[int] = None,
     x_aggs = eval_first_aggregations(cfg.encoder, conv, data)
 
     loggers = _loggers(cfg)
+    snaps = RunSnapshots(_teacher_ckpt_path(cfg), every=cfg.checkpoint_every,
+                         resume=cfg.resume, loggers=loggers, verbose=verbose)
     epochs = max_epochs if max_epochs is not None else cfg.epochs
-    val_max = 0.0  # shared across runs (reference train_teacher_gnn.py:420)
-    best_artifact = None
+    # shared across runs (reference train_teacher_gnn.py:420)
+    val_max = snaps.meta.get("val_max", 0.0)
+    best_artifact = None  # the best-validation artifact not yet written
     meter = ThroughputMeter(device, edges_per_epoch=2 * data["num_pos"])
-    losses = []
+    losses = snaps.losses()
     steps = 0
     t0 = time.time()
 
-    for run in range(cfg.runs):
+    def flush_artifact():
+        nonlocal best_artifact
+        if best_artifact is None:
+            return
+        params, h, meta = best_artifact
+        if data["node_inverse"] is not None:
+            # the table goes out in the dataset's original ids (row j of the
+            # export is original node j, new node node_inverse[j])
+            h = h.index_select(0, torch.from_numpy(data["node_inverse"]).to(h.device))
+        save_checkpoint(_teacher_ckpt_path(cfg),
+                        {"params": params, "features": h.cpu().numpy()}, meta=meta)
+        best_artifact = None
+
+    for run in range(snaps.run, cfg.runs):
         seed = run + cfg.seed_offset
         model = init_teacher(
             encoder=cfg.encoder, in_channels=in_dim, hidden_channels=cfg.hidden_channels,
@@ -510,15 +531,23 @@ def run_teacher(cfg: TeacherConfig, *, max_epochs: Optional[int] = None,
             neg_keys=data["neg_keys"], compute_dtype=cfg.compute_dtype,
         )
         steps = trainer.steps
-        run_losses = []
-        losses.append(run_losses)
-        best_val, cnt_wait = 0.0, 0
-        for epoch in range(1, epochs + 1):
+        best_val, cnt_wait, first = snaps.restore(run, model, trainer.optimizer, gen)
+        if run == len(losses):
+            losses.append([])
+        run_losses = losses[run]
+
+        def snapshot(epoch):
+            snaps.maybe_save(epoch, flush_artifact, model=model, optimizer=trainer.optimizer,
+                             generator=gen, run=run, best_val=best_val, cnt_wait=cnt_wait,
+                             val_max=val_max, losses=losses)
+
+        for epoch in range(first, epochs + 1):
             meter.start()
             loss = trainer.epoch(gen)
             meter.end_epoch()
             run_losses.append(float(loss))
             if epoch % max(cfg.eval_steps, 1) != 0:
+                snapshot(epoch)
                 continue
             meter.start()
             results, h = evaluate_teacher(model, data, hits_ks=cfg.hits_ks, x_aggs=x_aggs)
@@ -550,18 +579,11 @@ def run_teacher(cfg: TeacherConfig, *, max_epochs: Optional[int] = None,
                     f"{cfg.metric} valid={val:.4f} test={results[cfg.metric][1]:.4f} "
                     f"({meter.edges_per_sec:.0f} edges/s)"
                 )
+            snapshot(epoch)
             if cnt_wait >= cfg.patience:
                 break
 
-    if best_artifact is not None:
-        params, h, meta = best_artifact
-        if data["node_inverse"] is not None:
-            # the table goes out in the dataset's original ids (row j of the
-            # export is original node j, new node node_inverse[j])
-            h = h.index_select(0, torch.from_numpy(data["node_inverse"]).to(h.device))
-        save_checkpoint(_teacher_ckpt_path(cfg),
-                        {"params": params, "features": h.cpu().numpy()}, meta=meta)
-
+    flush_artifact()
     stats = {k: lg.statistics() for k, lg in loggers.items()}
     perf = meter.summary()
     if cfg.results_dir:
@@ -572,7 +594,8 @@ def run_teacher(cfg: TeacherConfig, *, max_epochs: Optional[int] = None,
               f"perf={perf}")
     report = dict(epoch_s=list(meter.epoch_s), eval_s=list(meter.eval_s), perf=perf,
                   losses=losses, steps_per_epoch=steps, num_pos=data["num_pos"],
-                  split_name=data["split_name"], **_data_report(data))
+                  split_name=data["split_name"], snapshot_s=snaps.seconds,
+                  **_data_report(data))
     return stats, loggers, report
 
 
@@ -619,20 +642,31 @@ def run_student(cfg: StudentConfig, *, max_epochs: Optional[int] = None,
     node_bs = cfg.coupled_node_batch_size(n, data["num_pos"])
 
     loggers = _loggers(cfg)
+    snaps = RunSnapshots(_student_ckpt_path(cfg), every=cfg.checkpoint_every,
+                         resume=cfg.resume, loggers=loggers, verbose=verbose)
     epochs = max_epochs if max_epochs is not None else cfg.epochs
     meter = ThroughputMeter(device, edges_per_epoch=2 * data["num_pos"])
-    losses = []
+    losses = snaps.losses()
     steps = 0
     t0 = time.time()
     # The best-validation student across runs, the deployable graph-free
-    # MLP (the reference's student saves only text results, main.py:465-513).
+    # MLP (the reference's student saves only text results, main.py:465-513),
+    # while it is not yet written.
     best_student = None
-    val_smax = 0.0
+    val_smax = snaps.meta.get("val_max", 0.0)
     student_meta = dict(encoder="mlp", predictor=cfg.predictor,
                         hidden_channels=cfg.hidden_channels, num_layers=cfg.num_layers,
                         norm_type=cfg.norm_type, in_channels=int(in_dim))
 
-    for run in range(cfg.runs):
+    def flush_student():
+        nonlocal best_student
+        if best_student is not None:
+            os.makedirs(cfg.save_dir, exist_ok=True)
+            save_checkpoint(_student_ckpt_path(cfg), {"params": best_student},
+                            meta=student_meta)
+            best_student = None
+
+    for run in range(snaps.run, cfg.runs):
         seed = run + 1 + cfg.seed_offset  # the student seeds run + 1
         model = init_student(
             in_channels=in_dim, hidden_channels=cfg.hidden_channels,
@@ -651,15 +685,23 @@ def run_student(cfg: StudentConfig, *, max_epochs: Optional[int] = None,
             compute_dtype=cfg.compute_dtype, llp_r_chunk=cfg.llp_r_chunk,
         )
         steps = trainer.steps
-        run_losses = []
-        losses.append(run_losses)
-        best_val, cnt_wait = 0.0, 0
-        for epoch in range(1, epochs + 1):
+        best_val, cnt_wait, first = snaps.restore(run, model, trainer.optimizer, gen)
+        if run == len(losses):
+            losses.append([])
+        run_losses = losses[run]
+
+        def snapshot(epoch):
+            snaps.maybe_save(epoch, flush_student, model=model, optimizer=trainer.optimizer,
+                             generator=gen, run=run, best_val=best_val, cnt_wait=cnt_wait,
+                             val_max=val_smax, losses=losses)
+
+        for epoch in range(first, epochs + 1):
             meter.start()
             loss = trainer.epoch(gen)
             meter.end_epoch()
             run_losses.append(float(loss))
             if epoch % max(cfg.eval_steps, 1) != 0:
+                snapshot(epoch)
                 continue
             meter.start()
             results = evaluate_student(model, data, hits_ks=cfg.hits_ks)
@@ -680,13 +722,11 @@ def run_student(cfg: StudentConfig, *, max_epochs: Optional[int] = None,
                     f"{cfg.metric} valid={val:.4f} test={results[cfg.metric][1]:.4f} "
                     f"({meter.edges_per_sec:.0f} edges/s)"
                 )
+            snapshot(epoch)
             if cnt_wait >= cfg.patience:
                 break
 
-    if best_student is not None:
-        os.makedirs(cfg.save_dir, exist_ok=True)
-        save_checkpoint(_student_ckpt_path(cfg), {"params": best_student}, meta=student_meta)
-
+    flush_student()
     stats = {k: lg.statistics() for k, lg in loggers.items()}
     perf = meter.summary()
     if cfg.results_dir:
@@ -696,5 +736,6 @@ def run_student(cfg: StudentConfig, *, max_epochs: Optional[int] = None,
               f"perf={perf}")
     report = dict(epoch_s=list(meter.epoch_s), eval_s=list(meter.eval_s), perf=perf,
                   losses=losses, steps_per_epoch=steps, node_batch=min(node_bs, n),
-                  num_pos=data["num_pos"], split_name=data["split_name"], **_data_report(data))
+                  num_pos=data["num_pos"], split_name=data["split_name"],
+                  snapshot_s=snaps.seconds, **_data_report(data))
     return stats, loggers, report

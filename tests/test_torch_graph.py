@@ -93,14 +93,6 @@ def test_registry_reads_the_npz_interchange_file(tmp_path):
         np.testing.assert_array_equal(a.split[part]["edge"], b.split[part]["edge"])
 
 
-def test_registry_refuses_raw_files_it_cannot_parse(tmp_path):
-    raw = tmp_path / "Cora" / "raw" / "ind.cora.allx"
-    raw.parent.mkdir(parents=True)
-    raw.write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="raw cora download"):
-        registry.get_dataset(str(tmp_path), "cora")
-
-
 def test_registry_rejects_unknown_names(tmp_path):
     with pytest.raises(ValueError, match="unknown dataset"):
         registry.get_dataset(str(tmp_path), "nope")

@@ -45,7 +45,11 @@ def test_import_loads_no_jax_and_no_llp_tpu():
     ["llp_tpu_torch.train, llp_tpu_torch.train.loop, llp_tpu_torch.train.teacher",
      "llp_tpu_torch.evaln, llp_tpu_torch.evaln.transductive, llp_tpu_torch.evaln.logger",
      "llp_tpu_torch.cli.train_teacher, llp_tpu_torch.sample.negative",
-     "llp_tpu_torch.sample.walk, llp_tpu_torch.train.student, llp_tpu_torch.cli.train_student"],
+     "llp_tpu_torch.sample.walk, llp_tpu_torch.train.student, llp_tpu_torch.cli.train_student",
+     "llp_tpu_torch.data.registry, llp_tpu_torch.data.subsample, "
+     "llp_tpu_torch.data.import_reference, llp_tpu_torch.utils.torch_import",
+     "llp_tpu_torch.cli.import_reference, llp_tpu_torch.train.state",
+     "llp_tpu_torch.cli.sweep, llp_tpu_torch.cli.parity"],
 )
 def test_training_modules_load_no_jax_and_no_llp_tpu(modules):
     code = (
@@ -94,9 +98,10 @@ def test_serve_cli_without_device_cpu_exits_on_a_host_without_cuda(monkeypatch, 
 
 
 @pytest.mark.parametrize("entry", ["load_serving_artifacts", "build_graph", "train_student",
-                                   "run_student"])
+                                   "run_student", "import_reference", "sweep", "run_sweep",
+                                   "parity", "run_parity"])
 def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
-    from llp_tpu_torch.cli import train_student
+    from llp_tpu_torch.cli import import_reference, parity, sweep, train_student
     from llp_tpu_torch.core.graph import build_graph
     from llp_tpu_torch.serve import load_serving_artifacts
     from llp_tpu_torch.train.loop import run_student
@@ -108,6 +113,16 @@ def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
         "build_graph": lambda: build_graph(np.array([[0], [1]]), 2),
         "train_student": lambda: train_student.main([f"--dataset_dir={tmp_path}"]),
         "run_student": lambda: run_student(StudentConfig(dataset_dir=str(tmp_path))),
+        "import_reference": lambda: import_reference.main([
+            "--datasets=cora", f"--dataset_dir={tmp_path}",
+            f"--split_pkl={ROOT / 'tests/golden/data/cora.pkl'}",
+            f"--dataset_npz={ROOT / 'tests/golden/data/cora.npz'}"]),
+        "sweep": lambda: sweep.main([f"--config={tmp_path / 'missing.yaml'}"]),
+        "run_sweep": lambda: sweep.run_sweep({"program": "teacher", "trials": 1,
+                                              "base": {"dataset_dir": str(tmp_path)}}),
+        "parity": lambda: parity.main([f"--dataset_dir={tmp_path}", "--datasets=cora"]),
+        "run_parity": lambda: parity.run_parity(dataset_dir=str(tmp_path), datasets=["cora"],
+                                                include_synthetic=True),
     }[entry]
     with pytest.raises(SystemExit, match="no CUDA device"):
         call()

@@ -8,8 +8,7 @@ production teacher alike (atol 1e-5); the eval hoist is taken per (graph,
 features); three single-step epochs with injected negatives and dropout 0
 on the production training graph equal JAX's jitted epoch (losses rtol
 2e-4, the first epoch's parameters rtol 2e-4 and atol 2e-5);
-``--use_edge_weight`` is still refused, and so are the snapshot flags
-(A12)."""
+``--use_edge_weight`` is still refused."""
 
 import json
 import re
@@ -265,10 +264,8 @@ def test_epochs_on_the_production_graph_match_the_jitted_jax_epoch(tmp_path, mon
 @pytest.mark.parametrize("main", [train_teacher.main, train_student.main],
                          ids=["teacher", "student"])
 def test_refused_settings_in_production(main, tmp_path):
-    # --reorder runs in production (tests/test_torch_reorder_driver.py); the
-    # snapshot flags still exit
-    with pytest.raises(SystemExit, match=r"--checkpoint_every is not yet ported.*ROADMAP A12"):
-        main(["--device=cpu", *_flags(tmp_path), "--checkpoint_every=5"])
+    # --reorder and the snapshots run in production
+    # (tests/test_torch_{reorder_driver,resume}.py); edge weights are refused
     with pytest.raises(ValueError, match="use_edge_weight is a transductive capability"):
         main(["--device=cpu", *_flags(tmp_path), "--use_edge_weight"])
     assert not (tmp_path / "data").exists()  # refused before any work
