@@ -43,8 +43,11 @@ failure exits non-zero.
                    128, 256 and 37 on a hub-and-isolated and a banded graph
                    and on one whose row blocks hold 789 chunks and exactly
                    one, its hybrid forward and backward (sum, mean; the
-                   residual through segsum) and the empty tile set. With
-                   more than one card visible
+                   residual through segsum) and the empty tile set; the
+                   gathers' backward (``gather_rows``: segsum over the ids'
+                   CSR) at the collab teacher's and student's shapes, fp32
+                   and bf16, against ``index_add_`` in fp32, two passes
+                   equal bit for bit. With more than one card visible
                    (other_card), segsum and SDDMM run again on the last card
                    while card 0 stays current.
 4. serve        -- the serving CLI (``llp_tpu_torch.cli.serve.main``) at full
@@ -118,11 +121,14 @@ failure exits non-zero.
                    ``get_dataset`` (features as written, edges symmetric,
                    unique, no self-loops); the collab teacher 4 epochs
                    straight and cut at 2 with ``--checkpoint_every 2`` and
-                   resumed to 4, and the same for the cora student, under
-                   PyTorch's deterministic algorithms (the losses, final
-                   weights, Adam state and generator state equal bit for
-                   bit, full histories, the resumed run's artifact at its
-                   best validation); ``tests/golden``'s cora split and SAGE
+                   resumed to 4, and the same for the cora student, in
+                   PyTorch's default mode (the losses, final weights, Adam
+                   state and generator state equal bit for bit, full
+                   histories, the resumed run's artifact at its best
+                   validation), and each straight run once more under
+                   PyTorch's deterministic algorithms, equal bit for bit
+                   to the default-mode one (``default_mode_rel_gap`` 0);
+                   ``tests/golden``'s cora split and SAGE
                    teacher through ``llp_tpu_torch.cli.import_reference``, a
                    student distilled from it (5 epochs) and the teacher
                    served with ``--reencode`` on the card and the CPU alike;
@@ -130,9 +136,29 @@ failure exits non-zero.
                    raw cora, 3 epochs each, then a third by resume, on the
                    uninterrupted stream); ``cli.parity`` over the raw cora
                    and coauthor-cs (1 run, 3 epochs). Launch counters show
-                   segsum in both directions on every teacher step and
-                   SDDMM four times in every eval.
-10. reorder     -- ``--reorder rcm|locality`` and the tile SpMM: the
+                   segsum in both directions and the gathers' backward on
+                   every teacher step and SDDMM four times in every eval.
+10. scale10m    -- the teacher at 10M nodes through ``TeacherTrainer``
+                   (``scripts/scale10m_r5.py``'s configuration: an SBM of
+                   10,000,000 nodes, 64 communities, mean degree 7, 64
+                   Gaussian features, seed 5; SAGE 2 layers, hidden 128,
+                   mlp head, dropout 0, bf16, uniform negatives, batch
+                   2^19), built on the host with the port's own
+                   ``sbm_graph`` (its time printed apart): one fp32 epoch
+                   with ``gather_last`` off and on (the first 20 steps'
+                   losses within 1e-4 of each other), then one bf16 epoch
+                   in each setting of ``gather_last`` and ``remat`` (epoch
+                   time, peak device bytes; the first 8 steps' losses
+                   within 1e-3 of each other, remat's equal to the plain
+                   run's bit for bit), then the
+                   last model's bf16 table by a full encode, its AUC on
+                   200,000 held-out pairs (scored by SDDMM), the table in
+                   int4, and top-10 from it against the fp32 table:
+                   'inner' at Q=256 and the bf16 'mlp' head at Q=128
+                   through mlp_topk (recall@10 and times); then segsum
+                   bf16 -> bf16 at D=128 forward and backward over the
+                   10M CSR beside ``torch.sparse.mm`` and its bound.
+11. reorder     -- ``--reorder rcm|locality`` and the tile SpMM: the
                    orders of the collab stand-in (their host time) and the
                    tile fill under each (min_tile_edges 16 and 0); on the
                    RCM graph the hybrid ``spmm_tiles`` mean forward and
@@ -152,7 +178,7 @@ failure exits non-zero.
                    (the hybrid beside B1 and ``torch.sparse.mm``, its
                    residual segment sum alone, and ``spmm_tiles_apply`` at
                    min_tile_edges 0).
-11. kernels     -- one JSON line: each kernel's launches on the serving,
+12. kernels     -- one JSON line: each kernel's launches on the serving,
                    training, student, production, tooling and reorder paths, its
                    time at the collab shapes, the plain version's time, a
                    library call's time where one exists, and the least time
@@ -163,7 +189,15 @@ failure exits non-zero.
                    ``torch.sparse.mm`` (and without its heavy-first order),
                    ``segsum_l2:`` the D=256 forward's edge count gathered
                    from a table that fits L2; ``sddmm_small:`` SDDMM at 700
-                   and 2,048 pairs.
+                   and 2,048 pairs. ``gather_bwd:`` times the gathers'
+                   backward three ways (``gather_rows`` through segsum,
+                   ``index_add_``, ``index_add_`` under deterministic
+                   algorithms) at the teacher's, the student's and the
+                   10M teacher's shapes.
+
+After each phase a ``memory:`` line gives the card's bytes in use, the
+phase's peak (``llp_tpu_torch.utils.memory``; the peak is reset before
+each phase) and the card's memory.
 
 The last line is ``{"ok": true, "device": {...}}``. Without CUDA, or outside
 a checkout, the script exits 1 and prints no result.
@@ -180,6 +214,7 @@ import subprocess
 import sys
 import time
 from collections import Counter
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -676,6 +711,93 @@ def phase_kernel_check(gen) -> dict:
     _check_route_refusals(head, gen)
     worst.update(mlp_topk_check(gen))
     worst.update(spmm_tiles_check(gen))
+    worst.update(gather_check(gen))
+    return worst
+
+
+# The gathers' backward at the main path's shapes: (label, rows of h, ids,
+# width, types).  The teacher's step gathers the predictor's pair ends
+# [src; dst] (2 x 65,536 positives and as many negatives) from the
+# 235,868 x 256 embedding in one call; the student's full-batch step
+# gathers a node batch's 13 rows (anchor and 12 contexts) and the pair ends
+# (the weighted collab export: 18 steps, a node batch of 13,452), and its
+# rank loss the 66 context pairs' columns of the (node batch, 12) scores,
+# as rows of the transpose (fp32 scores in either compute type); the 10M
+# teacher the 4 x 2^19 pair ends from its 10,000,000 x 128 layer-2 rows.
+GATHER_SHAPES = (("teacher", 235_868, 4 * 65_536, 256, ("float32", "bfloat16")),
+                 ("student", 235_868, 13 * 13_452 + 4 * 65_536, 256, ("float32", "bfloat16")),
+                 ("student_rank", 12, 66, 13_452, ("float32",)),
+                 ("scale10m", 10_000_000, 4 << 19, 128, ("float32", "bfloat16")))
+
+
+def _gather_ids(gen, label: str, n: int, k: int):
+    """The ids of a :data:`GATHER_SHAPES` case: the rank loss's first pair
+    column; uniform at 10M rows (the SBM's pairs and uniform negatives hit
+    no row often); else half uniform and half over 128 hub rows (1,024 to
+    1,707 repeats each, past the heavy-row threshold)."""
+    import torch
+
+    from llp_tpu_torch.train.student import pair_table
+
+    if label == "student_rank":
+        return pair_table(12)[0].cuda()
+    if label == "scale10m":
+        return torch.randint(0, n, (k,), generator=gen, device="cuda")
+    return torch.cat([torch.randint(0, n, (k - k // 2,), generator=gen, device="cuda"),
+                      torch.randint(0, 128, (k // 2,), generator=gen, device="cuda")])
+
+
+def _gather_err_key(label: str, dtype: str) -> str:
+    """The ``worst`` entry a :data:`GATHER_SHAPES` case's error goes to."""
+    return ("gather_bwd" + ("" if dtype == "float32" else "_bf16")
+            + ("_10m" if label == "scale10m" else ""))
+
+
+def gather_check(gen) -> dict:
+    """``gather_rows``' backward (the segment-sum kernel over the ids' CSR)
+    at :data:`GATHER_SHAPES` and their types, against its plain version
+    (``index_add_`` in fp32, one cast): equal bits, on cotangents of
+    multiples of 1/16 in [-4, 4], which bf16 holds exactly and whose sums
+    (a hub row's 1,707 terms included) fp32 holds exactly in any order, so
+    that the kernel's ordered sum and the atomics' unordered one must agree
+    to the bit; two backward passes give equal bits; the forward is
+    ``index_select``."""
+    import torch
+
+    from llp_tpu_torch.ops.gather import gather_rows, gather_rows_backward_plain
+
+    worst = {_gather_err_key(label, name): 0.0
+             for label, *_, dtypes in GATHER_SHAPES for name in dtypes}
+    for label, n, k, d, dtypes in GATHER_SHAPES:
+        idx = _gather_ids(gen, label, n, k)
+        for name in dtypes:
+            dtype = getattr(torch, name)
+            key = _gather_err_key(label, name)
+            h = torch.randn(n, d, generator=gen, device="cuda").to(dtype).requires_grad_(True)
+            g = (torch.randint(-64, 65, (idx.numel(), d), generator=gen, device="cuda").float()
+                 / 16).to(dtype)
+            grads = []
+            for _ in range(2):
+                before = gather_rows.launches
+                out = gather_rows(h, idx)
+                (dh,) = torch.autograd.grad(out, h, g)
+                torch.cuda.synchronize()
+                if gather_rows.launches != before + 1:
+                    raise AssertionError(f"gather {label} {dtype}: the kernel did not launch")
+                grads.append(dh)
+            if not torch.equal(out, h.detach().index_select(0, idx)):
+                raise AssertionError(f"gather {label} {dtype}: the forward is not index_select")
+            if not torch.equal(*grads):
+                raise AssertionError(f"gather {label} {dtype}: two backward passes differ")
+            ref = gather_rows_backward_plain(g, idx, n)
+            max_abs = float((grads[0].float() - ref.float()).abs().max())
+            if not torch.equal(grads[0], ref):
+                raise AssertionError(f"gather backward {label} {dtype} n={n} ids={idx.numel()} "
+                                     f"d={d}: not the plain version's bits (max abs {max_abs})")
+            worst[key] = max(worst[key], max_abs)
+            log("kernel_check", {"kernel": key, "case": label, "n": n, "ids": idx.numel(),
+                                 "d": d, "repeat_equal": True, "equal_to_plain": True,
+                                 "max_abs": max_abs})
     return worst
 
 
@@ -1170,6 +1292,7 @@ def phase_serve() -> dict:
 
     runs = {}
     # the serving path starts here
+    _reset_gather_counts()
     segsum.launches = sddmm_mlp_score.launches = mlp_block_logits.launches = 0
     mlp_block_logits.tensor_core_launches = 0
     mlp_block_logits.launch_counts.clear()
@@ -1295,17 +1418,27 @@ def _train(argv, student: bool = False) -> tuple[dict, dict, list]:
 
 def _counts() -> dict:
     """A snapshot of every launch counter."""
+    from llp_tpu_torch.ops.gather import gather_rows
     from llp_tpu_torch.ops.sddmm import sddmm_mlp_score
     from llp_tpu_torch.ops.segsum import segsum
     from llp_tpu_torch.ops.spmm import spmm
 
     return {"segsum": segsum.launches, "by_shape": dict(segsum.launch_counts),
+            "gather": gather_rows.launches,
+            "gather_by_width": dict(gather_rows.launch_counts),
             "routes": dict(segsum.route_counts),
             "heavy_first": segsum.heavy_first_launches,
             "backward": spmm.backward_launches,
             "weighted_backward": spmm.weighted_backward_launches,
             "sddmm": sddmm_mlp_score.launches,
             "sddmm_routes": dict(sddmm_mlp_score.launch_counts)}
+
+
+def _reset_gather_counts() -> None:
+    from llp_tpu_torch.ops.gather import gather_rows
+
+    gather_rows.launches = 0
+    gather_rows.launch_counts.clear()
 
 
 def _sddmm_routes() -> dict:
@@ -1320,6 +1453,10 @@ def _shape_key(inst: str, d: int, weighted: bool) -> str:
     return f"{inst} d={d}{' weighted' if weighted else ''}"
 
 
+def _width_key(dtype: str, d: int) -> str:
+    return f"{dtype} d={d}"
+
+
 def _delta(after: dict, before: dict) -> dict:
     shapes = {_shape_key(*key): n - before["by_shape"].get(key, 0)
               for key, n in after["by_shape"].items()}
@@ -1331,6 +1468,10 @@ def _delta(after: dict, before: dict) -> dict:
     return {"segsum": after["segsum"] - before["segsum"],
             "heavy_first": after["heavy_first"] - before["heavy_first"],
             "backward": after["backward"] - before["backward"],
+            "gather": after["gather"] - before["gather"],
+            "gather_by_width": {k: v for k, v in (
+                (_width_key(*key), n - before["gather_by_width"].get(key, 0))
+                for key, n in after["gather_by_width"].items()) if v},
             "weighted": weighted,
             "weighted_backward": after["weighted_backward"] - before["weighted_backward"],
             "sddmm": after["sddmm"] - before["sddmm"],
@@ -1518,6 +1659,8 @@ def _profile_trainer(trainer) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from llp_tpu_torch.tools.probes import ATOMIC_NAMES
+
     gen = torch.Generator(device="cuda").manual_seed(0)
     trainer.epoch(gen)
     torch.cuda.synchronize()
@@ -1539,6 +1682,9 @@ def _profile_trainer(trainer) -> dict:
     device_ms = sum(by_kernel.values())
     segsum_ms = sum(v for k, v in by_kernel.items()
                     if "segsum_vec_kernel" in k or "segsum_scalar_kernel" in k)
+    # kernels that add into a tensor with atomics (what made a step differ
+    # from run to run): none once every gather's backward is gather_rows'
+    atomic = {k: v for k, v in by_kernel.items() if any(a in k for a in ATOMIC_NAMES)}
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
     steps = trainer.steps
     return {"steps": steps, "epoch_s": wall_s, "launches": counts,
@@ -1549,12 +1695,16 @@ def _profile_trainer(trainer) -> dict:
             "segsum_ms": segsum_ms if device_ms else "not measured",
             # the unprofiled epoch's wall time against the profiled one's kernels
             "device_idle_share": 1 - device_ms / (wall_s * 1e3) if device_ms else "not measured",
+            "atomic_kernels_ms": atomic if device_ms else "not measured",
             "top_kernels_ms": top}
 
 
 def _check_train_launches(label: str, variant: str, dtype: str, counts: dict,
                           steps: int) -> None:
     """The kernels every step must have launched, from the run's counters."""
+    if counts["gather"] < steps:
+        raise AssertionError(f"{label}: {counts['gather']} gather backward launches in "
+                             f"{steps} steps, expected one a step (the predictor's rows)")
     if counts["backward"] < steps:
         raise AssertionError(f"{label}: {counts['backward']} backward segsum launches in "
                              f"{steps} steps")
@@ -1596,6 +1746,17 @@ def _check_train_launches(label: str, variant: str, dtype: str, counts: dict,
                                  f"{steps} steps (one forward and one backward each)")
 
 
+def _check_student_gathers(label: str, counts: dict, report: dict) -> None:
+    """The student has no graph: its segsum launches are its gathers'
+    backward (the rows of a full-batch step, the rank loss's context
+    pairs), at least one a step, and nothing else."""
+    steps = report["steps_per_epoch"] * len(report["epoch_s"])
+    if counts["segsum"] != counts["gather"] or counts["gather"] < steps:
+        raise AssertionError(f"{label}: {counts['segsum']} segsum launches, {counts['gather']} "
+                             f"of them the gathers' backward, in {steps} steps (expected only "
+                             f"those, at least one a step)")
+
+
 def _check_valedges_launches(label: str, variant: str, counts: dict, steps: int,
                              evals: int, in_dim: int) -> None:
     """With the validation edges as input, segsum runs over both graphs: the
@@ -1604,7 +1765,9 @@ def _check_valedges_launches(label: str, variant: str, counts: dict, steps: int,
     weighted = "weighted" in variant
     shapes = counts["by_shape"]
     hoists = shapes.get(_shape_key("float32->float32", in_dim, weighted), 0)
-    backward = counts["weighted_backward"] if weighted else counts["backward"]
+    # unweighted, the gathers' backward shares the fp32 instance at d=256
+    backward = (counts["weighted_backward"] if weighted
+                else counts["backward"] + counts["gather"])
     layer2 = shapes.get(_shape_key("float32->float32", 256, weighted), 0) - backward
     if hoists != 3 or layer2 != steps + 2 * evals:
         raise AssertionError(f"{label}: {hoists} layer-1 and {layer2} layer-2 forward "
@@ -1652,6 +1815,7 @@ def phase_train() -> dict:
     results = WORK / "results"
     runs = {}
     # the training path starts here
+    _reset_gather_counts()
     segsum.launches = spmm.backward_launches = sddmm_mlp_score.launches = 0
     spmm.weighted_backward_launches = 0
     segsum.launch_counts.clear()
@@ -1813,6 +1977,7 @@ def phase_student() -> dict:
     results = WORK / "results"
     runs = {}
     # the student's path starts here
+    _reset_gather_counts()
     segsum.launches = spmm.backward_launches = sddmm_mlp_score.launches = 0
     spmm.weighted_backward_launches = mlp_block_logits.launches = 0
     segsum.launch_counts.clear()
@@ -1832,10 +1997,10 @@ def phase_student() -> dict:
         if line["losses"][-1] >= line["losses"][0]:
             raise AssertionError(f"{label}: the loss did not fall: {line['losses']}")
         evals = len(report["eval_s"])
-        if counts["sddmm"] != 4 * evals or counts["segsum"] != 0:
+        if counts["sddmm"] != 4 * evals:
             raise AssertionError(f"{label}: {counts['sddmm']} sddmm launches in {evals} evals "
-                                 f"(expected 4 each) and {counts['segsum']} segsum launches "
-                                 f"(expected none: the student has no graph)")
+                                 f"(expected 4 each)")
+        _check_student_gathers(label, counts, report)
         _check_sddmm_route(label, counts)
         runs[(name, dtype, flags)] = {"line": line, "counts": counts}
         if i == 0:
@@ -1915,9 +2080,7 @@ def _check_production_launches(label: str, role: str, counts: dict, report: dict
         raise AssertionError(f"{label}: {counts['sddmm']} sddmm launches in {evals} evals, "
                              f"expected {sets} each (the non-empty edge sets)")
     if role == "student":
-        if counts["segsum"]:
-            raise AssertionError(f"{label}: {counts['segsum']} segsum launches (the student "
-                                 f"has no graph)")
+        _check_student_gathers(label, counts, report)
         _check_sddmm_route(label, counts)
         return
     steps = report["steps_per_epoch"] * len(report["epoch_s"])
@@ -1962,6 +2125,7 @@ def phase_production() -> dict:
     results = WORK / "results"
     runs = {}
     # the production path starts here
+    _reset_gather_counts()
     segsum.launches = spmm.backward_launches = sddmm_mlp_score.launches = 0
     spmm.weighted_backward_launches = 0
     segsum.launch_counts.clear()
@@ -2113,8 +2277,9 @@ def _check_path(label: str, counts: dict, *, steps: int, evals: int) -> None:
     the tensor-core route."""
     if steps:
         _check_train_launches(label, "", "float32", counts, steps)
-    elif counts["segsum"]:
-        raise AssertionError(f"{label}: {counts['segsum']} segsum launches (no graph)")
+    elif counts["segsum"] != counts["gather"]:
+        raise AssertionError(f"{label}: {counts['segsum']} segsum launches, "
+                             f"{counts['gather']} of them the gathers' backward (no graph)")
     if counts["sddmm"] != 4 * evals:
         raise AssertionError(f"{label}: {counts['sddmm']} sddmm launches in {evals} evals, "
                              f"expected 4 each")
@@ -2130,13 +2295,14 @@ def _check_serve_launches(label: str, counts: dict) -> None:
 
 def _resume_check(role: str, name: str, epochs: int, flags: list, teacher=None) -> dict:
     """``epochs`` epochs straight through, and the same cut at half way and
-    resumed, each with a snapshot every ``epochs // 2``, under PyTorch's
-    deterministic algorithms: the same losses, final weights, Adam state and
-    generator state bit for bit, full histories, and the resumed run's
-    artifact holding its best validation. Then the straight run once more
-    in the default mode, where the gathers' backward (``index_add_``) sums
-    with atomics: how far that moves the losses is logged
-    (``default_mode_rel_gap``), the distance a resumed run keeps there."""
+    resumed, each with a snapshot every ``epochs // 2``, in PyTorch's
+    default mode: the same losses, final weights, Adam state and generator
+    state bit for bit, full histories, and the resumed run's artifact
+    holding its best validation. Then, as a control, the straight run once
+    more under PyTorch's deterministic algorithms: its losses and snapshot
+    must equal the default-mode run's bit for bit (``default_mode_rel_gap``
+    0), which holds only if no op of a step sums with atomics (the gathers'
+    backward goes through ``gather_rows``)."""
     import shutil
     import warnings
 
@@ -2151,9 +2317,9 @@ def _resume_check(role: str, name: str, epochs: int, flags: list, teacher=None) 
     out, snaps = {}, {}
     mode = (torch.are_deterministic_algorithms_enabled(),
             torch.is_deterministic_algorithms_warn_only_enabled())
-    runs = (("straight", [(epochs, [])], True),
-            ("cut", [(every, []), (epochs, ["--resume"])], True),
-            ("default", [(epochs, [])], False))
+    runs = (("straight", [(epochs, [])], False),
+            ("cut", [(every, []), (epochs, ["--resume"])], False),
+            ("deterministic", [(epochs, [])], True))
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         for kind, calls, deterministic in runs:
@@ -2193,20 +2359,27 @@ def _resume_check(role: str, name: str, epochs: int, flags: list, teacher=None) 
                 raise AssertionError(f"resume {role} {kind}: the artifact holds val "
                                      f"{meta['val']}, the history's best is "
                                      f"{max(v for v, _ in hist[metric][0])}")
-    with (np.load(TOOLING / f"resume_{role}_straight" / f"{artifact.name}_trainstate.npz") as a,
-          np.load(TOOLING / f"resume_{role}_cut" / f"{artifact.name}_trainstate.npz") as b):
-        differ = sorted(k for k in {*a.files, *b.files}
-                        if k not in a.files or k not in b.files or not np.array_equal(a[k], b[k]))
-    ref, other = np.array(out["straight"]["losses"]), np.array(out["default"]["losses"])
+
+    def differing(kind):
+        with (np.load(TOOLING / f"resume_{role}_straight" / f"{artifact.name}_trainstate.npz")
+              as a, np.load(TOOLING / f"resume_{role}_{kind}" / f"{artifact.name}_trainstate.npz")
+              as b):
+            return sorted(k for k in {*a.files, *b.files}
+                          if k not in a.files or k not in b.files
+                          or not np.array_equal(a[k], b[k]))
+
+    differ = differing("cut")
+    ref, other = np.array(out["straight"]["losses"]), np.array(out["deterministic"]["losses"])
     line = {"step": "resume", "role": role, "dataset": name, "epochs": epochs,
             "every": every, **{f"{k}_{f}": v[f] for k, v in out.items() for f in v},
             "losses_equal": out["straight"]["losses"] == out["cut"]["losses"],
             "snapshot_arrays_differing": differ,
             "default_mode_rel_gap": float(np.max(np.abs(other - ref) / np.abs(ref))),
+            "deterministic_arrays_differing": differing("deterministic"),
             # the card's generator state is its seed and offset (16 bytes)
             "rng_state": snaps["cut"][0]["rng"].tolist()[:16],
-            "rng_equal_default_mode": bool(np.array_equal(snaps["default"][0]["rng"],
-                                                          snaps["cut"][0]["rng"])),
+            "rng_equal_deterministic": bool(np.array_equal(snaps["deterministic"][0]["rng"],
+                                                           snaps["cut"][0]["rng"])),
             "nondeterminism_warnings": sorted({str(w.message)[:120] for w in caught})}
     log("tooling", line)
     if len(out["straight"]["losses"]) != epochs or out["cut"]["ran_last_call"] != epochs - every:
@@ -2215,6 +2388,10 @@ def _resume_check(role: str, name: str, epochs: int, flags: list, teacher=None) 
     if not line["losses_equal"] or differ:
         raise AssertionError(f"resume {role}: the resumed run is not the straight one: losses "
                              f"equal {line['losses_equal']}, arrays differing {differ}")
+    if line["default_mode_rel_gap"] != 0.0 or line["deterministic_arrays_differing"]:
+        raise AssertionError(f"resume {role}: the default mode does not repeat the "
+                             f"deterministic one: losses {line['default_mode_rel_gap']:.3g} "
+                             f"apart, arrays differing {line['deterministic_arrays_differing']}")
     return line
 
 
@@ -2235,6 +2412,7 @@ def phase_tooling() -> dict:
 
     lines = {}
     # the tooling path starts here
+    _reset_gather_counts()
     segsum.launches = spmm.backward_launches = sddmm_mlp_score.launches = 0
     spmm.weighted_backward_launches = mlp_block_logits.launches = 0
     segsum.launch_counts.clear()
@@ -2347,6 +2525,320 @@ def phase_tooling() -> dict:
     return {"lines": lines, "launches": launches}
 
 
+# The 10M-node teacher (``scripts/scale10m_r5.py:92,195-197``): an SBM of
+# 10,000,000 nodes in 64 communities at mean degree 7 (seed 5) with 64
+# Gaussian community features, SAGE 2 layers, hidden 128, the mlp head,
+# dropout 0, bf16, uniform negatives, batch 2^19, lr 0.005; 200,000 of its
+# undirected pairs held out for the AUC, against as many uniform pairs.
+SCALE10M = dict(nodes=10_000_000, communities=64, degree=7.0, features=64, hidden=128,
+                batch=1 << 19, lr=0.005, seed=5, held_out=200_000)
+# The runs of the 10M phase, (dtype, gather_last, remat): an fp32 pair, then
+# the four settings of the big-graph knobs in bf16; the last run's model is
+# exported.
+SCALE10M_KNOBS = (("float32", False, False), ("float32", True, False),
+                  ("bfloat16", False, False), ("bfloat16", False, True),
+                  ("bfloat16", True, False), ("bfloat16", True, True))
+# Losses of one epoch under the knobs. remat replays the same ops: equal
+# bits. gather_last projects the last layer's rows alone, so the sums round
+# at other places, and in bf16 a difference of rounding grows over the
+# epoch's Adam steps into the trajectory: bf16's first SCALE10M_HELD_STEPS
+# steps are held at SCALE10M_STEP_RTOL and its epoch means reported, fp32's
+# first SCALE10M_FP32_STEPS steps at SCALE10M_FP32_RTOL (a fault in
+# gather_last that shows after bf16's held steps shows there).
+SCALE10M_HELD_STEPS = 8
+SCALE10M_STEP_RTOL = 1e-3
+SCALE10M_FP32_STEPS = 20
+SCALE10M_FP32_RTOL = 1e-4
+
+
+def _scale10m_data():
+    """The host graph (seeded, nothing downloaded), split into the training
+    pairs and the held-out ones; returns the arrays and the host seconds."""
+    import numpy as np
+
+    from llp_tpu_torch.data.synthetic import community_features, sbm_graph
+
+    c = SCALE10M
+    t = time.perf_counter()
+    # the graph on a thread, the features here meanwhile (numpy's sorts and
+    # draws release the GIL): the features' communities are the SBM's
+    # first draw, taken again from its seed
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        graph = pool.submit(sbm_graph, c["nodes"], c["communities"], c["degree"],
+                            seed=c["seed"])
+        comm = np.random.default_rng(c["seed"]).integers(0, c["communities"], size=c["nodes"])
+        x = community_features(comm, c["features"], kind="gauss", seed=c["seed"])
+        ei, sbm_comm = graph.result()
+    if not np.array_equal(sbm_comm, comm):
+        raise AssertionError("scale10m: the SBM's communities are not its seed's first draw")
+    pairs = ei[:, ei[0] < ei[1]]  # each undirected pair once
+    rng = np.random.default_rng(3)
+    held = np.zeros(pairs.shape[1], bool)
+    held[rng.choice(pairs.shape[1], c["held_out"], replace=False)] = True
+    train = pairs[:, ~held]
+    # (numpy's a[:, mask] is column-major: the held-out pairs are made
+    # row-major, as the pair scorer reads each row of ids contiguously)
+    return {"x": x, "train": train, "held": np.ascontiguousarray(pairs[:, held]),
+            "neg": rng.integers(0, c["nodes"], (2, c["held_out"])),
+            "messages": np.concatenate([train, train[::-1]], axis=1),
+            "pairs": pairs.shape[1], "host_graph_s": time.perf_counter() - t}
+
+
+def _segsum_plain_blocks(x, senders, in_ptr, scale, blocks: int = 16):
+    """``segsum_plain`` over ``blocks`` runs of receiver rows in turn (the
+    plain version at once would hold the (E, D) fp32 messages)."""
+    import torch
+
+    from llp_tpu_torch.ops.segsum import segsum_plain
+
+    n = in_ptr.numel() - 1
+    cuts = [n * i // blocks for i in range(blocks + 1)]
+    parts = []
+    for r0, r1 in zip(cuts[:-1], cuts[1:]):
+        e0, e1 = int(in_ptr[r0]), int(in_ptr[r1])
+        parts.append(segsum_plain(x, senders[e0:e1], in_ptr[r0:r1 + 1] - e0,
+                                  None if scale is None else scale[r0:r1]))
+    return torch.cat(parts)
+
+
+def phase_scale10m(gen) -> dict:
+    """The port's teacher at 10M nodes through ``TeacherTrainer``: one fp32
+    epoch with ``gather_last`` off and on, then one bf16 epoch in each
+    setting of ``gather_last`` and ``remat``, all from one seed (epoch
+    time, peak device bytes, losses), then the last model's bf16 table
+    by a full encode, its AUC on the held-out pairs (scored by the pair
+    scorer, B3), the table in int4, and top-10 retrieval from it against the
+    same model's fp32 table: 'inner' at Q=256 and the bf16 'mlp' head at
+    Q=128 through the retrieval kernel (B4). Then B1 at the table's size.
+    Returns the kernels line's entries and the path's launches."""
+    import numpy as np
+    import torch
+
+    from llp_tpu_torch.core.graph import build_graph
+    from llp_tpu_torch.models.predictor import LinkPredictor
+    from llp_tpu_torch.ops.metrics import roc_auc
+    from llp_tpu_torch.ops.mlp_topk import mlp_block_logits
+    from llp_tpu_torch.ops.sddmm import sddmm_mlp_score
+    from llp_tpu_torch.ops.segsum import segsum, segsum_plain
+    from llp_tpu_torch.ops.spmm import spmm
+    from llp_tpu_torch.serve import quantize_table, score_pairs, top_k_partners
+    from llp_tpu_torch.train.teacher import TeacherTrainer, init_teacher
+    from llp_tpu_torch.utils.memory import get_device_memory_map, reset_peak
+    from llp_tpu_torch.utils.precision import call_in_dtype
+
+    c = SCALE10M
+    data = _scale10m_data()
+    t = time.perf_counter()
+    g = build_graph(data["messages"], c["nodes"], device="cuda")
+    x = torch.from_numpy(data["x"]).cuda()
+    pos = torch.from_numpy(data["train"].T.copy()).cuda()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    log("scale10m", {"step": "graph", "nodes": c["nodes"], "pairs": data["pairs"],
+                     "train_pairs": int(pos.shape[0]), "messages": g.num_edges,
+                     "held_out": c["held_out"], "host_graph_s": data["host_graph_s"],
+                     "build_graph_s": build_s})
+    del data["messages"]
+
+    # the 10M path starts here
+    _reset_gather_counts()
+    segsum.launches = spmm.backward_launches = sddmm_mlp_score.launches = 0
+    mlp_block_logits.launches = 0
+    segsum.launch_counts.clear()
+    segsum.route_counts.clear()
+    sddmm_mlp_score.launch_counts.clear()
+    mlp_block_logits.launch_counts.clear()
+    runs = []
+    for dtype, gather_last, remat in SCALE10M_KNOBS:
+        model = init_teacher(encoder="sage", in_channels=c["features"],
+                             hidden_channels=c["hidden"], num_layers=2, predictor_mode="mlp",
+                             generator=torch.Generator().manual_seed(0)).cuda()
+        torch.cuda.synchronize()
+        reset_peak()
+        base = get_device_memory_map()[0]["bytes_in_use"]
+        trainer = TeacherTrainer(model, g, x, pos, batch_size=c["batch"], lr=c["lr"],
+                                 neg_mode="uniform", compute_dtype=dtype,
+                                 gather_last=gather_last, remat=remat)
+        before = _counts()
+        t = time.perf_counter()
+        loss = float(trainer.epoch(torch.Generator(device="cuda").manual_seed(1)))
+        epoch_s = time.perf_counter() - t
+        step_losses = trainer.step_losses.tolist()
+        counts = _delta(_counts(), before)
+        mem = get_device_memory_map()[0]
+        run = {"step": "epoch", "dtype": dtype, "gather_last": gather_last, "remat": remat,
+               "steps": trainer.steps, "epoch_s": epoch_s, "loss": loss,
+               "first_step_losses": step_losses[:max(SCALE10M_HELD_STEPS,
+                                                     SCALE10M_FP32_STEPS)],
+               "last_step_losses": step_losses[-3:],
+               "bytes_at_start": base, "peak_bytes_in_use": mem["peak_bytes_in_use"],
+               "peak_over_start": mem["peak_bytes_in_use"] - base,
+               "bytes_limit": mem["bytes_limit"], "launches": counts}
+        log("scale10m", run)
+        # every step: the layer-2 aggregation both ways, the gathers' backward
+        steps = trainer.steps
+        fwd = counts["segsum"] - counts["backward"] - counts["gather"]
+        if min(fwd, counts["backward"], counts["gather"]) < steps:
+            raise AssertionError(f"scale10m {dtype} {gather_last} {remat}: {fwd} forward, "
+                                 f"{counts['backward']} backward and {counts['gather']} gather "
+                                 f"segsum launches in {steps} steps, expected each a step")
+        runs.append(run)
+        if (dtype, gather_last, remat) != SCALE10M_KNOBS[-1]:
+            del trainer, model
+
+    def first_steps_gap(group, k):
+        first = np.array([r["first_step_losses"][:k] for r in group])
+        return float(np.max(np.abs(first - first[0]) / np.abs(first[0])))
+
+    fp32 = [r for r in runs if r["dtype"] == "float32"]
+    bf16 = [r for r in runs if r["dtype"] == "bfloat16"]
+    losses = [r["loss"] for r in bf16]
+    step_gap = first_steps_gap(bf16, SCALE10M_HELD_STEPS)
+    fp32_gap = first_steps_gap(fp32, SCALE10M_FP32_STEPS)
+    remat_equal = [bf16[i]["loss"] == bf16[i + 1]["loss"]
+                   and bf16[i]["first_step_losses"] == bf16[i + 1]["first_step_losses"]
+                   for i in (0, 2)]
+    log("scale10m", {"step": "losses", "epoch_losses": losses,
+                     "epoch_rel_gap": max(abs(v - losses[0]) / abs(losses[0]) for v in losses),
+                     "first_steps_rel_gap": step_gap, "held_steps": SCALE10M_HELD_STEPS,
+                     "step_rtol": SCALE10M_STEP_RTOL, "remat_equal_bits": remat_equal,
+                     "fp32_epoch_losses": [r["loss"] for r in fp32],
+                     "fp32_first_steps_rel_gap": fp32_gap,
+                     "fp32_held_steps": SCALE10M_FP32_STEPS,
+                     "fp32_step_rtol": SCALE10M_FP32_RTOL})
+    if (not all(np.isfinite([r["loss"] for r in runs])) or step_gap > SCALE10M_STEP_RTOL
+            or fp32_gap > SCALE10M_FP32_RTOL or not all(remat_equal)):
+        raise AssertionError(f"scale10m: bf16's first {SCALE10M_HELD_STEPS} steps' losses "
+                             f"{step_gap:.3g} apart (rtol {SCALE10M_STEP_RTOL}), fp32's first "
+                             f"{SCALE10M_FP32_STEPS} {fp32_gap:.3g} (rtol "
+                             f"{SCALE10M_FP32_RTOL}); remat equal to plain: {remat_equal}; "
+                             f"epoch losses {[r['loss'] for r in runs]}")
+    # B1's launches on the bf16 training path: the layer-1 hoist (d=64) once
+    # a trainer, then at d=128 the layer-2 forward, its backward and the
+    # gathers' backward (2 a step with gather_last: the aggregated and the
+    # input rows)
+    d128 = _shape_key("bfloat16->bfloat16", 128, False)
+    launches = {"steps": sum(r["steps"] for r in bf16),
+                "gather": sum(r["launches"]["gather"] for r in bf16),
+                "backward": sum(r["launches"]["backward"] for r in bf16),
+                "forward_d128": sum(r["launches"]["by_shape"].get(d128, 0)
+                                    - r["launches"]["backward"] - r["launches"]["gather"]
+                                    for r in bf16),
+                "fp32_runs": {"steps": sum(r["steps"] for r in fp32),
+                              "segsum": sum(r["launches"]["segsum"] for r in fp32)},
+                "segsum": segsum.launches, "sddmm": sddmm_mlp_score.launches,
+                "by_shape": {_shape_key(*k): v for k, v in segsum.launch_counts.items()}}
+    steps = launches["steps"]
+
+    # the trained model's table, its AUC, int4 and retrieval
+    enc, pred = model["encoder"].eval(), model["predictor"].eval()
+    t = time.perf_counter()
+    with torch.no_grad():
+        h = call_in_dtype(enc, torch.bfloat16, g, trainer.x, x_agg=trainer.x_agg)
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t
+    del trainer
+    h32 = h.float()
+    ev = {k: torch.from_numpy(data[k]).cuda() for k in ("held", "neg")}
+    t = time.perf_counter()
+    s_pos = score_pairs(pred, h32, ev["held"][0], ev["held"][1])
+    s_neg = score_pairs(pred, h32, ev["neg"][0], ev["neg"][1])
+    auc = float(roc_auc(s_pos, s_neg))
+    auc_s = time.perf_counter() - t
+    t = time.perf_counter()
+    q4 = quantize_table(h, bits=4)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t
+    qi = torch.randint(0, c["nodes"], (256,), generator=gen, device="cuda")
+
+    def timed_topk(*args, **kw):
+        out = top_k_partners(*args, k=10, **kw)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = top_k_partners(*args, k=10, **kw)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def recall(a, b):
+        ia, ib = a[1].cpu().numpy(), b[1].cpu().numpy()
+        return float(np.mean([len(set(ia[r]) & set(ib[r])) / 10 for r in range(ia.shape[0])]))
+
+    inner = LinkPredictor("inner", c["hidden"], c["hidden"])
+    exact, exact_s = timed_topk(inner, h32, qi)
+    got, got_s = timed_topk(inner, q4, qi)
+    m0 = mlp_block_logits.launches
+    exact_m, exact_m_s = timed_topk(pred, h32, qi[:128])
+    got_m, got_m_s = timed_topk(pred, q4, qi[:128], compute_dtype=torch.bfloat16)
+    b4 = mlp_block_logits.launches - m0
+    table = {"step": "table", "encode_s": encode_s, "auc": auc, "auc_s": auc_s,
+             "auc_pairs": [c["held_out"], c["held_out"]],
+             "int4_bytes": q4.nbytes, "fp32_bytes": h32.numel() * 4, "quantize_s": quant_s,
+             "inner_q256": {"recall@10": recall(got, exact), "int4_s": got_s,
+                            "fp32_exact_s": exact_s},
+             "mlp_q128": {"recall@10": recall(got_m, exact_m), "int4_bf16_s": got_m_s,
+                          "fp32_exact_s": exact_m_s},
+             "mlp_topk_launches": b4, "sddmm_launches": sddmm_mlp_score.launches}
+    log("scale10m", table)
+    if not (0.5 < auc <= 1.0) or not b4 or not sddmm_mlp_score.launches:
+        raise AssertionError(f"scale10m: AUC {auc}, {b4} retrieval and "
+                             f"{sddmm_mlp_score.launches} pair-scorer launches")
+    del h, h32, q4, model, enc, pred
+
+    # B1 at the table's size: bf16 -> bf16 at D=128, forward over the
+    # receiver CSR (the mean) and backward over the sender CSR
+    n, e = g.num_nodes, g.num_edges
+    scale = g.inv_in_degree
+    entries = []
+    for direction, key in (("fwd", "forward_d128"), ("bwd", "backward")):
+        xb = torch.randn(n, c["hidden"], generator=gen, device="cuda").bfloat16()
+        if direction == "fwd":
+            senders, ptr, sc = g.senders, g.in_ptr, scale
+            adj = torch.sparse_csr_tensor(g.in_ptr, g.senders, scale[g.receivers], (n, n))
+        else:
+            xb = (xb.float() * scale[:, None]).bfloat16()
+            senders, ptr, sc = g.col, g.row_ptr, None
+            adj = torch.sparse_csr_tensor(g.row_ptr, g.col, torch.ones(e, device="cuda"),
+                                          (n, n))
+        ms = time_ms(lambda: segsum(xb, senders, ptr, sc), reps=5)
+        plain_ms = time_ms(lambda: _segsum_plain_blocks(xb, senders, ptr, sc), reps=1, warmup=1)
+        try:
+            adj = adj.to(torch.bfloat16)
+            library_ms = time_ms(lambda: torch.sparse.mm(adj, xb), reps=3, warmup=1)
+        except RuntimeError as exc:
+            library_ms = None
+            log("scale10m", {"step": "library", "refused": str(exc)[:120]})
+        del adj
+        nbytes = (n * c["hidden"] * 4 + senders.numel() * 4 + ptr.numel() * 8
+                  + (0 if sc is None else n * 4))
+        entry = {"name": f"segsum.{direction}.bf16.d128.10m", "route": "cuda",
+                 "source": "llp_tpu_torch/csrc/segsum.cu",
+                 "replaces": "llp_tpu/ops/pallas/segsum_kernel.py:191",
+                 "launches": launches[key], "launches_per_step": launches[key] / steps,
+                 "max_abs_err": 0.0, "ms": ms,
+                 "plain_ms": plain_ms, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                 "bound_by": "bytes", "library_ms": library_ms,
+                 "plain_note": "segsum_plain over 16 blocks of receiver rows in turn",
+                 "shapes": f"10M SBM {'receiver' if direction == 'fwd' else 'sender'} CSR: "
+                           f"n={n} e={e}, d=128, bfloat16->bfloat16"}
+        # held against the plain version on the first 200,000 rows
+        r1 = min(200_000, n)
+        e1 = int(ptr[r1])
+        got = segsum(xb, senders[:e1], ptr[:r1 + 1].contiguous(),
+                     None if sc is None else sc[:r1].contiguous())
+        ref = segsum_plain(xb.float(), senders[:e1], ptr[:r1 + 1],
+                           None if sc is None else sc[:r1])
+        err = compare_bf16(got, ref, **BF16_TOL, what=f"segsum 10M {direction}")
+        entry["max_abs_err"] = err["max_abs"]
+        entries.append(entry)
+        log("timing", {"kernel": entry["name"], "n": n, "e": e, "d": c["hidden"],
+                       "bytes": nbytes, "ms": ms, "plain_ms": plain_ms,
+                       "library_ms": library_ms, "bound_ms": entry["bound_ms"],
+                       "max_abs_err": err["max_abs"]})
+    log("scale10m_launches", launches)
+    del g, x, pos
+    return {"runs": runs, "table": table, "launches": launches, "entries": entries}
+
+
 REORDER = WORK / "reorder"  # the relabeled runs' artifacts
 # The teacher runs with --reorder: (dataset, epochs, order), fp32, beside the
 # train phase's natural-order runs of the same dataset.
@@ -2433,6 +2925,7 @@ def phase_reorder(gen, train: dict, worst: dict) -> dict:
     from llp_tpu_torch.ops.spmm_tiles import spmm_tiles, spmm_tiles_apply, spmm_tiles_apply_plain
 
     # the reorder path starts here
+    _reset_gather_counts()
     segsum.launches = spmm.backward_launches = sddmm_mlp_score.launches = 0
     spmm.weighted_backward_launches = spmm_tiles_apply.launches = 0
     spmm_tiles.backward_launches = 0
@@ -2545,10 +3038,11 @@ def phase_reorder(gen, train: dict, worst: dict) -> dict:
             raise AssertionError(f"{label}: the loss did not fall: {losses}")
         if setting == "production":
             _check_production_launches(label, role, counts, report, 1433)
-        elif counts["segsum"] or counts["sddmm"] != 4 * len(report["eval_s"]):
-            raise AssertionError(f"{label}: {counts['segsum']} segsum and {counts['sddmm']} "
-                                 f"sddmm launches, expected none and 4 an eval")
+        elif counts["sddmm"] != 4 * len(report["eval_s"]):
+            raise AssertionError(f"{label}: {counts['sddmm']} sddmm launches, expected 4 an "
+                                 f"eval")
         else:
+            _check_student_gathers(label, counts, report)
             _check_sddmm_route(label, counts)
 
     launches = {"segsum": segsum.launches, "sddmm": sddmm_mlp_score.launches,
@@ -2851,7 +3345,7 @@ def _mlp_topk_entries(gen, launches: dict, worst: dict) -> list:
 
 
 def phase_kernels(gen, launches: dict, train: dict, student: dict, production: dict,
-                  tooling: dict, reorder: dict, worst: dict) -> list:
+                  tooling: dict, scale10m: dict, reorder: dict, worst: dict) -> list:
     """Times at the collab serving and training shapes; returns the kernels
     line's entries, with the tile kernel's from the reorder phase. The
     segsum entry's launches count the serving, production, tooling and
@@ -2997,9 +3491,11 @@ def phase_kernels(gen, launches: dict, train: dict, student: dict, production: d
             if direction == "fwd":
                 run_launches = run["counts"]["by_shape"].get(shape_key, 0)
                 per_step = prof["launches_per_step"].get(shape_key, 0.0)
-                if d == 256:  # the backward launches share this instance and width
-                    run_launches -= run["counts"]["backward"]
-                    per_step -= prof["launches"]["backward"] / prof["steps"]
+                if d == 256:  # the backward launches (the aggregation's and the
+                    # gathers') share this instance and width
+                    run_launches -= run["counts"]["backward"] + run["counts"]["gather"]
+                    per_step -= ((prof["launches"]["backward"] + prof["launches"]["gather"])
+                                 / prof["steps"])
             else:
                 run_launches = run["counts"]["backward"]
                 per_step = prof["launches"]["backward"] / prof["steps"]
@@ -3024,7 +3520,102 @@ def phase_kernels(gen, launches: dict, train: dict, student: dict, production: d
     t = _segsum_timing(x, tg.senders, tg.in_ptr, tscale, fwd_adj, out_dtype=torch.float32)
     log("timing", {"kernel": "segsum.fwd.bf16->f32", "n": tn, "e": te, "d": 256, **t})
     _segsum_design_timing(gen, tg)
-    return entries + _weighted_entries(gen, train, worst) + reorder["entries"]
+    return (entries + _gather_entries(gen, train, student, scale10m, worst)
+            + _weighted_entries(gen, train, worst) + reorder["entries"] + scale10m["entries"])
+
+
+def _gather_entries(gen, train: dict, student: dict, scale10m: dict, worst: dict) -> list:
+    """The gathers' backward at :data:`GATHER_SHAPES` and their types, three
+    ways: ``gather_rows``' (the ids' CSR by a sort and a ``searchsorted``,
+    then B1: ``csr_ms`` + ``ms`` = ``backward_ms``), PyTorch's backward of
+    ``index_select`` (``index_add_`` in the cotangent's type, with atomics:
+    ``library_ms``) and the same under deterministic algorithms; one
+    ``gather_bwd:`` line each.  Returns one kernels-line entry per case and
+    type, whose launches are those of the path the case stands for, at its
+    type and width: the train phase's at d=256 (the teacher), the student
+    phase's at d=256 (its rows) and at every other width (the rank loss's
+    columns, a node batch wide), the 10M phase's at d=128."""
+    import torch
+
+    from llp_tpu_torch.ops.gather import gather_csr, gather_rows_backward_plain
+    from llp_tpu_torch.ops.segsum import index_int32, segsum
+
+    def by_width(counts) -> Counter:
+        total = Counter()
+        for c in counts:
+            total.update(c["gather_by_width"])
+        return total
+
+    paths = {"teacher": by_width(r["counts"] for r in train["runs"].values()),
+             "student": by_width(r["counts"] for r in student["runs"].values()),
+             "scale10m": by_width(r["launches"] for r in scale10m["runs"])}
+    paths["student_rank"] = Counter({k: v for k, v in paths["student"].items()
+                                     if not k.endswith(" d=256")})
+    path_notes = {"teacher": "the train phase's teacher steps at this type and width",
+                  "student": "the student phase's full-batch rows at this type and width",
+                  "student_rank": "the student phase's rank-loss columns at this type, "
+                                  "every node-batch width",
+                  "scale10m": "the 10M phase's steps at this type and width"}
+    mode = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    entries = []
+    for label, n, k, d, dtypes in GATHER_SHAPES:
+        idx = _gather_ids(gen, label, n, k)
+        senders, in_ptr = gather_csr(idx, n)
+        for name in dtypes:
+            dtype = getattr(torch, name)
+            tag = "f32" if dtype == torch.float32 else "bf16"
+            g = torch.randn(idx.numel(), d, generator=gen, device="cuda").to(dtype)
+
+            def index_add():  # PyTorch's backward of index_select
+                return torch.zeros((n, d), dtype=dtype, device="cuda").index_add_(0, idx, g)
+
+            index_int32(senders)  # the kernel reads int32 senders, made once here
+            t = {"ms": time_ms(lambda: segsum(g, senders, in_ptr, order_heavy=False)),
+                 "csr_ms": time_ms(lambda: index_int32(gather_csr(idx, n)[0])),
+                 "backward_ms": time_ms(lambda: segsum(g, *gather_csr(idx, n),
+                                                       order_heavy=False)),
+                 "plain_ms": time_ms(lambda: gather_rows_backward_plain(g, idx, n)),
+                 "library_ms": time_ms(index_add)}
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                t["index_add_deterministic_ms"] = time_ms(index_add)
+            finally:
+                torch.use_deterministic_algorithms(mode[0], warn_only=mode[1])
+            # the cotangent, the int32 senders and the offsets read once, the
+            # (N, d) gradient written once
+            nbytes = (idx.numel() * d * g.element_size() + idx.numel() * 4
+                      + in_ptr.numel() * 8 + n * d * g.element_size())
+            t["bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+            log("gather_bwd", {"case": label, "dtype": tag, "n": n, "ids": idx.numel(), "d": d,
+                               "bytes": nbytes, **t})
+            launches = paths[label]
+            own = ({k: v for k, v in launches.items() if k.startswith(name + " ")}
+                   if label == "student_rank" else
+                   {_width_key(name, d): launches[_width_key(name, d)]})
+            entry = {
+                "name": f"segsum.gather_bwd.{tag}.{label}", "route": "cuda",
+                "source": "llp_tpu_torch/csrc/segsum.cu",
+                "replaces": ("llp_tpu/ops/pallas/segsum_kernel.py:"
+                             f"{148 if dtype == torch.float32 else 191}"),
+                "launches": sum(own.values()), "launches_by_width": own,
+                "launches_note": f"gather_rows' backward on {path_notes[label]}",
+                "max_abs_err": worst[_gather_err_key(label, name)],
+                "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": "bytes", "library_ms": t["library_ms"],
+                "library_note": "index_add_, PyTorch's backward of index_select (atomics)",
+                "csr_ms": t["csr_ms"],
+                "index_add_deterministic_ms": t["index_add_deterministic_ms"],
+                "shapes": f"{label}: {idx.numel()} ids into {n} x {d}, {name}"}
+            if not entry["launches"]:
+                raise AssertionError(f"gather {label} {name}: no launch on {path_notes[label]}")
+            if label == "teacher":
+                other = {k: v for k, v in launches.items()
+                         if k.startswith(name + " ") and k != _width_key(name, d)}
+                if other:
+                    entry["launches_other_widths"] = other
+            entries.append(entry)
+    return entries
 
 
 def main() -> int:
@@ -3048,9 +3639,13 @@ def main() -> int:
     seconds = {}
 
     def timed(name, fn, *args):
+        from llp_tpu_torch.utils.memory import get_device_memory_map, reset_peak
+
+        reset_peak()
         t = time.perf_counter()
         out = fn(*args)
         seconds[name] = time.perf_counter() - t
+        log("memory", {"phase": name, **get_device_memory_map()[0]})
         return out
 
     info = timed("device", phase_device)
@@ -3064,9 +3659,10 @@ def main() -> int:
     student = timed("student", phase_student)
     production = timed("production", phase_production)
     tooling = timed("tooling", phase_tooling)
+    scale10m = timed("scale10m", phase_scale10m, gen)
     reorder = timed("reorder", phase_reorder, gen, train, worst)
     kernels = timed("kernels", phase_kernels, gen, launches, train, student, production,
-                    tooling, reorder, worst)
+                    tooling, scale10m, reorder, worst)
     log("total", {"seconds": time.perf_counter() - t0, "phases": seconds})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": info["name"],

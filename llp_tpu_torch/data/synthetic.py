@@ -18,18 +18,17 @@ import numpy as np
 
 
 def _dedup_undirected(src: np.ndarray, dst: np.ndarray, num_nodes: int) -> np.ndarray:
-    """Drop self-loops + duplicates, emit both directions, sorted."""
+    """Drop self-loops + duplicates, emit both directions, sorted by (row 0,
+    row 1).  The directed edges are unique, so one sort of their keys
+    ``row0 * N + row1`` gives the JAX copy's ``lexsort`` order."""
     mask = src != dst
     src, dst = src[mask], dst[mask]
     lo = np.minimum(src, dst).astype(np.int64)
     hi = np.maximum(src, dst).astype(np.int64)
     keys = np.unique(lo * num_nodes + hi)
     lo, hi = keys // num_nodes, keys % num_nodes
-    edge_index = np.concatenate(
-        [np.stack([lo, hi]), np.stack([hi, lo])], axis=1
-    )
-    order = np.lexsort((edge_index[1], edge_index[0]))
-    return edge_index[:, order]
+    both = np.sort(np.concatenate([keys, hi * num_nodes + lo]))
+    return np.stack([both // num_nodes, both % num_nodes])
 
 
 def sbm_graph(
@@ -53,12 +52,18 @@ def sbm_graph(
     src = rng.integers(0, num_nodes, size=m)
     intra = rng.random(m) < homophily
     dst = np.empty(m, dtype=np.int64)
-    # Within-community partner for intra edges, uniform otherwise.
+    # Within-community partner for intra edges, uniform otherwise.  The
+    # intra edges grouped by their source's community (a stable sort keeps
+    # each group in edge order), then one draw per community in turn: the
+    # JAX copy's per-community masks, in one pass.
+    intra_at = np.flatnonzero(intra)
+    comm_of = community[src[intra_at]]
+    grouped = intra_at[np.argsort(comm_of, kind="stable")]
+    bounds = np.searchsorted(np.sort(comm_of), np.arange(num_communities + 1))
     for c in range(num_communities):
-        nodes = by_comm[c]
-        sel = intra & (community[src] == c)
-        if nodes.size and sel.any():
-            dst[sel] = nodes[rng.integers(0, nodes.size, size=int(sel.sum()))]
+        nodes, sel = by_comm[c], grouped[bounds[c]:bounds[c + 1]]
+        if nodes.size and sel.size:
+            dst[sel] = nodes[rng.integers(0, nodes.size, size=sel.size)]
     dst[~intra] = rng.integers(0, num_nodes, size=int((~intra).sum()))
     edge_index = _dedup_undirected(src, dst, num_nodes)
     return edge_index, community

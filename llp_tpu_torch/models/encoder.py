@@ -40,15 +40,20 @@ def init_encoder(name: str, in_channels: int, hidden_channels: int,
 
 def apply_encoder(encoder: nn.Module, graph: Optional[Graph], x: torch.Tensor, *,
                   x_agg: Optional[torch.Tensor] = None,
-                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                  generator: Optional[torch.Generator] = None,
+                  last_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Node embeddings; the MLP encoder ignores ``graph`` and takes no
-    ``x_agg``.  ``generator`` feeds train-mode dropout."""
+    ``x_agg``.  ``generator`` feeds train-mode dropout.  ``last_rows`` (B,)
+    int64 node ids returns only those rows of the last layer's output (the
+    hidden layers still run over every node): ``apply_encoder(...)
+    [last_rows]`` up to float reassociation, without the (N, H) last
+    embedding or its gradient (``llp_tpu/models/encoder.py:63-109``)."""
     if isinstance(encoder, GRAPH_ENCODERS):
-        return encoder(graph, x, x_agg=x_agg, generator=generator)
+        return encoder(graph, x, x_agg=x_agg, generator=generator, last_rows=last_rows)
     if isinstance(encoder, MLP):
         if x_agg is not None:
             raise ValueError("the MLP encoder has no aggregation to hoist")
-        return encoder(x, generator=generator)
+        return encoder(x, generator=generator, last_rows=last_rows)
     raise TypeError(f"not an encoder of this package: {type(encoder).__name__}")
 
 

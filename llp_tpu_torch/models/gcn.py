@@ -15,8 +15,10 @@ reference.
 The stack: ReLU and, in train mode, dropout between the convs, nothing after
 the last.  ``x_agg`` is layer 1's ``Â x``, computed once outside a step
 (:func:`llp_tpu_torch.models.encoder.precompute_first_aggregation`); it
-enters by linearity, ``Â (x W) = (Â x) W``.  Not ported yet: ``last_rows``
-(ROADMAP A6).
+enters by linearity, ``Â (x W) = (Â x) W``.  By the same linearity,
+``last_rows`` (B,) node ids makes the last conv return only those rows,
+``(Â h)[idx] W + b`` (``llp_tpu/models/gcn.py:146-156``): the (N, H) last
+embedding and its gradient never exist.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from torch import nn
 
 from llp_tpu_torch.core.graph import Graph
 from llp_tpu_torch.models.init import glorot
+from llp_tpu_torch.ops.gather import gather_rows
 from llp_tpu_torch.ops.rng import inverted_dropout
 from llp_tpu_torch.ops.spmm import spmm
 
@@ -52,6 +55,12 @@ class GCNConv(nn.Module):
             return F.linear(x_agg, self.lin.weight) + self.lin.bias
         return normalized_aggregate(graph, F.linear(x, self.lin.weight)) + self.lin.bias
 
+    def rows(self, graph: Graph, h: torch.Tensor, idx: torch.Tensor,
+             x_agg: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``self(graph, h, x_agg)[idx]`` without the (N, dout) output."""
+        agg = normalized_aggregate(graph, h) if x_agg is None else x_agg
+        return F.linear(gather_rows(agg, idx), self.lin.weight) + self.lin.bias
+
 
 class GCN(nn.Module):
     def __init__(self, in_channels: int, hidden_channels: int, out_channels: int,
@@ -65,11 +74,14 @@ class GCN(nn.Module):
 
     def forward(self, graph: Graph, x: torch.Tensor, *,
                 x_agg: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """Node embeddings.  In train mode, dropout draws its masks from
-        ``generator``."""
+                generator: Optional[torch.Generator] = None,
+                last_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Node embeddings, or with ``last_rows`` only those rows of them.
+        In train mode, dropout draws its masks from ``generator``."""
         last = len(self.convs) - 1
         for i, conv in enumerate(self.convs):
+            if i == last and last_rows is not None:
+                return conv.rows(graph, x, last_rows, x_agg if i == 0 else None)
             x = conv(graph, x, x_agg if i == 0 else None)
             if i != last:
                 x = torch.relu(x)

@@ -1,6 +1,8 @@
 """MLP encoder — the LLP student (counterpart of ``llp_tpu/models/mlp.py``):
 a stack of linears with norm (optional), ReLU and, in train mode, dropout
-between layers, none after the last.
+between layers, none after the last.  ``last_rows`` (B,) row ids gathers
+those rows before the last linear (``llp_tpu/models/mlp.py:66-83``), so
+only they are projected.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from torch import nn
 
 from llp_tpu_torch.models.init import linear
 from llp_tpu_torch.models.norms import make_norms
+from llp_tpu_torch.ops.gather import gather_rows
 from llp_tpu_torch.ops.rng import inverted_dropout
 
 
@@ -29,9 +32,12 @@ class MLP(nn.Module):
         self.dropout = dropout
 
     def forward(self, x: torch.Tensor, *,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                last_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
         last = len(self.layers) - 1
         for i, layer in enumerate(self.layers):
+            if i == last and last_rows is not None:
+                x = gather_rows(x, last_rows)
             x = layer(x)
             if i != last:
                 if len(self.norms):

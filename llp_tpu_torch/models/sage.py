@@ -12,8 +12,14 @@ the input, computed once outside the step (the weights do not enter it:
 :func:`llp_tpu_torch.models.encoder.precompute_first_aggregation`).  For
 ``sage_updated`` it enters by linearity: ``mean_j(W x_j + b) = W mean_j(x_j)
 + b·1{deg > 0}``, with the weighted degree on a weighted graph (whose mean
-is 0 where the in-edge weights sum to 0).  Not ported yet: ``last_rows``
-(the JAX ``gather_last``) and ``packed_first`` (ROADMAP A6).
+is 0 where the in-edge weights sum to 0).
+
+``last_rows`` (B,) node ids makes the last conv return only those rows of
+its output (``llp_tpu/models/sage.py::_sage_conv_rows``): the aggregation
+still runs over the whole graph, but the projections take the B gathered
+rows, so the (N, H) last embedding and its gradient never exist.  Its row
+gathers are :func:`llp_tpu_torch.ops.gather.gather_rows`, whose backward
+repeats bit for bit.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from torch import nn
 from llp_tpu_torch.core.graph import Graph
 from llp_tpu_torch.models.init import linear
 from llp_tpu_torch.models.norms import make_norms
+from llp_tpu_torch.ops.gather import gather_rows
 from llp_tpu_torch.ops.rng import inverted_dropout
 from llp_tpu_torch.ops.spmm import mean_aggregate
 
@@ -50,10 +57,28 @@ class SAGEConv(nn.Module):
             return self.lin_l(agg) + self.lin_r(x)
         if x_agg is None:
             return mean_aggregate(graph, self.lin_l(x)) + self.lin_r(x)
-        deg = graph.in_degree if graph.edge_weight is None else graph.w_in_degree
-        has_nbr = (deg > 0).to(x.dtype)[:, None]
-        out = F.linear(x_agg, self.lin_l.weight) + self.lin_l.bias * has_nbr
+        out = F.linear(x_agg, self.lin_l.weight) + self.lin_l.bias * _has_nbr(graph, x.dtype)
         return out + self.lin_r(x)
+
+    def rows(self, graph: Graph, h: torch.Tensor, idx: torch.Tensor,
+             x_agg: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``self(graph, h, x_agg)[idx]`` without the (N, dout) output: the
+        aggregation over the whole graph at the input width, then the
+        projections of the gathered rows; for ``sage_updated`` by the
+        linearity above, ``W agg[idx] + b·1{deg > 0}[idx]``."""
+        agg = mean_aggregate(graph, h) if x_agg is None else x_agg
+        rows_agg, rows_h = gather_rows(agg, idx), gather_rows(h, idx)
+        if self.conv == "sage":
+            return self.lin_l(rows_agg) + self.lin_r(rows_h)
+        out = (F.linear(rows_agg, self.lin_l.weight)
+               + self.lin_l.bias * _has_nbr(graph, h.dtype).index_select(0, idx))
+        return out + self.lin_r(rows_h)
+
+
+def _has_nbr(graph: Graph, dtype: torch.dtype) -> torch.Tensor:
+    """(N, 1) ``1{deg > 0}``, the (weighted, on a weighted graph) in-degree's."""
+    deg = graph.in_degree if graph.edge_weight is None else graph.w_in_degree
+    return (deg > 0).to(dtype)[:, None]
 
 
 class SAGE(nn.Module):
@@ -71,11 +96,15 @@ class SAGE(nn.Module):
 
     def forward(self, graph: Graph, x: torch.Tensor, *,
                 x_agg: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """Node embeddings.  In train mode, dropout draws its masks from
-        ``generator`` and batch norm updates its running buffers."""
+                generator: Optional[torch.Generator] = None,
+                last_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Node embeddings, or with ``last_rows`` only those rows of them.
+        In train mode, dropout draws its masks from ``generator`` and batch
+        norm updates its running buffers."""
         last = len(self.convs) - 1
         for i, conv in enumerate(self.convs):
+            if i == last and last_rows is not None:
+                return conv.rows(graph, x, last_rows, x_agg if i == 0 else None)
             x = conv(graph, x, x_agg if i == 0 else None)
             if i != last:
                 if len(self.norms):

@@ -134,14 +134,18 @@ def segsum_plain(x: torch.Tensor, senders: torch.Tensor, in_ptr: torch.Tensor,
 def segsum(x: torch.Tensor, senders: torch.Tensor, in_ptr: torch.Tensor,
            scale: Optional[torch.Tensor] = None, *,
            weights: Optional[torch.Tensor] = None,
-           out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+           out_dtype: Optional[torch.dtype] = None,
+           order_heavy: bool = True) -> torch.Tensor:
     """(N_src, D) features -> (N, D) row sums, N = len(in_ptr) - 1.
 
     ``senders`` (E,) int64 lists each output row's edges contiguously, in
     row order; ``scale`` (N,) fp32 multiplies each output row (the mean's
     ``1/max(deg, 1)``), or None for the plain sum; ``weights`` (E,) fp32
     multiplies each edge's message, in the order of ``senders``, or None.
-    ``out_dtype`` is None (the type of ``x``) or ``torch.float32``."""
+    ``out_dtype`` is None (the type of ``x``) or ``torch.float32``.
+    ``order_heavy=False`` runs the blocks in plain order: for a CSR made
+    anew on every call, whose :func:`heavy_first` order would cost a host
+    read each time (the sums are the same either way)."""
     out_dtype = out_dtype or x.dtype
     table = INSTANCES if weights is None else WEIGHTED_INSTANCES
     instance = table.get((x.dtype, out_dtype))
@@ -182,7 +186,7 @@ def segsum(x: torch.Tensor, senders: torch.Tensor, in_ptr: torch.Tensor,
     segsum.route_counts[route] += 1
     with torch.cuda.device(x.device):  # the launch runs on the current device
         idx = index_int32(senders)
-        order, n_heavy = heavy_first(in_ptr, rows)
+        order, n_heavy = heavy_first(in_ptr, rows) if order_heavy else (None, 0)
         segsum.heavy_first_launches += order is not None
         rc = launch(x.data_ptr(), idx.data_ptr(), in_ptr.data_ptr(),
                     None if scale is None else scale.data_ptr(),

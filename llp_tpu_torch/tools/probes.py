@@ -25,6 +25,27 @@
         2: what W1's L2 reads cost; and the wrapper's time beside the
         kernel's.
 
+    python llp_tpu_torch/tools/probes.py determinism --root DIR [--label NAME]
+            [--out FILE]
+        Profiles the checkout at DIR on the card: one collab SAGE teacher
+        epoch at fp32 and at bf16 and one collab student epoch (full batch,
+        fp32, a random teacher table and head), each after a warm-up, with
+        the median of 3 timed epochs beside it.  Prints, per run, the
+        kernels whose names say they add with atomics or scatter
+        (``ATOMIC_NAMES``) with their device ms a step, and writes every
+        kernel's device ms and launches a step to FILE (JSON).  Run it for
+        the parent and the change alternately to list what a change took
+        off a step.
+
+    python llp_tpu_torch/tools/probes.py peak10m
+        The 10M-node teacher of ``chip_smoke.py``'s ``scale10m`` phase, one
+        bf16 step with ``gather_last`` off and on
+        under PyTorch's allocator history: the bytes live at the step's
+        peak above what was live before it, grouped by the line of this
+        package that allocated them.  (Not under ``remat``: the history's
+        Python stacks fail inside checkpoint's recompute, a SystemError
+        from the interpreter.)
+
 Each prints one JSON line per reading.  Nothing runs at import.
 """
 
@@ -115,6 +136,165 @@ def _epochs(data: dict, encoder: str, dtype: str, epochs: int) -> dict:
         times.append(time.perf_counter() - t0)
     return {"encoder": encoder, "dtype": dtype, "steps": trainer.steps,
             "epoch_s": statistics.median(times), "epoch_s_all": times}
+
+
+# Kernel names of PyTorch's ops that add into a tensor with atomics (also
+# read by chip_smoke.py's profiles):
+# index_add_ (indexFuncSmallIndex/LargeIndex), index_put_ with accumulate
+# (indexing_backward_kernel), scatter_add_ and scatter_reduce_ (the
+# scatter-gather kernel with a Reduce* op; with TensorAssign it is a plain
+# gather or scatter), embedding's backward, and anything named atomic.
+ATOMIC_NAMES = ("indexFunc", "index_put", "indexing_backward", "ReduceAdd", "ReduceMultiply",
+                "ReduceMean", "ReduceMaximum", "ReduceMinimum", "atomic", "embedding_backward")
+
+
+def _profile_epoch_kernels(trainer, epochs: int) -> dict:
+    """A warm-up epoch, ``epochs`` timed ones (median), then one under
+    ``torch.profiler``: each kernel's device ms and launches a step."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    trainer.epoch(gen)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(epochs):
+        t0 = time.perf_counter()
+        trainer.epoch(gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.epoch(gen)
+        torch.cuda.synchronize()
+    steps = trainer.steps
+    kernels = {ev.key: {"ms_per_step": ev.self_device_time_total / 1e3 / steps,
+                        "launches_per_step": ev.count / steps}
+               for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
+               and not getattr(ev, "is_user_annotation", False)}
+    atomic = {k: v for k, v in kernels.items() if any(a in k for a in ATOMIC_NAMES)}
+    return {"steps": steps, "epoch_s": statistics.median(times), "epoch_s_all": times,
+            "device_ms_per_step": sum(v["ms_per_step"] for v in kernels.values()),
+            "atomic_kernels": atomic, "kernels": kernels}
+
+
+def cmd_determinism(args) -> None:
+    root = Path(args.root).resolve()
+    sys.path.insert(0, str(root))
+    import torch
+
+    import llp_tpu_torch
+    from llp_tpu_torch.models.predictor import LinkPredictor
+    from llp_tpu_torch.train.loop import prepare_transductive
+    from llp_tpu_torch.train.student import StudentTrainer, init_student
+    from llp_tpu_torch.train.teacher import TeacherTrainer, init_teacher
+    from llp_tpu_torch.utils.config import StudentConfig, TeacherConfig
+
+    if Path(llp_tpu_torch.__file__).resolve().parents[1] != root:
+        raise SystemExit(f"imported {llp_tpu_torch.__file__}, not the checkout at {root}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    label = args.label or str(root)
+    report = {}
+    data = prepare_transductive(TeacherConfig(datasets="collab", dataset_dir=args.standins),
+                                torch.device("cuda"))
+    for dtype in ("float32", "bfloat16"):
+        model = init_teacher(encoder="sage", in_channels=data["x"].shape[1],
+                             hidden_channels=256, num_layers=2, predictor_mode="mlp",
+                             dropout=0.5, generator=torch.Generator().manual_seed(0)).cuda()
+        trainer = TeacherTrainer(model, data["graph"], data["x"], data["pos_edges"],
+                                 batch_size=65536, neg_mode="uniform", compute_dtype=dtype)
+        report[f"teacher {dtype}"] = _profile_epoch_kernels(trainer, args.epochs)
+    del data, trainer
+    cfg = StudentConfig(datasets="collab", dataset_dir=args.standins)
+    data = prepare_transductive(cfg, torch.device("cuda"))
+    n, d = data["x"].shape
+    gen = torch.Generator().manual_seed(1)
+    t_h = torch.randn(n, 256, generator=gen).cuda()
+    head = LinkPredictor("mlp", 256, 256, 1, 2, generator=gen)
+    model = init_student(in_channels=d, hidden_channels=256, num_layers=2,
+                         predictor_mode="mlp", dropout=0.5, generator=gen).cuda()
+    trainer = StudentTrainer(model, data["graph"], data["x"], t_h, head, data["pos_edges"],
+                             link_batch_size=65536,
+                             node_batch_size=cfg.coupled_node_batch_size(n, data["num_pos"]),
+                             neg_mode=cfg.neg_mode, neg_keys=data["neg_keys"])
+    report["student float32"] = _profile_epoch_kernels(trainer, args.epochs)
+    for run, r in report.items():
+        _log("probe_determinism", {"label": label, "run": run, "steps": r["steps"],
+                                   "epoch_s": r["epoch_s"], "epoch_s_all": r["epoch_s_all"],
+                                   "device_ms_per_step": r["device_ms_per_step"],
+                                   "atomic_kernels": r["atomic_kernels"]})
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps({"label": label, "runs": report}, indent=1))
+
+
+def _peak_blocks(trace: list, top: int = 8) -> dict:
+    """Replay an allocator trace: the most bytes live at once (above the
+    blocks that were live before it began), and those bytes grouped by the
+    innermost frame in ``llp_tpu_torch`` that allocated them."""
+    live, cur, peak, at = {}, 0, 0, 0
+    for i, ev in enumerate(trace):
+        if ev["action"] == "alloc":
+            live[ev["addr"]] = ev
+            cur += ev["size"]
+            if cur > peak:
+                peak, at = cur, i
+        elif ev["action"] == "free_completed" and ev["addr"] in live:
+            cur -= live.pop(ev["addr"])["size"]
+    live = {}
+    for ev in trace[:at + 1]:
+        if ev["action"] == "alloc":
+            live[ev["addr"]] = ev
+        elif ev["action"] == "free_completed":
+            live.pop(ev["addr"], None)
+    groups = {}
+    for ev in live.values():
+        frame = next((f"{f['filename'].split('llp_tpu_torch/')[-1]}:{f['line']} {f['name']}"
+                      for f in ev.get("frames", []) if "llp_tpu_torch" in f["filename"]),
+                     "outside the package")
+        groups[frame] = groups.get(frame, 0) + ev["size"]
+    ranked = sorted(groups.items(), key=lambda kv: -kv[1])[:top]
+    return {"peak_bytes_over_start": peak, "by_line": dict(ranked)}
+
+
+def cmd_peak10m(_args) -> None:
+    sys.path.insert(0, str(HERE))
+    import torch
+
+    import chip_smoke
+    from llp_tpu_torch.core.graph import build_graph
+    from llp_tpu_torch.train.teacher import TeacherTrainer, init_teacher
+
+    c = chip_smoke.SCALE10M
+    data = chip_smoke._scale10m_data()
+    g = build_graph(data["messages"], c["nodes"], device="cuda")
+    x = torch.from_numpy(data["x"]).cuda()
+    pos = torch.from_numpy(data["train"].T.copy()).cuda()
+    for gather_last in (False, True):
+        model = init_teacher(encoder="sage", in_channels=c["features"],
+                             hidden_channels=c["hidden"], num_layers=2, predictor_mode="mlp",
+                             generator=torch.Generator().manual_seed(0)).cuda()
+        trainer = TeacherTrainer(model, g, x, pos, batch_size=c["batch"], lr=c["lr"],
+                                 neg_mode="uniform", compute_dtype="bfloat16",
+                                 gather_last=gather_last)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        edges = pos[:trainer.batch]
+        mask = torch.ones(trainer.batch, dtype=torch.bool, device="cuda")
+        trainer.step(edges, mask, trainer.negatives(gen), gen)  # Adam's state exists after
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        torch.cuda.memory._record_memory_history(max_entries=1_000_000, stacks="python")
+        trainer.step(edges, mask, trainer.negatives(gen), gen)
+        torch.cuda.synchronize()
+        snap = torch.cuda.memory._snapshot()
+        torch.cuda.memory._record_memory_history(enabled=None)
+        _log("probe_peak10m", {"gather_last": gather_last,
+                               "bytes_at_start": start,
+                               "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                               **_peak_blocks(snap["device_traces"][0])})
+        del trainer, model
 
 
 def cmd_prepare(_args) -> None:
@@ -260,8 +440,16 @@ def main(argv=None) -> None:
     h.add_argument("--standins", default=str(HERE / "build" / "chip_smoke" / "standins"))
     h.add_argument("--weighted", default=str(HERE / "build" / "chip_smoke" / "weighted"))
     sub.add_parser("w1")
+    det = sub.add_parser("determinism")
+    det.add_argument("--root", default=str(HERE))
+    det.add_argument("--label", default="")
+    det.add_argument("--epochs", type=int, default=3)
+    det.add_argument("--out", default="")
+    det.add_argument("--standins", default=str(HERE / "build" / "chip_smoke" / "standins"))
+    sub.add_parser("peak10m")
     args = ap.parse_args(argv)
-    {"prepare": cmd_prepare, "host": cmd_host, "w1": cmd_w1}[args.cmd](args)
+    {"prepare": cmd_prepare, "host": cmd_host, "w1": cmd_w1,
+     "determinism": cmd_determinism, "peak10m": cmd_peak10m}[args.cmd](args)
 
 
 if __name__ == "__main__":

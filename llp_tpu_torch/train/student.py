@@ -28,7 +28,13 @@ teacher's table and the teacher's head once per run and runs the student
 over fp32 masters (:mod:`llp_tpu_torch.utils.precision`).  The training is
 plain PyTorch, as in the JAX package, whose fused SDDMM predictor is
 inference-only: the student's kernels are cuBLAS's GEMMs and PyTorch's
-gathers; its evaluations score through the SDDMM kernel.
+gathers; its evaluations score through the SDDMM kernel.  Every gather a
+gradient flows back through (the full-batch rows of anchors, contexts and
+pair ends, one gather a step; the anchors of KD_RM; the rank loss's
+context pairs) is :func:`llp_tpu_torch.ops.gather.gather_rows`, whose
+backward sums with the segment-sum kernel and no atomics, so a run
+repeats bit for bit on the card.  The minibatch gather of the features
+needs no gradient.
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ from torch.utils.checkpoint import checkpoint
 from llp_tpu_torch.core.graph import Graph
 from llp_tpu_torch.models.mlp import MLP
 from llp_tpu_torch.models.predictor import LinkPredictor
+from llp_tpu_torch.ops.gather import gather_rows
 from llp_tpu_torch.ops.losses import (
     bce_loss,
     cosine_loss,
@@ -100,10 +107,17 @@ def _rank_targets(t0: torch.Tensor, t1: torch.Tensor, margin: float) -> torch.Te
     return (t0 > t1 + margin).float() - (t0 < t1 - margin).float()
 
 
+def _take_cols(s: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """``s[:, cols]`` through :func:`gather_rows` on the transpose, so that
+    its backward repeats bit for bit."""
+    return gather_rows(s.t(), cols).t()
+
+
 def _pair_chunk_sums(s_r, t_r, amask, p0, p1, valid, margin: float):
     """The margin-rank numerator and denominator over one chunk of pairs."""
     target = _rank_targets(t_r[:, p0], t_r[:, p1], margin)
-    elt = torch.clamp(-target * (s_r[:, p0].float() - s_r[:, p1].float()) + margin, min=0.0)
+    elt = torch.clamp(-target * (_take_cols(s_r, p0).float() - _take_cols(s_r, p1).float())
+                      + margin, min=0.0)
     m = (amask[:, None] & valid[None, :]).float()
     return (elt * m).sum(), m.sum()
 
@@ -181,8 +195,8 @@ class StudentTrainer:
         if self.pair_chunks is None:
             p0, p1 = self.pairs
             target = _rank_targets(t_r[:, p0], t_r[:, p1], self.margin)
-            return margin_rank_loss(s_r[:, p0], s_r[:, p1], target, self.margin,
-                                    amask[:, None].expand_as(target))
+            return margin_rank_loss(_take_cols(s_r, p0), _take_cols(s_r, p1), target,
+                                    self.margin, amask[:, None].expand_as(target))
         num = den = torch.zeros((), device=s_r.device)
         for p0, p1, valid in zip(*self.pair_chunks):
             cn, cd = checkpoint(_pair_chunk_sums, s_r, t_r, amask, p0, p1, valid,
@@ -213,12 +227,15 @@ class StudentTrainer:
                 rows = rows[samples.numel():]
             src_h, dst_h = rows[:src.shape[0]], rows[src.shape[0]:]
         else:
+            # one gather of [anchors | contexts | src | dst], split (whose
+            # backward is one concatenation)
             h = call_in_dtype(enc, dt, self.x, generator=generator)
+            parts = ([samples[:, 0], samples[:, 1:].reshape(-1), src, dst] if self.use_kd
+                     else [src, dst])
+            rows = gather_rows(h, torch.cat(parts)).split([p.shape[0] for p in parts])
             if self.use_kd:
-                anchor_h = h.index_select(0, samples[:, 0])
-                ctx_h = h.index_select(0, samples[:, 1:].reshape(-1)).view(
-                    samples.shape[0], self.num_contexts, -1)
-            src_h, dst_h = h.index_select(0, src), h.index_select(0, dst)
+                anchor_h, ctx_h = rows[0], rows[1].view(samples.shape[0], self.num_contexts, -1)
+            src_h, dst_h = rows[-2:]
 
         loss = torch.zeros((), device=self.x.device)
         if self.use_kd:
@@ -239,7 +256,7 @@ class StudentTrainer:
         loss = loss + w["true_label"] * bce_loss(out, labels, fmask)
         if h is not None:  # the baselines run in full-batch mode only
             if w["kd_rm"] != 0.0:
-                loss = loss + w["kd_rm"] * cosine_loss(h.index_select(0, anchors),
+                loss = loss + w["kd_rm"] * cosine_loss(gather_rows(h, anchors),
                                                        self.t_h.index_select(0, anchors),
                                                        amask)
             if w["kd_lm"] != 0.0:
