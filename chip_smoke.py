@@ -178,8 +178,26 @@ failure exits non-zero.
                    (the hybrid beside B1 and ``torch.sparse.mm``, its
                    residual segment sum alone, and ``spmm_tiles_apply`` at
                    min_tile_edges 0).
-12. kernels     -- one JSON line: each kernel's launches on the serving,
-                   training, student, production, tooling and reorder paths, its
+12. dp          -- the data-parallel path (``--num_devices``): (a) a world
+                   of one rank over NCCL on ``cuda:0`` through the trainers'
+                   ``world``, one epoch each of the collab SAGE teacher at
+                   full width (fp32, bf16), the weighted GCN teacher (bf16)
+                   and the collab student, against the single path: losses,
+                   parameters and the generator bit for bit (else held at
+                   2e-4 with the gap logged) and the same B1 launches
+                   (``dp_world1:`` lines, both epoch times, the bytes summed
+                   a step); (b) two ranks on the one card over gloo, the
+                   collab teacher's first 4 steps (fp32) and a cora student
+                   epoch against one card at rtol 2e-4, atol 2e-5, the
+                   ranks' parameters equal bit for bit (``dp_gloo:``); (c)
+                   with two cards, ``train_teacher --num_devices 2`` on
+                   collab over NCCL (else a ``dp_cli:`` skip line); then
+                   B1 over rank 0's half of the collab edges (forward and
+                   backward fp32, forward bf16 -> fp32, weighted bf16 ->
+                   fp32) against ``segsum_plain`` over the same CSR and
+                   timed, entries of the kernels line.
+13. kernels     -- one JSON line: each kernel's launches on the serving,
+                   training, student, production, tooling, reorder and dp paths, its
                    time at the collab shapes, the plain version's time, a
                    library call's time where one exists, and the least time
                    the card could take. A ``top_k_partners:`` line gives the
@@ -3618,6 +3636,356 @@ def _gather_entries(gen, train: dict, student: dict, scale10m: dict, worst: dict
     return entries
 
 
+# ---------------------------------------------------------------- dp phase
+
+# The data-parallel phase's runs. (b): the first DP_STEPS steps of the
+# collab teacher on two gloo ranks of the one card (the positives cut to
+# DP_STEPS batches) and DP_STUDENT_EPOCHS epochs of the cora student (a
+# step each), their losses held against the single-card runs at DP_TOL. The
+# parameters are held to Adam's step, lr a step: a gradient that is 0 but
+# for rounding (cora's sparse features leave many) may flip sign when its
+# sum runs in another order, and Adam's normalised step turns either sign
+# into a move of up to lr; the share of DP_TOL they use is logged.
+DP_BATCH = 65536
+DP_STEPS = 4
+DP_STUDENT_EPOCHS = 2
+DP_LR = 0.005
+DP_TOL = dict(rtol=2e-4, atol=2e-5)
+DP_TIMEOUT_S = 300.0
+
+
+def _dp_state(trainer) -> list:
+    return [t.detach().clone() for t in trainer.model.state_dict().values()]
+
+
+def _dp_epoch(trainer) -> dict:
+    """One epoch of ``trainer`` from a fixed generator seed: its wall time,
+    loss (and step losses), the launches, the bytes summed across ranks and
+    the model's state after it."""
+    import torch
+
+    from llp_tpu_torch.parallel.mesh import World
+    from llp_tpu_torch.parallel.sharded import sharded_spmm
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    torch.cuda.synchronize()
+    before, shards, sent = _counts(), Counter(sharded_spmm.launch_counts), World.all_reduce.bytes
+    t0 = time.perf_counter()
+    loss = trainer.epoch(gen)
+    torch.cuda.synchronize()
+    return {"epoch_s": time.perf_counter() - t0, "loss": float(loss), "steps": trainer.steps,
+            "step_losses": getattr(trainer, "step_losses", loss.reshape(1)).clone(),
+            "launches": _delta(_counts(), before),
+            "shard_launches": Counter(sharded_spmm.launch_counts) - shards,
+            "reduced_bytes": World.all_reduce.bytes - sent, "state": _dp_state(trainer),
+            "rng": gen.get_state()}
+
+
+def _dp_world_of_one(label: str, make, world) -> dict:
+    """``make(world)``'s trainer for two epochs on the single path (world
+    None) and as the one rank of ``world``, in turns (single, world, world,
+    single): after each epoch the losses, the parameters and buffers and
+    the generator bit for bit (else held at DP_TOL, the gap logged), and
+    the same B1 launches; a teacher's aggregations over the shard (the
+    student aggregates nothing). The second epochs' times are the ones to
+    compare (the first holds any warm-up)."""
+    single_t, dp_t = make(None), make(world)
+    first = _dp_pair(label, _dp_epoch(single_t), _dp_epoch(dp_t))
+    dp, single = _dp_epoch(dp_t), _dp_epoch(single_t)
+    second = _dp_pair(label + " epoch 2", single, dp)
+    return {"counts": first["counts"] + second["counts"]}
+
+
+def _dp_pair(label: str, single: dict, dp: dict) -> dict:
+    """One epoch of each path (:func:`_dp_epoch`) held against the other;
+    logs a ``dp_world1:`` line and returns it with the shard's launches."""
+    import torch
+
+    bitwise = (torch.equal(single["step_losses"], dp["step_losses"])
+               and torch.equal(single["rng"], dp["rng"])
+               and all(torch.equal(a, b) for a, b in zip(single["state"], dp["state"])))
+    gap = max(float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+              for a, b in zip(single["state"], dp["state"]))
+    steps = dp["steps"]
+    line = {"run": label, "bitwise": bitwise, "max_abs_state_gap": gap,
+            "loss_single": single["loss"], "loss_world1": dp["loss"], "steps": steps,
+            "epoch_s_single": single["epoch_s"], "epoch_s_world1": dp["epoch_s"],
+            "segsum_per_step_single": single["launches"]["segsum"] / steps,
+            "segsum_per_step_world1": dp["launches"]["segsum"] / steps,
+            "shard_launches": {" ".join(map(str, k)): v for k, v in dp["shard_launches"].items()},
+            "reduced_bytes_per_step": dp["reduced_bytes"] / steps}
+    log("dp_world1", line)
+    for key in ("segsum", "backward", "weighted_backward", "gather"):
+        if single["launches"][key] != dp["launches"][key]:
+            raise AssertionError(f"dp {label}: {key} launches {dp['launches'][key]} at a "
+                                 f"world of one, {single['launches'][key]} on one card")
+    if "student" not in label and not dp["shard_launches"]:
+        raise AssertionError(f"dp {label}: no launch over the shard")
+    if not bitwise:
+        compare(dp["step_losses"], single["step_losses"], **DP_TOL, what=f"dp {label} losses")
+        for a, b in zip(dp["state"], single["state"]):
+            compare(a, b, **DP_TOL, what=f"dp {label} parameters")
+    return {**line, "counts": dp["shard_launches"]}
+
+
+def _dp_teacher(data: dict, dtype: str, encoder: str = "sage"):
+    """A maker of the full-width collab teacher's trainer (hidden 256, a
+    2-layer mlp head, dropout 0.5, batch 65,536) for :func:`_dp_world_of_one`."""
+    import torch
+
+    from llp_tpu_torch.train.teacher import TeacherTrainer, init_teacher
+
+    def make(world):
+        model = init_teacher(encoder=encoder, in_channels=data["x"].shape[1],
+                             hidden_channels=256, num_layers=2, predictor_mode="mlp",
+                             dropout=0.5, generator=torch.Generator().manual_seed(0)).cuda()
+        return TeacherTrainer(model, data["graph"], data["x"], data["pos_edges"],
+                              encoder=encoder, batch_size=DP_BATCH, neg_mode="uniform",
+                              compute_dtype=dtype, world=world)
+
+    return make
+
+
+def _dp_student(data: dict, teacher: Path):
+    """A maker of the full-width collab student's trainer (hidden 256, the
+    default losses, dropout 0.5) distilling from the artifact ``teacher``."""
+    import numpy as np
+    import torch
+
+    from llp_tpu_torch.train.student import StudentTrainer, init_student
+    from llp_tpu_torch.utils.checkpoint import load_checkpoint
+    from llp_tpu_torch.utils.config import StudentConfig
+    from llp_tpu_torch.utils.params import from_jax
+
+    ckpt, _ = load_checkpoint(str(teacher))
+    t_h = torch.from_numpy(np.asarray(ckpt["features"], np.float32)).cuda()
+    n, d = data["x"].shape
+    node_batch = StudentConfig(datasets="collab").coupled_node_batch_size(n, data["num_pos"])
+
+    def make(world):
+        model = init_student(in_channels=d, hidden_channels=256, num_layers=2,
+                             predictor_mode="mlp", dropout=0.5,
+                             generator=torch.Generator().manual_seed(0)).cuda()
+        return StudentTrainer(model, data["graph"], data["x"], t_h,
+                              from_jax(ckpt["params"]["predictor"]), data["pos_edges"],
+                              link_batch_size=DP_BATCH, node_batch_size=node_batch,
+                              neg_mode="uniform", world=world)
+
+    return make
+
+
+def _dp_gloo_jobs(train: dict) -> list:
+    """(b)'s jobs for :func:`llp_tpu_torch.tools.dp_runs.run_jobs`: the collab
+    teacher's first DP_STEPS steps (fp32) and a cora student epoch, at full
+    width, from seeds."""
+    import numpy as np
+    import torch
+
+    from llp_tpu_torch.train.loop import prepare_transductive
+    from llp_tpu_torch.utils.checkpoint import load_checkpoint
+    from llp_tpu_torch.utils.config import StudentConfig
+
+    collab = train["data"]["collab"]
+    g = collab["graph"]
+    teacher = dict(edge_index=torch.stack([g.senders, g.receivers]).cpu().numpy(),
+                   num_nodes=g.num_nodes, x=collab["x"].cpu().numpy(),
+                   pos=collab["pos_edges"][:DP_STEPS * DP_BATCH].cpu().numpy(),
+                   encoder="sage", hidden=256, dropout=0.5, seed=0, gen_seed=1,
+                   batch=DP_BATCH, lr=DP_LR, neg_mode="uniform", epochs=1)
+    cfg = StudentConfig(datasets="cora", dataset_dir=STANDINS)
+    cora = prepare_transductive(cfg, torch.device("cpu"))
+    ckpt, _ = load_checkpoint(str(WORK / "teacher_cora" / "cora-sage_transductive"))
+    cg = cora["graph"]
+    student = dict(edge_index=torch.stack([cg.senders, cg.receivers]).numpy(),
+                   num_nodes=cg.num_nodes, x=cora["x"].numpy(),
+                   pos=cora["pos_edges"].numpy(),
+                   t_h=np.asarray(ckpt["features"], np.float32),
+                   teacher_predictor=ckpt["params"]["predictor"], hidden=256, dropout=0.5,
+                   seed=0, gen_seed=1, epochs=DP_STUDENT_EPOCHS,
+                   trainer=dict(link_batch_size=DP_BATCH, lr=DP_LR, neg_mode="dense",
+                                node_batch_size=cfg.coupled_node_batch_size(
+                                    cg.num_nodes, cora["num_pos"])))
+    return [("teacher", teacher), ("student", student)]
+
+
+def _dp_two_gloo_ranks(train: dict) -> dict:
+    """(b): two ranks on the one card over gloo (which sums CUDA tensors
+    through the host), so B1 runs over each half of the collab edges on the
+    card, held against the same runs on one card."""
+    import torch
+
+    from llp_tpu_torch.parallel.launch import launch
+    from llp_tpu_torch.tools.dp_runs import run_jobs
+
+    jobs = _dp_gloo_jobs(train)
+    t0 = time.perf_counter()
+    ranks = launch(run_jobs, ["cuda:0", "cuda:0"], jobs, backend="gloo",
+                   timeout=DP_TIMEOUT_S, join_timeout=2 * DP_TIMEOUT_S)
+    gloo_s = time.perf_counter() - t0
+    singles = run_jobs([(kind, dict(spec, device="cuda")) for kind, spec in jobs])
+    counts, lines = Counter(), {}
+    for i, (kind, _) in enumerate(jobs):
+        one, (r0, r1) = singles[i], (ranks[0][i], ranks[1][i])
+        for key in ("params", "buffers"):
+            for a, b in zip(_leaves(r0[key]), _leaves(r1[key])):
+                if not _np_equal(a, b):
+                    raise AssertionError(f"dp gloo {kind}: the ranks' {key} differ")
+        got = r0.get("step_losses", [r0["losses"]])[0]
+        want = one.get("step_losses", [one["losses"]])[0]
+        err = compare(torch.as_tensor(got), torch.as_tensor(want), **DP_TOL,
+                      what=f"dp gloo {kind} losses")
+        steps = r0["steps"] * len(r0["losses"])  # the run's, over its epochs
+        tol = dict(rtol=0.0, atol=DP_LR * steps)
+        pairs = [(torch.as_tensor(a), torch.as_tensor(b))
+                 for a, b in zip(_leaves(r0["params"]), _leaves(one["params"]))]
+        for a, b in pairs:
+            compare(a, b, **tol, what=f"dp gloo {kind} parameters")
+        used = max(float(((a.double() - b.double()).abs()
+                          / (DP_TOL["atol"] + DP_TOL["rtol"] * b.double().abs())).max())
+                   for a, b in pairs)
+        for r in (r0, r1):
+            counts.update(r["shard_launches"])
+        lines[kind] = {"run": kind, "steps": steps, "losses": list(map(float, got)),
+                       "single_losses": list(map(float, want)), "loss_tol_used": err["tol_used"],
+                       "param_atol": tol["atol"], "param_dp_tol_used": used,
+                       "segsum_per_rank_step": r0["segsum_launches"] / steps,
+                       "segsum_single_step": one["segsum_launches"] / steps,
+                       "reduced_bytes_per_step": r0["reduced_bytes"] / steps}
+        log("dp_gloo", lines[kind])
+    if not counts:
+        raise AssertionError("dp gloo: no launch over a shard")
+    log("dp_gloo_total", {"seconds": gloo_s})
+    return {"counts": counts, "lines": lines}
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for item in tree for leaf in _leaves(item)]
+    return [tree]
+
+
+def _np_equal(a, b) -> bool:
+    import numpy as np
+
+    return np.array_equal(np.asarray(a), np.asarray(b))
+
+
+def _dp_cli_two_cards() -> None:
+    """(c): ``train_teacher --num_devices 2`` on collab over NCCL, with two
+    cards visible."""
+    import torch
+
+    if torch.cuda.device_count() < 2:
+        log("dp_cli", "skipped: one card visible (train_teacher --num_devices 2 needs two)")
+        return
+    stats, report, _ = _train(["--datasets=collab", "--epochs=1", f"--dataset_dir={STANDINS}",
+                               f"--save_dir={WORK / 'dp'}", f"--results_dir={WORK / 'dp'}",
+                               *TRAIN_FLAGS, "--num_devices=2"])
+    log("dp_cli", {"num_devices": 2, "losses": report["losses"], "epoch_s": report["epoch_s"],
+                   "Hits@50": stats["Hits@50"]})
+
+
+# The shard B1 entries: (name, x's type, the CSR (fwd: receiver, bwd:
+# sender), weighted, the counted key's direction and instance).
+DP_SHARD_KERNELS = (
+    ("segsum.dp_shard.fwd.f32.d256", "float32", "fwd", False, "float32->float32"),
+    ("segsum.dp_shard.bwd.f32.d256", "float32", "bwd", False, "float32->float32"),
+    ("segsum.dp_shard.fwd.bf16->f32.d256", "bfloat16", "fwd", False, "bfloat16->float32"),
+    ("segsum.dp_shard.weighted.fwd.bf16->f32.d256", "bfloat16", "fwd", True,
+     "bfloat16->float32"),
+)
+
+
+def _dp_shard_entries(gen, train: dict, counts: Counter) -> list:
+    """B1 over rank 0's shard of a world of two (half the collab edges, the
+    weighted export's for the weighted instance) at D=256: against
+    ``segsum_plain`` over the same CSR, two launches equal bit for bit, and
+    timed beside ``torch.sparse.mm`` over that CSR. The bound counts all
+    N x D output rows, which every rank writes."""
+    import torch
+
+    from llp_tpu_torch.ops.segsum import segsum, segsum_plain
+    from llp_tpu_torch.parallel.mesh import World, shard_edges
+
+    half = World(rank=0, size=2, device=torch.device("cuda", 0), backend="gloo")
+    shards = {w: shard_edges(train["data"]["weighted" if w else "collab"]["graph"], half)
+              for w in (False, True)}
+    entries = []
+    for name, dtype, direction, weighted, inst in DP_SHARD_KERNELS:
+        s = shards[weighted]
+        n = s.num_nodes
+        idx, ptr = (s.senders, s.in_ptr) if direction == "fwd" else (s.col, s.row_ptr)
+        w = s.edge_weight if weighted else None
+        x = torch.randn(n, 256, generator=gen, device="cuda").to(getattr(torch, dtype))
+        got = segsum(x, idx, ptr, weights=w, out_dtype=torch.float32)
+        again = segsum(x, idx, ptr, weights=w, out_dtype=torch.float32)
+        if not torch.equal(got, again):
+            raise AssertionError(f"{name}: two launches differ")
+        err = compare(got, segsum_plain(x, idx, ptr, weights=w, out_dtype=torch.float32),
+                      **SEGSUM_TOL, what=name)
+        adj = torch.sparse_csr_tensor(ptr, idx, torch.ones_like(idx, dtype=torch.float32)
+                                      if w is None else w, (n, n))
+        t = _segsum_timing(x, idx, ptr, None, adj, out_dtype=torch.float32, weights=w)
+        launches = counts.get((direction, inst, 256, weighted), 0)
+        if not launches:
+            raise AssertionError(f"{name}: no launch on the dp path")
+        log("timing", {"kernel": name, "n": n, "e": s.num_edges, "d": 256, **t})
+        entry = {"name": name, "route": "cuda", "source": "llp_tpu_torch/csrc/segsum.cu",
+                 "replaces": "llp_tpu/ops/pallas/segsum_kernel.py:148",
+                 "launches": launches, "max_abs_err": err["max_abs"], "ms": t["ms"],
+                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": "bytes",
+                 "library_ms": t["library_ms"],
+                 "shapes": (f"rank 0 of 2's shard of the {'weighted ' if weighted else ''}"
+                            f"collab train graph, {'receiver' if direction == 'fwd' else 'sender'}"
+                            f" CSR: n={n} e={s.num_edges}, d=256, {inst}, no scale")}
+        if "library_note" in t:
+            entry["library_note"] = t["library_note"]
+        entries.append(entry)
+    return entries
+
+
+def phase_dp(gen, train: dict) -> dict:
+    """The data-parallel path (``TeacherTrainer``/``StudentTrainer`` with a
+    world): (a) a world of one over NCCL on ``cuda:0`` against the single
+    path, bit for bit, for the collab SAGE teacher (fp32, bf16), the weighted
+    GCN teacher (bf16: the weighted bf16 -> fp32 instance) and the collab
+    student, one epoch each; (b) two gloo ranks on the card against one
+    card; (c) the CLI over two cards, when there are two; then the shard's
+    B1 against its plain version and timed. Returns the kernels line's
+    entries for the shard's launches."""
+    import torch
+
+    from llp_tpu_torch.parallel.launch import free_tcp_address
+    from llp_tpu_torch.parallel.mesh import close_world, init_world
+    from llp_tpu_torch.parallel.sharded import sharded_spmm
+
+    # the dp path starts here
+    sharded_spmm.launch_counts.clear()
+    world = init_world(0, 1, torch.device("cuda", 0), init_method=free_tcp_address(),
+                       timeout=DP_TIMEOUT_S)
+    try:
+        counts = Counter()
+        data = train["data"]
+        runs = (("collab sage float32", _dp_teacher(data["collab"], "float32")),
+                ("collab sage bfloat16", _dp_teacher(data["collab"], "bfloat16")),
+                ("weighted collab gcn bfloat16",
+                 _dp_teacher(data["weighted"], "bfloat16", encoder="gcn")),
+                ("collab student float32",
+                 _dp_student(data["weighted"],
+                             WORK / "teacher_weighted" / "collab-sage_transductive")))
+        for label, make in runs:
+            counts.update(_dp_world_of_one(label, make, world)["counts"])
+    finally:
+        close_world()
+    gloo = _dp_two_gloo_ranks(train)
+    counts.update(gloo["counts"])
+    _dp_cli_two_cards()
+    log("dp_launches", {" ".join(map(str, k)): v for k, v in counts.items()})
+    return {"entries": _dp_shard_entries(gen, train, counts)}
+
+
 def main() -> int:
     try:
         import torch
@@ -3661,8 +4029,9 @@ def main() -> int:
     tooling = timed("tooling", phase_tooling)
     scale10m = timed("scale10m", phase_scale10m, gen)
     reorder = timed("reorder", phase_reorder, gen, train, worst)
+    dp = timed("dp", phase_dp, gen, train)
     kernels = timed("kernels", phase_kernels, gen, launches, train, student, production,
-                    tooling, scale10m, reorder, worst)
+                    tooling, scale10m, reorder, worst) + dp["entries"]
     log("total", {"seconds": time.perf_counter() - t0, "phases": seconds})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": info["name"],

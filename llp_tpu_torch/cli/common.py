@@ -2,9 +2,11 @@
 flags, and YAML config loading.
 
 ``--device`` defaults to the card (``cuda``; ``auto`` means the same);
-``cpu`` is the only way onto the CPU.  The flags of what is not ported yet
-are parsed as in the JAX CLI, and the training loop refuses them
-(:func:`llp_tpu_torch.train.loop.refuse_unported`).
+``cpu`` is the only way onto the CPU.  ``--num_devices N`` trains
+data-parallel over N worker processes: rank ``r`` on ``cuda:r`` (NCCL), or
+every rank on the CPU (gloo) under ``--device cpu`` (or ``cpu:N``).  The
+flags of what is not ported yet are parsed as in the JAX CLI, and the
+training loop refuses them (:func:`llp_tpu_torch.train.loop.refuse_unported`).
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import dataclasses
 def add_common_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--config", type=str, default=None, help="YAML config file")
     p.add_argument("--device", type=str, default="cuda",
-                   help="cuda, cuda:N or cpu; cpu is the only way onto the CPU")
+                   help="cuda, cuda:N or cpu (cpu:N); cpu is the only way onto the CPU")
     p.add_argument("--log_steps", type=int, default=1)
     p.add_argument("--encoder", type=str, default="sage",
                    choices=["sage", "gcn", "mlp"])
@@ -54,9 +56,11 @@ def add_common_flags(p: argparse.ArgumentParser) -> None:
                    choices=["float32", "bfloat16"],
                    help="training compute dtype (fp32 master params; eval stays fp32)")
     p.add_argument("--num_devices", type=int, default=1,
-                   help="more than 1 is not yet ported (ROADMAP A14)")
+                   help="data-parallel ranks: cuda:0..N-1 over NCCL, or N CPU ranks over "
+                        "gloo with --device cpu")
     p.add_argument("--sharding", type=str, default="dp", choices=["dp", "halo"],
-                   help="halo is not yet ported (ROADMAP A14)")
+                   help="dp: edges and batches sharded, the rest replicated; halo over "
+                        "more than one device is not yet ported (ROADMAP A14.2)")
     p.add_argument("--reorder", type=str, default="none",
                    choices=["none", "locality", "rcm"],
                    help="node-id relabel at data-prep time (isomorphism; artifacts "

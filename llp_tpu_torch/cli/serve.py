@@ -88,7 +88,7 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     if args.shard:
-        raise _not_ported("--shard", "A14")
+        raise _not_ported("--shard", "A14.5")
     daemon_flags = [f"--{name}" for name in ("host", "warmup", "max_queue", "max_queries",
                                              "max_pairs") if getattr(args, name) is not None]
     if daemon_flags and args.port is None:

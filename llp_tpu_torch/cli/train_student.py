@@ -6,7 +6,8 @@ same flags and stdout lines).
         --True_label 0.1 --runs 10
 
 Runs on the GPU unless ``--device cpu`` is given; with no card visible and
-no ``--device cpu`` it exits.  Reads the teacher artifact at
+no ``--device cpu`` it exits.  ``--num_devices N`` trains data-parallel
+over ``cuda:0..N-1`` (or N CPU ranks with ``--device cpu``).  Reads the teacher artifact at
 ``<save_dir>/<dataset>-<encoder>_<setting>`` (written by either package),
 writes the best-validation student to
 ``<save_dir>/<dataset>-student_<setting>`` and appends the results to
@@ -21,8 +22,10 @@ import argparse
 from llp_tpu_torch.cli.common import add_common_flags, config_from_args
 
 
-def main(argv=None):
-    """Returns ``(stats, report)`` of :func:`llp_tpu_torch.train.loop.run_student`."""
+def main(argv=None, world=None):
+    """Returns ``(stats, report)`` of :func:`llp_tpu_torch.train.loop.run_student`
+    (rank 0's under ``--num_devices N``; ``world``, a worker's own rank, runs
+    the flags as that rank of a world started elsewhere)."""
     p = argparse.ArgumentParser(description="LLP student MLP distillation (GPU)")
     add_common_flags(p)
     p.add_argument("--link_batch_size", type=int, default=64 * 1024)
@@ -50,7 +53,7 @@ def main(argv=None):
         rename={"True_label": "true_label", "KD_RM": "kd_rm", "KD_LM": "kd_lm",
                 "LLP_D": "llp_d", "LLP_R": "llp_r"},
     )
-    stats, _, report = run_student(cfg, device=args.device)
+    stats, _, report = run_student(cfg, device=args.device, world=world)
     return stats, report
 
 

@@ -13,11 +13,12 @@
 //   kernel over the sender CSR (col, row_ptr), as the JAX package launches
 //   _kernel over its sender-sorted layout.  Unweighted instances
 //   float->float and bf16->float (the TPU kernel's bf16-message mode: bf16
-//   in, fp32 out).  Weighted instances float->float and bf16->bf16: the
-//   weighted mode of _kernel (_segment_sum_arrays' slot_weights, the
-//   weighted SpMM of get_blocked_spmm_weighted_fn), whose backward runs the
-//   float->float instance over the sender CSR with the weights re-read
-//   through the sender CSR's edge ids.
+//   in, fp32 out).  Weighted instances float->float, bf16->float (the fp32
+//   partials of the data-parallel aggregation, parallel/sharded.py) and
+//   bf16->bf16: the weighted mode of _kernel (_segment_sum_arrays'
+//   slot_weights, the weighted SpMM of get_blocked_spmm_weighted_fn), whose
+//   backward runs the float->float instance over the sender CSR with the
+//   weights re-read through the sender CSR's edge ids.
 // * _kernel_cast: instance bf16->bf16.  The sum stays fp32 in registers, the
 //   row scale is applied in fp32, and the result is rounded to bf16 once at
 //   the store: (sum * scale).astype(bf16), as the JAX cached path computes.
@@ -418,7 +419,7 @@ int launch(const void* x, const int32_t* senders, const int64_t* in_ptr, const f
 // the vector path, 0 for the scalar one; order (row blocks of order_rows
 // rows, the n_heavy that hold a heavy row first) or null.  Instances:
 // unweighted fp32->fp32, bf16->fp32, bf16->bf16; weighted fp32->fp32,
-// bf16->bf16; any other combination is refused.  The caller picks the path
+// bf16->fp32, bf16->bf16; any other combination is refused.  The caller picks the path
 // (ops/segsum.py::_route) and this entry refuses a pick that disagrees with
 // the shape: the vector path where d is a multiple of the vector width and
 // x and out are 16-byte aligned, else the scalar one.  Launches on
@@ -434,6 +435,7 @@ extern "C" int llp_segsum(const void* x, const int32_t* senders, const int64_t* 
                         order_rows, s
   if (w) {
     if (in_type == 0 && out_type == 0) return launch<float, float, true>(LLP_SEGSUM_ARGS);
+    if (in_type == 1 && out_type == 0) return launch<bf16, float, true>(LLP_SEGSUM_ARGS);
     if (in_type == 1 && out_type == 1) return launch<bf16, bf16, true>(LLP_SEGSUM_ARGS);
     return (int)cudaErrorInvalidValue;
   }

@@ -11,12 +11,23 @@ result cast back to it.
   forward's updated values after each step (``teacher.py:237-243``); here
   the forward updates them, which is the same.
 * Eval mode normalises by the running buffers.
+
+``world`` (a :class:`llp_tpu_torch.parallel.mesh.World`, None by default)
+takes train mode's moments across the ranks of a data-parallel run, each
+rank holding an equal slice of one batch: two-pass sums over every rank's
+rows, as ``llp_tpu/models/norms.py:80-106`` psums them, differentiable
+through the sums, so each rank normalises by the whole batch's moments and
+its running buffers move alike.  None keeps the moments of its own rows.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
+
+from llp_tpu_torch.parallel.mesh import World, all_reduce_sum
 
 EPS = 1e-5
 MOMENTUM = 0.1
@@ -28,16 +39,22 @@ class BatchNorm(nn.BatchNorm1d):
     """Batch norm over (rows, dim) in fp32, with the buffers of
     ``nn.BatchNorm1d`` (``running_mean``, ``running_var``)."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, world: Optional[World] = None):
         super().__init__(dim, eps=EPS, momentum=MOMENTUM)
+        self.world = world
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
         if self.training:
-            mu = xf.mean(0)
-            var = (xf - mu).square().mean(0)  # biased: the normalisation
+            if self.world is None:
+                n = x.shape[0]
+                mu = xf.mean(0)
+                var = (xf - mu).square().mean(0)  # biased: the normalisation
+            else:
+                n = x.shape[0] * self.world.size
+                mu = all_reduce_sum(xf.sum(0), self.world) / n
+                var = all_reduce_sum((xf - mu).square().sum(0), self.world) / n
             y = (xf - mu) * torch.rsqrt(var + EPS)
-            n = x.shape[0]
             with torch.no_grad():
                 self.running_mean.mul_(1 - MOMENTUM).add_(MOMENTUM * mu)
                 self.running_var.mul_(1 - MOMENTUM).add_(

@@ -12,10 +12,12 @@ backward passes the sender CSR (``col``, ``row_ptr``) to the same function
 Types (``x`` → output): float32 → float32; bfloat16 → bfloat16 (the port of
 ``_kernel_cast``: the sum and the scale in fp32, one rounding at the store);
 bfloat16 → float32 with ``out_dtype=torch.float32`` (the TPU kernel's
-bf16-message mode, unweighted only).  Weighted, as the JAX package rounds
+bf16-message mode).  Weighted, as the JAX package rounds
 (``_segment_sum_arrays``' ``slot_weights``): fp32 forms each product in
 fp32; bf16 rounds the weight to bf16 and each product to bf16, then sums in
-fp32.
+fp32, and stores bf16, or fp32 with ``out_dtype=torch.float32`` (the
+partials of the sharded aggregation, :mod:`llp_tpu_torch.parallel.sharded`,
+which a world of one rounds to bf16 as the bf16 store does).
 
 On a CUDA tensor it launches the hand-written kernel ``csrc/segsum.cu`` (or
 raises); on a CPU tensor it runs :func:`segsum_plain`, the same function in
@@ -48,6 +50,7 @@ INSTANCES = {
 }
 # The instances of the weighted mode.
 WEIGHTED_INSTANCES = {k: INSTANCES[k] for k in ((torch.float32, torch.float32),
+                                                (torch.bfloat16, torch.float32),
                                                 (torch.bfloat16, torch.bfloat16))}
 _TYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 

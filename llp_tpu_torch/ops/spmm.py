@@ -26,6 +26,14 @@ version.
   PyTorch as in JAX (``:528-534``), computed only when asked for and in
   chunks of edges, so no (E, D) product is held at once.
 
+On a rank's :class:`~llp_tpu_torch.parallel.mesh.ShardedGraph`, ``sum``
+and ``mean`` run the sharded aggregation
+(:func:`llp_tpu_torch.parallel.sharded.sharded_spmm`): B1 over the rank's
+edges both ways, summed across the ranks.  The model code reaches it
+through :func:`spmm` alone (SAGE's :func:`mean_aggregate`, GCN's
+``normalized_aggregate`` and the layer-1 hoist), as JAX injects its
+``impl``.
+
 ``max`` is plain PyTorch with autograd: the JAX package has no kernel for it
 either.  :func:`spmm_backward_plain` is the backward in plain PyTorch, the
 reference the tests and ``chip_smoke.py`` hold the kernel route against.
@@ -37,6 +45,7 @@ import torch
 
 from llp_tpu_torch.core.graph import Graph
 from llp_tpu_torch.ops.segsum import segsum
+from llp_tpu_torch.parallel.mesh import ShardedGraph
 
 # Edges per chunk of the weight gradient: bounds its (chunk, D) fp32 products.
 DW_CHUNK_EDGES = 1 << 18
@@ -116,6 +125,10 @@ def spmm(graph: Graph, x: torch.Tensor, reduce: str = "mean", *,
         raise ValueError(f"unknown reduce {reduce!r}")
     if edge_weight is not None and reduce == "max":
         raise ValueError("edge_weight is not supported with reduce='max'")
+    if isinstance(graph, ShardedGraph):
+        from llp_tpu_torch.parallel.sharded import sharded_spmm  # it imports this module
+
+        return sharded_spmm(graph, x, reduce, edge_weight=edge_weight)
     if reduce == "max":
         out = torch.zeros((graph.num_nodes, x.shape[1]), dtype=x.dtype,
                           device=x.device)

@@ -1,0 +1,160 @@
+"""The world of a data-parallel run and each rank's shard of the edges
+(counterpart of ``llp_tpu/parallel/mesh.py``: ``make_mesh`` and
+``shard_edges``).
+
+A run of ``N`` ranks is ``N`` processes, one per device, joined by one
+``torch.distributed`` process group: NCCL between cards, gloo on the CPU
+(gloo also sums CUDA tensors, through the host).  :func:`init_world` takes
+the rendezvous address, the rank and the world size from its arguments,
+so a run across hosts needs only other arguments.
+
+Edges are sharded, and the rest is replicated: each rank aggregates a
+contiguous slice of the receiver-sorted edges, and the node features, the
+parameters and the degrees are the same on every rank.  The JAX package pads
+the edge arrays to a multiple of the mesh (``llp_tpu/train/loop.py:63-68``);
+nothing here has a static shape, so the ``E`` edges are cut into ``N``
+slices whose sizes differ by at most one.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from datetime import timedelta
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+from llp_tpu_torch.core.graph import Graph
+
+# Seconds a collective (and the rendezvous) may wait before it raises.
+TIMEOUT_S = 600.0
+
+
+@dataclass(frozen=True)
+class World:
+    """This process's place in a run: its rank among ``size``, its device
+    and the process group's backend."""
+
+    rank: int
+    size: int
+    device: torch.device
+    backend: str
+
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum ``t`` across the ranks, in place; returns it.
+        ``World.all_reduce.bytes`` counts the bytes summed in this process."""
+        World.all_reduce.bytes += t.numel() * t.element_size()
+        dist.all_reduce(t)
+        return t
+
+    def barrier(self) -> None:
+        if self.backend == "nccl":
+            dist.barrier(device_ids=[self.device.index])
+        else:
+            dist.barrier()
+
+
+World.all_reduce.bytes = 0
+
+
+def init_world(rank: int, size: int, device, *, init_method: str,
+               backend: Optional[str] = None, timeout: float = TIMEOUT_S) -> World:
+    """Join the process group as ``rank`` of ``size`` through
+    ``init_method`` (``tcp://host:port`` or ``file://path``), on ``device``.
+    The backend is NCCL on a card and gloo on the CPU unless ``backend``
+    says otherwise; every collective raises after ``timeout`` seconds."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    backend = backend or ("nccl" if device.type == "cuda" else "gloo")
+    dist.init_process_group(backend, init_method=init_method, rank=rank,
+                            world_size=size, timeout=timedelta(seconds=timeout))
+    return World(rank=rank, size=size, device=device, backend=backend)
+
+
+def close_world() -> None:
+    """Leave the process group, if this process is in one."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+class _AllReduce(torch.autograd.Function):
+    """A sum across ranks whose gradient is the sum of the ranks' gradients."""
+
+    @staticmethod
+    def forward(ctx, t, world):
+        ctx.world = world
+        return world.all_reduce(t.clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.world.all_reduce(g.clone()), None
+
+
+def all_reduce_sum(t: torch.Tensor, world: World) -> torch.Tensor:
+    """``Σ_ranks t``, differentiable: the gradient of each rank's ``t`` is
+    the sum of every rank's gradient of the result."""
+    return _AllReduce.apply(t, world)
+
+
+@dataclass(frozen=True)
+class ShardedGraph(Graph):
+    """A rank's shard of a graph: a :class:`Graph` of its edges over all
+    ``N`` nodes, whose degrees are the whole graph's.
+
+    The receiver CSR (``senders``, ``in_ptr``) and the sender CSR (``col``,
+    ``row_ptr``, ``csr_row``, ``sender_edge_id``) list the shard's edges
+    only, so B1 over them sums this rank's part; ``edge_weight`` is the
+    shard's slice, in receiver order.  ``in_degree``, ``out_degree`` and
+    ``w_in_degree`` are the whole graph's, and so are what is derived from
+    them (``inv_in_degree``, ``mean_weights``' normaliser, ``gcn_coeffs``):
+    a mean over a receiver whose edges two shards split divides each part by
+    the receiver's whole degree.  :func:`llp_tpu_torch.ops.spmm.spmm`
+    dispatches on this type to the sharded aggregation
+    (:mod:`llp_tpu_torch.parallel.sharded`)."""
+
+    world: Optional[World] = None
+
+
+def edge_bounds(num_edges: int, size: int, rank: int) -> tuple:
+    """``(lo, hi)``: rank ``rank``'s contiguous slice of ``num_edges`` edges
+    cut into ``size`` slices whose sizes differ by at most one."""
+    q, r = divmod(num_edges, size)
+    lo = rank * q + min(rank, r)
+    return lo, lo + q + (rank < r)
+
+
+def shard_edges(graph: Graph, world: World) -> ShardedGraph:
+    """This rank's :class:`ShardedGraph` of ``graph``: edges
+    :func:`edge_bounds` of the receiver order.
+
+    Its sender CSR keeps the whole graph's order of each sender's edges
+    (the whole sender CSR, filtered to the shard's edges), so that a world
+    of one is the graph itself, array for array, and its backward sums in
+    the same order."""
+    lo, hi = edge_bounds(graph.num_edges, world.size, world.rank)
+    sid = graph.sender_edge_id  # sender-CSR position -> receiver-order edge
+    keep = (sid >= lo) & (sid < hi)
+    csr_row = graph.csr_row[keep]
+    row_ptr = torch.zeros_like(graph.row_ptr)
+    row_ptr[1:] = torch.cumsum(torch.bincount(csr_row, minlength=graph.num_nodes), 0)
+    shard = ShardedGraph(
+        senders=graph.senders[lo:hi],
+        receivers=graph.receivers[lo:hi],
+        in_ptr=graph.in_ptr.clamp(lo, hi) - lo,
+        row_ptr=row_ptr,
+        col=graph.col[keep],
+        csr_row=csr_row,
+        in_degree=graph.in_degree,
+        out_degree=graph.out_degree,
+        num_nodes=graph.num_nodes,
+        num_edges=hi - lo,
+        edge_weight=None if graph.edge_weight is None else graph.edge_weight[lo:hi],
+        w_in_degree=graph.w_in_degree,
+        world=world,
+    )
+    # the shard's own receiver-order positions, not recomputed by sorts
+    shard.__dict__["sender_edge_id"] = sid[keep] - lo
+    return shard
+

@@ -59,12 +59,26 @@ and the losses), first writing the pending best-validation artifact;
 ``resume`` starts from that snapshot's run and epoch, so a run that was cut
 ends as an uninterrupted one does (bit for bit on the CPU).
 
-Not ported yet, refused by :func:`refuse_unported`: more than one device
-(A14); ``epochs_per_jit`` is a TPU mechanism.
+``num_devices`` N > 1 trains data-parallel (``sharding`` ``dp``, the
+JAX drivers' ``llp_tpu/train/loop.py:534-552`` and ``:906-954``): the call
+starts N worker processes (:func:`llp_tpu_torch.parallel.launch.launch`),
+rank ``r`` on ``cuda:r`` over NCCL, or every rank on the CPU over gloo
+under ``device="cpu"``, and returns rank 0's result.  Each rank prepares the
+data (rank 0 first, so that it alone writes the caches), trains its slice of
+every batch (``world=`` of the trainers) and runs the whole eval, as JAX's
+dp eval is one replicated program, so that every rank stops at the same
+epoch.  Rank 0 alone prints, writes the artifact, the results file and the
+snapshots; ``resume`` restores the snapshot on every rank.
+
+Refused by :func:`refuse_unported`: ``sharding`` ``halo`` over more than
+one device (A14.2; at one device JAX builds no mesh and trains on the
+single path, and so does the port); ``epochs_per_jit`` is a TPU
+mechanism.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from dataclasses import asdict
@@ -89,13 +103,15 @@ from llp_tpu_torch.evaln.logger import ProductionRunLogger, RunLogger
 from llp_tpu_torch.evaln.production import evaluate_production
 from llp_tpu_torch.evaln.transductive import evaluate_transductive
 from llp_tpu_torch.models.encoder import hoists_first_aggregation, precompute_first_aggregation
+from llp_tpu_torch.parallel.launch import launch
+from llp_tpu_torch.parallel.mesh import World
 from llp_tpu_torch.sample.negative import edge_keys
 from llp_tpu_torch.train.student import StudentTrainer, init_student
 from llp_tpu_torch.train.state import RunSnapshots
 from llp_tpu_torch.train.teacher import TeacherTrainer, init_teacher
 from llp_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from llp_tpu_torch.utils.config import SPMM_IMPLS, SplitConfig, StudentConfig, TeacherConfig
-from llp_tpu_torch.utils.device import setup_device
+from llp_tpu_torch.utils.device import rank_devices, setup_device
 from llp_tpu_torch.utils.params import from_jax, to_jax
 from llp_tpu_torch.utils.profiling import ThroughputMeter
 
@@ -106,10 +122,8 @@ def _not_ported(what: str, item: str) -> SystemExit:
 
 def refuse_unported(cfg) -> None:
     """Raise ``SystemExit`` for a setting this slice of the port does not run."""
-    if cfg.num_devices != 1:
-        raise _not_ported(f"--num_devices {cfg.num_devices}", "A14")
-    if cfg.sharding != "dp":
-        raise _not_ported(f"--sharding {cfg.sharding}", "A14")
+    if cfg.sharding == "halo" and cfg.num_devices > 1:
+        raise _not_ported(f"--sharding halo over --num_devices {cfg.num_devices}", "A14.2")
     if cfg.epochs_per_jit != 1:
         raise SystemExit(
             f"--epochs_per_jit {cfg.epochs_per_jit}: fusing epochs into one device "
@@ -121,6 +135,29 @@ def refuse_unported(cfg) -> None:
             f"device (the segsum kernel on the card, its plain version on the "
             f"CPU); pass one of {SPMM_IMPLS}"
         )
+
+
+def _check_world(cfg, world: Optional[World]) -> None:
+    if world is not None and world.size != cfg.num_devices:
+        raise ValueError(f"num_devices={cfg.num_devices} in a world of {world.size} ranks")
+
+
+def _launch_ranks(fn, cfg, device, **kw):
+    """``fn(cfg, **kw)`` in ``cfg.num_devices`` worker processes, one world;
+    rank 0's result.  Raises ``SystemExit`` before any work when the
+    devices are not there (:func:`rank_devices`)."""
+    return launch(fn, rank_devices(device, cfg.num_devices), cfg, **kw)[0]
+
+
+@contextlib.contextmanager
+def _rank_zero_first(world: Optional[World]):
+    """Rank 0 runs the block before the other ranks do (it writes the
+    caches they read)."""
+    if world is not None and world.rank != 0:
+        world.barrier()
+    yield
+    if world is not None and world.rank == 0:
+        world.barrier()
 
 
 def _conv_variant(cfg) -> str:
@@ -472,7 +509,7 @@ def _loggers(cfg) -> dict:
 
 
 def run_teacher(cfg: TeacherConfig, *, max_epochs: Optional[int] = None,
-                verbose: bool = True, device="cuda"):
+                verbose: bool = True, device="cuda", world: Optional[World] = None):
     """Train the supervised teacher and export its best-validation artifact.
 
     Runs on ``device``: the card unless ``device="cpu"``.  Returns ``(stats,
@@ -481,11 +518,18 @@ def run_teacher(cfg: TeacherConfig, *, max_epochs: Optional[int] = None,
     ``loggers`` as the JAX package's, ``report`` this call's timings
     (``epoch_s``, ``eval_s``, ``perf``, ``snapshot_s``), per-run epoch
     losses (a resumed run's from its first epoch), steps per epoch, split
-    and graph sizes."""
+    and graph sizes.  With ``cfg.num_devices`` > 1 it trains data-parallel
+    (the module's docstring); ``world`` is a worker's own rank."""
     refuse_unported(cfg)
     cfg.finalize()
-    device = setup_device(device)
-    data = _prepare(cfg, device)
+    _check_world(cfg, world)
+    if cfg.num_devices > 1 and world is None:
+        return _launch_ranks(run_teacher, cfg, device, max_epochs=max_epochs, verbose=verbose)
+    device = setup_device(device) if world is None else world.device
+    lead = world is None or world.rank == 0
+    verbose = verbose and lead
+    with _rank_zero_first(world):
+        data = _prepare(cfg, device)
     graph, x = data["graph"], data["x"]
     conv = _conv_variant(cfg)
     in_dim = int(x.shape[1])
@@ -493,7 +537,7 @@ def run_teacher(cfg: TeacherConfig, *, max_epochs: Optional[int] = None,
 
     loggers = _loggers(cfg)
     snaps = RunSnapshots(_teacher_ckpt_path(cfg), every=cfg.checkpoint_every,
-                         resume=cfg.resume, loggers=loggers, verbose=verbose)
+                         resume=cfg.resume, loggers=loggers, verbose=verbose, write=lead)
     epochs = max_epochs if max_epochs is not None else cfg.epochs
     # shared across runs (reference train_teacher_gnn.py:420)
     val_max = snaps.meta.get("val_max", 0.0)
@@ -508,13 +552,15 @@ def run_teacher(cfg: TeacherConfig, *, max_epochs: Optional[int] = None,
         if best_artifact is None:
             return
         params, h, meta = best_artifact
+        best_artifact = None
+        if not lead:
+            return
         if data["node_inverse"] is not None:
             # the table goes out in the dataset's original ids (row j of the
             # export is original node j, new node node_inverse[j])
             h = h.index_select(0, torch.from_numpy(data["node_inverse"]).to(h.device))
         save_checkpoint(_teacher_ckpt_path(cfg),
                         {"params": params, "features": h.cpu().numpy()}, meta=meta)
-        best_artifact = None
 
     for run in range(snaps.run, cfg.runs):
         seed = run + cfg.seed_offset
@@ -528,7 +574,7 @@ def run_teacher(cfg: TeacherConfig, *, max_epochs: Optional[int] = None,
         trainer = TeacherTrainer(
             model, graph, x, data["pos_edges"], encoder=cfg.encoder, conv=conv,
             batch_size=cfg.batch_size, lr=cfg.lr, neg_mode=cfg.neg_mode,
-            neg_keys=data["neg_keys"], compute_dtype=cfg.compute_dtype,
+            neg_keys=data["neg_keys"], compute_dtype=cfg.compute_dtype, world=world,
         )
         steps = trainer.steps
         best_val, cnt_wait, first = snaps.restore(run, model, trainer.optimizer, gen)
@@ -586,7 +632,7 @@ def run_teacher(cfg: TeacherConfig, *, max_epochs: Optional[int] = None,
     flush_artifact()
     stats = {k: lg.statistics() for k, lg in loggers.items()}
     perf = meter.summary()
-    if cfg.results_dir:
+    if cfg.results_dir and lead:
         _write_results(cfg, "supervised", f"{cfg.encoder} as the encoder", data["split_name"],
                        stats, perf)
     if verbose:
@@ -613,7 +659,7 @@ def _kd_label(cfg) -> str:
 
 
 def run_student(cfg: StudentConfig, *, max_epochs: Optional[int] = None,
-                verbose: bool = True, device="cuda"):
+                verbose: bool = True, device="cuda", world: Optional[World] = None):
     """Distill an MLP student from the teacher artifact at
     ``<save_dir>/<dataset>-<encoder>_<setting>`` (written by either package;
     in production its table holds the old nodes) and export the
@@ -621,11 +667,18 @@ def run_student(cfg: StudentConfig, *, max_epochs: Optional[int] = None,
 
     Runs on ``device``: the card unless ``device="cpu"``.  Returns ``(stats,
     loggers, report)`` as :func:`run_teacher` does; the report adds the node
-    batch."""
+    batch.  With ``cfg.num_devices`` > 1 it trains data-parallel (the
+    module's docstring); ``world`` is a worker's own rank."""
     refuse_unported(cfg)
     cfg.finalize()
-    device = setup_device(device)
-    data = _prepare(cfg, device)
+    _check_world(cfg, world)
+    if cfg.num_devices > 1 and world is None:
+        return _launch_ranks(run_student, cfg, device, max_epochs=max_epochs, verbose=verbose)
+    device = setup_device(device) if world is None else world.device
+    lead = world is None or world.rank == 0
+    verbose = verbose and lead
+    with _rank_zero_first(world):
+        data = _prepare(cfg, device)
     x = data["x"]
     n, in_dim = x.shape
 
@@ -643,7 +696,7 @@ def run_student(cfg: StudentConfig, *, max_epochs: Optional[int] = None,
 
     loggers = _loggers(cfg)
     snaps = RunSnapshots(_student_ckpt_path(cfg), every=cfg.checkpoint_every,
-                         resume=cfg.resume, loggers=loggers, verbose=verbose)
+                         resume=cfg.resume, loggers=loggers, verbose=verbose, write=lead)
     epochs = max_epochs if max_epochs is not None else cfg.epochs
     meter = ThroughputMeter(device, edges_per_epoch=2 * data["num_pos"])
     losses = snaps.losses()
@@ -660,11 +713,11 @@ def run_student(cfg: StudentConfig, *, max_epochs: Optional[int] = None,
 
     def flush_student():
         nonlocal best_student
-        if best_student is not None:
+        if best_student is not None and lead:
             os.makedirs(cfg.save_dir, exist_ok=True)
             save_checkpoint(_student_ckpt_path(cfg), {"params": best_student},
                             meta=student_meta)
-            best_student = None
+        best_student = None
 
     for run in range(snaps.run, cfg.runs):
         seed = run + 1 + cfg.seed_offset  # the student seeds run + 1
@@ -682,7 +735,7 @@ def run_student(cfg: StudentConfig, *, max_epochs: Optional[int] = None,
             llp_d=cfg.llp_d, llp_r=cfg.llp_r, margin=cfg.margin, rw_step=cfg.rw_step,
             hops=cfg.hops, ns_rate=cfg.ns_rate, ps_method=cfg.ps_method,
             neg_mode=cfg.neg_mode, neg_keys=data["neg_keys"], minibatch=cfg.minibatch,
-            compute_dtype=cfg.compute_dtype, llp_r_chunk=cfg.llp_r_chunk,
+            compute_dtype=cfg.compute_dtype, llp_r_chunk=cfg.llp_r_chunk, world=world,
         )
         steps = trainer.steps
         best_val, cnt_wait, first = snaps.restore(run, model, trainer.optimizer, gen)
@@ -729,7 +782,7 @@ def run_student(cfg: StudentConfig, *, max_epochs: Optional[int] = None,
     flush_student()
     stats = {k: lg.statistics() for k, lg in loggers.items()}
     perf = meter.summary()
-    if cfg.results_dir:
+    if cfg.results_dir and lead:
         _write_results(cfg, "KD", _kd_label(cfg), data["split_name"], stats, perf)
     if verbose:
         print(f"student done in {time.time() - t0:.1f}s: {stats.get(cfg.metric)} "

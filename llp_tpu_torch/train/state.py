@@ -87,12 +87,13 @@ class RunSnapshots:
     one every ``every`` epochs (0: never), first flushing the pending
     best-validation artifact: a resumed run restores ``val_max``, so an
     artifact that was only in memory at a crash would never be written.
-    ``seconds`` holds each write's host time."""
+    ``seconds`` holds each write's host time.  ``write=False`` (a
+    data-parallel rank other than 0) restores and never writes."""
 
     def __init__(self, artifact_path: str, *, every: int, resume: bool, loggers: dict,
-                 verbose: bool = False):
+                 verbose: bool = False, write: bool = True):
         self.path = artifact_path + "_trainstate"
-        self.every = every
+        self.every = every if write else 0
         self.loggers = loggers
         self.seconds: list = []
         self.run, self.meta, self._tree = 0, {}, None

@@ -35,6 +35,14 @@ context pairs) is :func:`llp_tpu_torch.ops.gather.gather_rows`, whose
 backward sums with the segment-sum kernel and no atomics, so a run
 repeats bit for bit on the card.  The minibatch gather of the features
 needs no gradient.
+
+With ``world`` (a :class:`llp_tpu_torch.parallel.mesh.World`) the trainer
+is one rank of a data-parallel run (``llp_tpu/parallel/epoch.py::
+make_sharded_student_epoch_fn``, ``feature_sharding="replicated"``,
+:mod:`llp_tpu_torch.parallel.epoch`): every rank holds the features, the
+teacher's table and the graph its walks read; it draws the whole batch and
+scores its slice of the link and the node batch, and the gradients are
+summed across ranks before the clip.
 """
 
 from __future__ import annotations
@@ -50,6 +58,7 @@ from torch.utils.checkpoint import checkpoint
 
 from llp_tpu_torch.core.graph import Graph
 from llp_tpu_torch.models.mlp import MLP
+from llp_tpu_torch.models.norms import BatchNorm
 from llp_tpu_torch.models.predictor import LinkPredictor
 from llp_tpu_torch.ops.gather import gather_rows
 from llp_tpu_torch.ops.losses import (
@@ -59,6 +68,10 @@ from llp_tpu_torch.ops.losses import (
     margin_rank_loss,
     mse_loss,
 )
+from llp_tpu_torch.ops.rng import BatchRows
+from llp_tpu_torch.parallel.epoch import BatchShard
+from llp_tpu_torch.parallel.mesh import World
+from llp_tpu_torch.parallel.sharded import all_reduce_grads
 from llp_tpu_torch.sample.negative import sample_negative_edges, sample_uniform_edges
 from llp_tpu_torch.sample.walk import sample_contexts
 from llp_tpu_torch.train.optim import clip_by_group_norm
@@ -131,7 +144,8 @@ class StudentTrainer:
     the compute dtype); ``pos_edges`` (E, 2) int64 the training positives;
     ``neg_keys`` the sorted edge keys dense negatives avoid (None for
     ``neg_mode="uniform"``).  ``node_batch_size`` is the coupled node batch
-    (:meth:`StudentConfig.coupled_node_batch_size`)."""
+    (:meth:`StudentConfig.coupled_node_batch_size`).  ``world`` makes it one
+    rank of a data-parallel run."""
 
     def __init__(self, model: nn.ModuleDict, graph: Graph, x: torch.Tensor,
                  t_h: torch.Tensor, teacher_predictor: LinkPredictor,
@@ -141,7 +155,8 @@ class StudentTrainer:
                  llp_d: float = 1.0, llp_r: float = 1.0, margin: float = 0.1,
                  rw_step: int = 3, hops: int = 2, ns_rate: int = 1, ps_method: str = "nb",
                  neg_mode: str = "dense", neg_keys: Optional[torch.Tensor] = None,
-                 minibatch: bool = False, compute_dtype="float32", llp_r_chunk: int = 0):
+                 minibatch: bool = False, compute_dtype="float32", llp_r_chunk: int = 0,
+                 world: Optional[World] = None):
         if neg_mode not in ("dense", "uniform"):
             raise ValueError(f"unknown neg_mode {neg_mode!r}")
         if neg_mode == "dense" and neg_keys is None:
@@ -178,7 +193,32 @@ class StudentTrainer:
         self.pairs = None if pairs is None else pairs.to(dev)
         chunks = build_pair_chunks(pairs, llp_r_chunk)
         self.pair_chunks = None if chunks is None else tuple(t.to(dev) for t in chunks)
+        self.world = world
+        self.links = self.nodes = None
+        if world is not None:
+            self._shard(world)
         self.optimizer = torch.optim.Adam(model.parameters(), lr=lr)
+
+    def _shard(self, world: World) -> None:
+        """This rank's slices of the link and node batches, the rows of the
+        whole batch that its dropout masks are drawn for, and, in minibatch
+        mode over several ranks, batch norm's moments across ranks."""
+        self.links = BatchShard(world, self.batch)
+        self.nodes = BatchShard(world, self.node_batch)
+        width = 1 + self.num_contexts
+        self.link_rows = (self.links.pair_rows(), 2 * self.batch)
+        self.ctx_rows = (self.nodes.rows, self.node_batch)
+        # the minibatch forward's rows: [contexts | src | dst]
+        base = self.node_batch * width if self.use_kd else 0
+        parts = [base + self.link_rows[0], base + 2 * self.batch + self.link_rows[0]]
+        if self.use_kd:
+            ctx = self.nodes.rows[:, None] * width + torch.arange(width, device=world.device)
+            parts.insert(0, ctx.reshape(-1))
+        self.enc_rows = (torch.cat(parts), base + 4 * self.batch)
+        if self.minibatch and world.size > 1:
+            for m in self.model.modules():
+                if isinstance(m, BatchNorm):
+                    m.world = world
 
     def negatives(self, generator: torch.Generator) -> torch.Tensor:
         """(2, batch) fresh negatives."""
@@ -190,29 +230,72 @@ class StudentTrainer:
         """(B, 1 + C) walk contexts and uniform negatives of ``anchors``."""
         return sample_contexts(generator, self.graph, anchors, **self.walk)
 
-    def _rank_loss(self, s_r: torch.Tensor, t_r: torch.Tensor,
-                   amask: torch.Tensor) -> torch.Tensor:
+    def _rank_loss(self, s_r: torch.Tensor, t_r: torch.Tensor, amask: torch.Tensor,
+                   count: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if count is not None:
+            count = count * self.pairs.shape[1]
         if self.pair_chunks is None:
             p0, p1 = self.pairs
             target = _rank_targets(t_r[:, p0], t_r[:, p1], self.margin)
             return margin_rank_loss(_take_cols(s_r, p0), _take_cols(s_r, p1), target,
-                                    self.margin, amask[:, None].expand_as(target))
+                                    self.margin, amask[:, None].expand_as(target),
+                                    count=count)
         num = den = torch.zeros((), device=s_r.device)
         for p0, p1, valid in zip(*self.pair_chunks):
             cn, cd = checkpoint(_pair_chunk_sums, s_r, t_r, amask, p0, p1, valid,
                                 self.margin, use_reentrant=False)
             num, den = num + cn, den + cd
-        return num / den.clamp(min=1.0)
+        return num / (den if count is None else count.float()).clamp(min=1.0)
 
     def step(self, edges: torch.Tensor, emask: torch.Tensor, anchors: torch.Tensor,
              amask: torch.Tensor, neg: torch.Tensor, samples: Optional[torch.Tensor],
-             generator: torch.Generator) -> torch.Tensor:
+             generator: torch.Generator,
+             counts: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
         """One batch: the loss, gradients, clip, Adam.  ``samples`` (bn, 1 + C)
         are the anchors' contexts (None when LLP_D and LLP_R are both off).
-        Returns the loss (0-d, detached, on the device)."""
+        Returns the loss (0-d, detached, on the device).  With a world the
+        batches are this rank's slices and ``counts`` the whole batches'
+        real (positives, anchors); the loss returned is the whole batch's."""
+        loss = self.gradients(edges, emask, anchors, amask, neg, samples, generator, counts)
+        clip_by_group_norm({"encoder": self.model["encoder"],
+                            "predictor": self.model["predictor"]}, 1.0)
+        self.optimizer.step()
+        return loss
+
+    def batch_of(self, lidx: torch.Tensor, nidx: torch.Tensor, neg: torch.Tensor,
+                 samples: Optional[torch.Tensor]) -> tuple:
+        """``(edges, emask, anchors, amask, neg, samples, counts)``,
+        :meth:`step`'s batch but the generator, from a link batch ``lidx``
+        and a node batch ``nidx`` of the padded permutations, the negatives
+        and the anchors' contexts: the whole batches, or with a world this
+        rank's slices and the whole batches' counts."""
+        e, n = self.num_pos, self.num_nodes
+        if self.world is None:
+            return (self.pos_edges[lidx.clamp(max=e - 1)], lidx < e, nidx.clamp(max=n - 1),
+                    nidx < n, neg, samples, None)
+        mine, anchors = self.links.ids(lidx, e), self.nodes.ids(nidx, n)
+        return (self.pos_edges[mine.clamp(max=e - 1)], mine < e, anchors.clamp(max=n - 1),
+                anchors < n, self.links.take(neg, 1),
+                None if samples is None else self.nodes.take(samples),
+                ((lidx < e).sum(), (nidx < n).sum()))
+
+    def gradients(self, edges: torch.Tensor, emask: torch.Tensor, anchors: torch.Tensor,
+                  amask: torch.Tensor, neg: torch.Tensor, samples: Optional[torch.Tensor],
+                  generator: torch.Generator,
+                  counts: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+        """The batch's loss, and its gradients in the parameters' ``.grad``
+        (with a world, the whole batch's: summed across ranks), before the
+        clip; returns the loss (0-d, detached)."""
         enc, pred = self.model["encoder"], self.model["predictor"]
         w, dt = self.coef, self.dtype
         self.model.train()
+        n_pos, n_anchors = (None, None) if counts is None else counts
+        enc_drop = ctx_drop = link_drop = generator
+        if self.world is not None:
+            if self.minibatch:
+                enc_drop = BatchRows(generator, *self.enc_rows)
+            ctx_drop = BatchRows(generator, *self.ctx_rows)
+            link_drop = BatchRows(generator, *self.link_rows)
         src = torch.cat([edges[:, 0], neg[0]])
         dst = torch.cat([edges[:, 1], neg[1]])
         h = None
@@ -220,7 +303,7 @@ class StudentTrainer:
             # one forward over the gathered rows [contexts | src | dst]
             parts = [samples.reshape(-1), src, dst] if self.use_kd else [src, dst]
             rows = call_in_dtype(enc, dt, self.x.index_select(0, torch.cat(parts)),
-                                 generator=generator)
+                                 generator=enc_drop)
             if self.use_kd:
                 ctx = rows[:samples.numel()].view(*samples.shape, -1)
                 anchor_h, ctx_h = ctx[:, 0], ctx[:, 1:]
@@ -239,36 +322,40 @@ class StudentTrainer:
 
         loss = torch.zeros((), device=self.x.device)
         if self.use_kd:
-            s_r = call_in_dtype(pred, dt, anchor_h[:, None, :], ctx_h, generator=generator)
+            s_r = call_in_dtype(pred, dt, anchor_h[:, None, :], ctx_h, generator=ctx_drop)
             with torch.no_grad():
                 t_ctx = self.t_h.index_select(0, samples[:, 1:].reshape(-1))
                 t_r = self.teacher(self.t_h.index_select(0, samples[:, 0])[:, None, :],
                                    t_ctx.view(samples.shape[0], self.num_contexts, -1))
             if w["llp_d"] != 0.0:
-                loss = loss + w["llp_d"] * kl_div_loss(s_r, t_r, 1.0, row_mask=amask)
+                loss = loss + w["llp_d"] * kl_div_loss(s_r, t_r, 1.0, row_mask=amask,
+                                                       count=n_anchors)
             if w["llp_r"] != 0.0:
-                loss = loss + w["llp_r"] * self._rank_loss(s_r, t_r, amask)
+                loss = loss + w["llp_r"] * self._rank_loss(s_r, t_r, amask, n_anchors)
 
-        out = call_in_dtype(pred, dt, src_h, dst_h, generator=generator)
+        out = call_in_dtype(pred, dt, src_h, dst_h, generator=link_drop)
         labels = torch.cat([torch.ones(edges.shape[0], device=out.device),
                             torch.zeros(neg.shape[1], device=out.device)])
         fmask = torch.cat([emask, emask])
-        loss = loss + w["true_label"] * bce_loss(out, labels, fmask)
+        n_pairs = None if n_pos is None else 2 * n_pos
+        loss = loss + w["true_label"] * bce_loss(out, labels, fmask, count=n_pairs)
         if h is not None:  # the baselines run in full-batch mode only
             if w["kd_rm"] != 0.0:
-                loss = loss + w["kd_rm"] * cosine_loss(gather_rows(h, anchors),
-                                                       self.t_h.index_select(0, anchors),
-                                                       amask)
+                cos = cosine_loss(gather_rows(h, anchors), self.t_h.index_select(0, anchors),
+                                  amask, count=n_anchors)
+                if self.world is not None and self.world.rank:
+                    cos = cos - 1.0  # the loss's constant 1 counts once across ranks
+                loss = loss + w["kd_rm"] * cos
             if w["kd_lm"] != 0.0:
                 with torch.no_grad():
                     t_out = self.teacher(self.t_h.index_select(0, src),
                                          self.t_h.index_select(0, dst))
-                loss = loss + w["kd_lm"] * mse_loss(out, t_out, fmask)
+                loss = loss + w["kd_lm"] * mse_loss(out, t_out, fmask, count=n_pairs)
 
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        clip_by_group_norm({"encoder": enc, "predictor": pred}, 1.0)
-        self.optimizer.step()
+        if self.world is not None:
+            loss = all_reduce_grads(self.model.parameters(), loss, self.world)
         return loss.detach()
 
     def epoch(self, generator: torch.Generator, negatives: Optional[torch.Tensor] = None,
@@ -277,7 +364,8 @@ class StudentTrainer:
         real positives (0-d, on the device).  ``negatives`` (steps, 2, batch)
         int64 replaces the negative sampler and ``contexts`` (N, 1 + C) int64,
         row ``a`` anchor ``a``'s context row, the walk sampler, so that a test
-        can drive the epoch with fixed samples."""
+        can drive the epoch with fixed samples (at the whole batch's shape,
+        with a world too)."""
         e, bl, n, bn = self.num_pos, self.batch, self.num_nodes, self.node_batch
         dev = self.x.device
         lperm = torch.randperm(e, generator=generator, device=dev)
@@ -288,17 +376,15 @@ class StudentTrainer:
         total = torch.zeros((), device=dev)
         count = torch.zeros((), device=dev)
         for i, (lidx, nidx) in enumerate(zip(lperm.view(self.steps, bl), nperm)):
-            emask = lidx < e
-            edges = self.pos_edges[lidx.clamp(max=e - 1)]
-            amask = nidx < n
             anchors = nidx.clamp(max=n - 1)
             neg = self.negatives(generator) if negatives is None else negatives[i]
             samples = None
             if self.use_kd:
                 samples = (self.contexts(generator, anchors) if contexts is None
                            else contexts.index_select(0, anchors))
-            loss = self.step(edges, emask, anchors, amask, neg, samples, generator)
-            k = emask.sum()
+            *batch, counts = self.batch_of(lidx, nidx, neg, samples)
+            loss = self.step(*batch, generator, counts)
+            k = (lidx < e).sum()
             total += loss * k
             count += k
         return total / count.clamp(min=1)

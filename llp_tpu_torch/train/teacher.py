@@ -30,6 +30,12 @@ by default:
   leaves batch norm's running buffers as the forward left them;
 * ``hoist`` True or False overrides the layer-1 hoist gate
   (:func:`hoists_first_aggregation`); the MLP encoder never hoists.
+
+With ``world`` (a :class:`llp_tpu_torch.parallel.mesh.World`) the trainer
+is one rank of a data-parallel run (``llp_tpu/parallel/epoch.py::
+make_sharded_teacher_epoch_fn``, :mod:`llp_tpu_torch.parallel.epoch`): it
+aggregates over the rank's edge shard, scores its slice of each batch and
+sums the gradients across ranks before the clip.
 """
 
 from __future__ import annotations
@@ -51,6 +57,10 @@ from llp_tpu_torch.models.encoder import (
 from llp_tpu_torch.models.predictor import LinkPredictor
 from llp_tpu_torch.ops.gather import gather_rows
 from llp_tpu_torch.ops.losses import bce_loss
+from llp_tpu_torch.ops.rng import BatchRows
+from llp_tpu_torch.parallel.epoch import BatchShard
+from llp_tpu_torch.parallel.mesh import World, shard_edges
+from llp_tpu_torch.parallel.sharded import all_reduce_grads
 from llp_tpu_torch.sample.negative import sample_negative_edges, sample_uniform_edges
 from llp_tpu_torch.train.optim import clip_by_group_norm
 from llp_tpu_torch.utils.precision import call_in_dtype, resolve_dtype
@@ -81,7 +91,8 @@ class TeacherTrainer:
     ``neg_mode="uniform"``).  ``compute_dtype`` bfloat16 runs the forward and
     backward in bf16 over the fp32 parameters (:mod:`llp_tpu_torch.utils.precision`).
     ``gather_last``, ``remat`` and ``hoist`` are the big-graph knobs of the
-    module's docstring.
+    module's docstring; ``world`` makes it one rank of a data-parallel run
+    (``graph`` is then the whole graph, which it shards).
     """
 
     def __init__(self, model: nn.ModuleDict, graph: Optional[Graph], x: torch.Tensor,
@@ -89,12 +100,15 @@ class TeacherTrainer:
                  batch_size: int = 64 * 1024, lr: float = 0.005,
                  neg_mode: str = "dense", neg_keys: Optional[torch.Tensor] = None,
                  compute_dtype="float32", gather_last: bool = False, remat: bool = False,
-                 hoist: Optional[bool] = None):
+                 hoist: Optional[bool] = None, world: Optional[World] = None):
         if neg_mode not in ("dense", "uniform"):
             raise ValueError(f"unknown neg_mode {neg_mode!r}")
         if neg_mode == "dense" and neg_keys is None:
             raise ValueError("dense negatives need the sorted edge keys")
         self.model = model
+        self.world = world
+        if world is not None and graph is not None:
+            graph = shard_edges(graph, world)
         self.graph = graph
         self.num_nodes = x.shape[0]
         self.dtype = resolve_dtype(compute_dtype)
@@ -109,6 +123,7 @@ class TeacherTrainer:
         self.num_pos = pos_edges.shape[0]
         self.batch = min(batch_size, self.num_pos)
         self.steps = -(-self.num_pos // self.batch)
+        self.shard = None if world is None else BatchShard(world, self.batch)
         self.optimizer = torch.optim.Adam(model.parameters(), lr=lr)
 
     def negatives(self, generator: torch.Generator) -> torch.Tensor:
@@ -120,10 +135,36 @@ class TeacherTrainer:
                                     device=self.x.device)
 
     def step(self, edges: torch.Tensor, mask: torch.Tensor, neg: torch.Tensor,
-             generator: torch.Generator) -> torch.Tensor:
+             generator: torch.Generator, count: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One batch: loss, gradients, clip, Adam.  Returns the loss (0-d,
-        detached, on the device)."""
-        enc, pred = self.model["encoder"], self.model["predictor"]
+        detached, on the device).  With a world the batch is this rank's
+        slice and ``count`` the whole batch's real positives; the loss
+        returned is the whole batch's."""
+        loss = self.gradients(edges, mask, neg, generator, count)
+        clip_by_group_norm({"encoder": self.model["encoder"],
+                            "predictor": self.model["predictor"]}, 1.0)
+        self.optimizer.step()
+        return loss
+
+    def batch_of(self, idx: torch.Tensor, neg: torch.Tensor) -> tuple:
+        """``(edges, mask, neg, count)``, :meth:`step`'s batch, from a batch
+        of the padded permutation ``idx`` (batch,) and its negatives (2,
+        batch): the whole batch, or with a world this rank's slice of it and
+        the whole batch's count."""
+        e = self.num_pos
+        if self.shard is None:
+            return self.pos_edges[idx.clamp(max=e - 1)], idx < e, neg, None
+        mine = self.shard.ids(idx, e)
+        return (self.pos_edges[mine.clamp(max=e - 1)], mine < e, self.shard.take(neg, 1),
+                (idx < e).sum())
+
+    def gradients(self, edges: torch.Tensor, mask: torch.Tensor, neg: torch.Tensor,
+                  generator: torch.Generator,
+                  count: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The batch's loss, and its gradients in the parameters' ``.grad``
+        (with a world, the whole batch's: summed across ranks), before the
+        clip; returns the loss (0-d, detached)."""
+        pred = self.model["predictor"]
         self.model.train()
         ends = torch.cat([edges[:, 0], neg[0], edges[:, 1], neg[1]])  # [src; dst]
         if self.gather_last:
@@ -131,15 +172,19 @@ class TeacherTrainer:
         else:
             rows = gather_rows(self.encode(generator), ends)
         hi, hj = rows.chunk(2)
-        out = call_in_dtype(pred, self.dtype, hi, hj, generator=generator)
+        drop = generator
+        if self.shard is not None:
+            drop = BatchRows(generator, self.shard.pair_rows(), 2 * self.batch)
+        out = call_in_dtype(pred, self.dtype, hi, hj, generator=drop)
         b = edges.shape[0]
         labels = torch.cat([torch.ones(b, device=out.device),
                             torch.zeros(b, device=out.device)])
-        loss = bce_loss(out, labels, torch.cat([mask, mask]))
+        loss = bce_loss(out, labels, torch.cat([mask, mask]),
+                        count=None if count is None else 2 * count)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        clip_by_group_norm({"encoder": enc, "predictor": pred}, 1.0)
-        self.optimizer.step()
+        if self.world is not None:
+            loss = all_reduce_grads(self.model.parameters(), loss, self.world)
         return loss.detach()
 
     def encode(self, generator: torch.Generator,
@@ -176,7 +221,7 @@ class TeacherTrainer:
         0-d on the device, and keeps each step's loss in ``step_losses``
         ((steps,) on the device).  ``negatives`` (steps, 2, batch) int64
         replaces the sampler, so that a test can drive the epoch with fixed
-        samples."""
+        samples (at the whole batch's shape, with a world too)."""
         e, b, dev = self.num_pos, self.batch, self.x.device
         perm = torch.randperm(e, generator=generator, device=dev)
         perm = torch.cat([perm, torch.full((self.steps * b - e,), e, device=dev)])
@@ -184,12 +229,11 @@ class TeacherTrainer:
         count = torch.zeros((), device=dev)
         losses = []
         for i, idx in enumerate(perm.view(self.steps, b)):
-            mask = idx < e
-            edges = self.pos_edges[idx.clamp(max=e - 1)]
             neg = self.negatives(generator) if negatives is None else negatives[i]
-            loss = self.step(edges, mask, neg, generator)
+            edges, mask, neg, whole = self.batch_of(idx, neg)
+            loss = self.step(edges, mask, neg, generator, whole)
             losses.append(loss)
-            n = mask.sum()
+            n = (idx < e).sum()
             total += loss * n
             count += n
         self.step_losses = torch.stack(losses)

@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from llp_tpu_torch.cli import serve as torch_serve
-from llp_tpu_torch.utils.device import setup_device
+from llp_tpu_torch.utils.device import rank_devices, setup_device
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "llp_tpu_torch"
@@ -49,7 +49,10 @@ def test_import_loads_no_jax_and_no_llp_tpu():
      "llp_tpu_torch.data.registry, llp_tpu_torch.data.subsample, "
      "llp_tpu_torch.data.import_reference, llp_tpu_torch.utils.torch_import",
      "llp_tpu_torch.cli.import_reference, llp_tpu_torch.train.state",
-     "llp_tpu_torch.cli.sweep, llp_tpu_torch.cli.parity"],
+     "llp_tpu_torch.cli.sweep, llp_tpu_torch.cli.parity",
+     "llp_tpu_torch.parallel, llp_tpu_torch.parallel.mesh, llp_tpu_torch.parallel.sharded, "
+     "llp_tpu_torch.parallel.epoch, llp_tpu_torch.parallel.launch, "
+     "llp_tpu_torch.tools.dp_runs"],
 )
 def test_training_modules_load_no_jax_and_no_llp_tpu(modules):
     code = (
@@ -81,6 +84,32 @@ def test_no_source_imports_jax_or_llp_tpu(path):
     assert not bad, f"{path} imports {bad}"
 
 
+def test_the_scan_covers_the_parallel_package():
+    scanned = {str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")}
+    assert {f"llp_tpu_torch/parallel/{m}.py" for m in
+            ("__init__", "mesh", "sharded", "epoch", "launch")} <= scanned
+
+
+def test_a_spawned_worker_loads_no_jax_and_no_llp_tpu(tmp_path):
+    # this process has imported jax (tests/conftest.py); a rank's process
+    # imports the package alone
+    from llp_tpu_torch.parallel.launch import launch
+    from llp_tpu_torch.tools.dp_runs import run_jobs
+
+    res = launch(run_jobs, ["cpu", "cpu"], [("forbidden_modules", None)],
+                 init_method=f"file://{tmp_path / 'store'}", timeout=60, join_timeout=300)
+    assert res == [[[]], [[]]]
+
+
+def test_a_failing_worker_raises_its_traceback(tmp_path):
+    from llp_tpu_torch.parallel.launch import launch
+    from llp_tpu_torch.tools.dp_runs import run_jobs
+
+    with pytest.raises(RuntimeError, match="(?s)rank 0 of 1 failed:.*KeyError: 'no such run'"):
+        launch(run_jobs, ["cpu"], [("no such run", None)],
+               init_method=f"file://{tmp_path / 'store'}", timeout=60, join_timeout=300)
+
+
 def test_setup_device_refuses_a_missing_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert setup_device("cpu") == torch.device("cpu")
@@ -89,6 +118,12 @@ def test_setup_device_refuses_a_missing_card(monkeypatch):
             setup_device(spec)
     with pytest.raises(SystemExit, match="unknown --device"):
         setup_device("tpu")
+    assert setup_device("cpu:4") == torch.device("cpu")  # the JAX CLI's spelling
+    assert rank_devices("cpu:2", 2) == [torch.device("cpu")] * 2
+    with pytest.raises(SystemExit, match="--num_devices 2 --device cuda: only 0 CUDA"):
+        rank_devices("cuda", 2)
+    with pytest.raises(SystemExit, match="pass --device cuda"):
+        rank_devices("cuda:1", 2)
 
 
 def test_serve_cli_without_device_cpu_exits_on_a_host_without_cuda(monkeypatch, tmp_path):

@@ -1,0 +1,145 @@
+"""Both training CLIs of the port with ``--device cpu --num_devices 2`` on a
+stand-in: transductive and production, teacher and student, and a run cut
+and resumed.
+
+* Rank 0's stdout has the single-process run's lines (numbers masked), and
+  the other rank prints nothing; the results files hold the same lines, the
+  config line differing in ``num_devices`` alone, and the same metrics as
+  one process's within the epoch test's tolerance (the dropout masks of the
+  ranks' rows are one process's).
+* A run cut at epoch 2 and resumed to 4 ends as the uninterrupted run of
+  the same world does, bit for bit.
+* The CLI's own launch (``--device cpu:2``, JAX's spelling) trains and
+  writes the artifact.
+
+One spawned world runs the flags of every case (``dp_runs.cli_run`` as
+each rank); the launch case spawns its own.  60 s timeouts on the process
+group's collectives, 300 s on the world's whole run.
+"""
+
+import ast
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from llp_tpu_torch.cli import train_student, train_teacher
+from llp_tpu_torch.parallel.launch import launch
+from llp_tpu_torch.tools.dp_runs import run_jobs
+
+DATASET = "synthetic:sbm:300:4:6.0:1:48:gauss"
+TIMEOUT = 60  # every collective and the rendezvous
+RUN_TIMEOUT = 300  # a world's whole run of the module's cases, on a loaded host
+METRIC_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _flags(root, role, *extra):
+    batch = "--batch_size=1024" if role == "teacher" else "--link_batch_size=1024"
+    return [f"--datasets={DATASET}", f"--dataset_dir={root / 'data'}",
+            f"--save_dir={root / 'saved'}", f"--results_dir={root / 'results'}",
+            "--epochs=4", "--eval_steps=2", "--runs=2", "--hidden_channels=32", batch,
+            "--device=cpu", *extra]
+
+
+SETTINGS = {"transductive": (), "production": ("--transductive=production",)}
+CUT = ("--runs=1", "--checkpoint_every=2")
+
+
+def _jobs(root):
+    jobs = {}
+    for setting, extra in SETTINGS.items():
+        for role in ("teacher", "student"):
+            jobs[role, setting] = {"role": role, "argv": _flags(root / setting, role, *extra)}
+    jobs["whole"] = {"role": "teacher", "argv": _flags(root / "whole", "teacher", *CUT)}
+    jobs["cut"] = {"role": "teacher", "argv": _flags(root / "cut", "teacher", *CUT,
+                                                     "--epochs=2")}
+    jobs["resumed"] = {"role": "teacher", "argv": _flags(root / "cut", "teacher", *CUT,
+                                                         "--resume")}
+    return jobs
+
+
+@pytest.fixture(scope="module")
+def dp(tmp_path_factory):
+    root = tmp_path_factory.mktemp("dp")
+    jobs = _jobs(root)
+    for job in jobs.values():
+        job["argv"].append("--num_devices=2")
+    res = launch(run_jobs, ["cpu", "cpu"], [("cli", j) for j in jobs.values()],
+                 init_method=f"file://{tmp_path_factory.mktemp('rendezvous') / 'store'}",
+                 timeout=TIMEOUT, join_timeout=RUN_TIMEOUT)
+    return root, {name: [r[i] for r in res] for i, name in enumerate(jobs)}
+
+
+@pytest.fixture(scope="module")
+def single(tmp_path_factory):
+    root = tmp_path_factory.mktemp("single")
+    out = {}
+    for (role, setting), job in ((k, j) for k, j in _jobs(root).items() if len(k) == 2):
+        out[role, setting] = run_jobs([("cli", job)])[0]
+    return root, out
+
+
+def _shape(line: str) -> str:
+    """A stdout line with its numbers masked."""
+    return re.sub(r"-?\d+(\.\d+)?(e-?\d+)?", "#", line)
+
+
+def _results(root, role, setting):
+    kind = "supervised" if role == "teacher" else "KD"
+    path = root / setting / "results" / f"{DATASET}_{kind}_{setting}.txt"
+    return path.read_text().splitlines()
+
+
+@pytest.mark.parametrize("setting", list(SETTINGS))
+@pytest.mark.parametrize("role", ["teacher", "student"])
+def test_rank_zero_prints_and_writes_what_one_process_does(dp, single, role, setting):
+    (root, ranks), (one_root, one) = dp, single
+    lead, other = ranks[role, setting]
+    ref = one[role, setting]
+    assert other["stdout"] == []
+    assert [_shape(s) for s in lead["stdout"]] == [_shape(s) for s in ref["stdout"]]
+    ours, theirs = _results(root, role, setting), _results(one_root, role, setting)
+    a, b = ast.literal_eval(ours[0]), ast.literal_eval(theirs[0])
+    assert (a.pop("num_devices"), b.pop("num_devices")) == (2, 1)
+    assert {k: v for k, v in a.items() if not k.endswith("_dir")} == {
+        k: v for k, v in b.items() if not k.endswith("_dir")}
+    assert [s.split(":")[0] for s in ours[1:]] == [s.split(":")[0] for s in theirs[1:]]
+    for metric, stats in ref["stats"].items():
+        for split, value in stats.items():
+            np.testing.assert_allclose(lead["stats"][metric][split], value, **METRIC_TOL)
+    np.testing.assert_allclose(lead["report"]["losses"], ref["report"]["losses"],
+                               rtol=1e-4, atol=1e-5)
+    assert lead["report"]["losses"] == other["report"]["losses"]
+
+
+def test_a_cut_and_resumed_run_ends_as_the_whole_run(dp):
+    root, ranks = dp
+    (whole, _), (cut, _), (resumed, _) = ranks["whole"], ranks["cut"], ranks["resumed"]
+    assert resumed["stdout"][0] == "resuming from run 0 epoch 2"
+    assert resumed["report"]["losses"] == whole["report"]["losses"]
+    assert cut["report"]["losses"][0] == whole["report"]["losses"][0][:2]
+    assert resumed["stats"] == whole["stats"]
+    for name in ("cut", "whole"):
+        assert (root / name / "saved" / f"{DATASET}-sage_transductive_trainstate.npz").exists()
+
+
+def test_the_cli_launches_its_ranks(tmp_path, capfd):
+    stats, report = train_teacher.main([*_flags(tmp_path, "teacher", "--runs=1"),
+                                        "--device=cpu:2", "--num_devices=2"])
+    assert np.isfinite(stats["AUC"]["test"][0]) and len(report["losses"][0]) == 4
+    out = capfd.readouterr().out.splitlines()
+    assert sum(s.startswith("[teacher run 0 epoch ") for s in out) == 2  # rank 0's alone
+    assert (tmp_path / "saved" / f"{DATASET}-sage_transductive.npz").exists()
+
+
+def test_the_student_cli_refuses_halo_over_two_devices(tmp_path):
+    with pytest.raises(SystemExit, match="halo.*ROADMAP A14.2"):
+        train_student.main([*_flags(tmp_path, "student"), "--num_devices=2",
+                            "--sharding=halo"])
+
+
+def test_a_missing_card_names_the_count(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="--num_devices 2 --device cuda: only 0 CUDA"):
+        train_teacher.main([*_flags(tmp_path, "teacher"), "--device=cuda", "--num_devices=2"])

@@ -14,6 +14,7 @@ import shutil
 
 import numpy as np
 import pytest
+import torch
 
 from llp_tpu.cli import serve as jax_serve
 from llp_tpu.cli import train_student as jax_student_cli
@@ -172,13 +173,33 @@ def test_use_edge_weight_changes_nothing_in_the_student(tmp_path):
 
 @pytest.mark.parametrize("flag", [
     # production, --reorder and the snapshots run
-    # (tests/test_torch_{production_driver,reorder_driver,resume}.py)
-    "--num_devices=2", "--sharding=halo", "--epochs_per_jit=2", "--spmm_impl=xla",
+    # (tests/test_torch_{production_driver,reorder_driver,resume}.py), and so do
+    # --num_devices 2 (tests/test_torch_parallel_cli.py) and --sharding halo at one
+    # device (below); a card asked for on a machine without one is refused
+    "--num_devices=2 --sharding=halo", "--epochs_per_jit=2", "--spmm_impl=xla",
+    "--num_devices=2 --device=cuda",
 ])
-def test_unported_settings_exit(flag, tmp_path):
+def test_unported_settings_exit(flag, tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit) as exc:
         train_student.main(["--device=cpu", *_flags(tmp_path), *flag.split()])
-    assert re.search(r"not yet ported.*ROADMAP A1[024]|TPU mechanism|one SpMM route",
-                     str(exc.value.code))
+    assert re.search(r"not yet ported.*ROADMAP A14\.2|TPU mechanism|one SpMM route"
+                     r"|only 0 CUDA device", str(exc.value.code))
     assert not os.path.exists(tmp_path / "data")  # refused before any work
+
+
+def test_sharding_halo_at_one_device_trains_as_the_jax_cli_does(students, tmp_path):
+    # at one device JAX builds no mesh (llp_tpu/train/loop.py:71-75): halo runs
+    # the single path; the results files agree, config line included
+    lines = {}
+    for name, main in (("torch", train_student.main), ("jax", jax_student_cli.main)):
+        root = _copy(students[name][0], tmp_path / name)
+        os.remove(root / "results" / f"{DATASET}_KD_transductive.txt")
+        main(["--device=cpu", *_flags(root), "--link_batch_size=1024", "--runs=1",
+              "--sharding=halo"])
+        lines[name] = (root / "results" / f"{DATASET}_KD_transductive.txt").read_text()
+    ours, ref = lines["torch"].splitlines(), lines["jax"].splitlines()
+    assert_same_config_line(ours[0], ref[0])
+    assert "'sharding': 'halo'" in ours[0]
+    assert [s.split(":")[0] for s in ours[1:]] == [s.split(":")[0] for s in ref[1:]]
 

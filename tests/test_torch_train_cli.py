@@ -123,15 +123,36 @@ def assert_same_config_line(ours: str, ref: str) -> None:
 
 @pytest.mark.parametrize("flag", [
     # production, --reorder and the snapshots run
-    # (tests/test_torch_{production_driver,reorder_driver,resume}.py)
-    "--num_devices=2", "--sharding=halo", "--epochs_per_jit=2", "--spmm_impl=xla",
+    # (tests/test_torch_{production_driver,reorder_driver,resume}.py), and so do
+    # --num_devices 2 (tests/test_torch_parallel_cli.py) and --sharding halo at one
+    # device (below); a card asked for on a machine without one is refused
+    "--num_devices=2 --sharding=halo", "--epochs_per_jit=2", "--spmm_impl=xla",
+    "--num_devices=2 --device=cuda",
 ])
-def test_unported_settings_exit(flag, tmp_path):
+def test_unported_settings_exit(flag, tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit) as exc:
         train_teacher.main(["--device=cpu", *_flags(tmp_path), *flag.split()])
     assert exc.value.code not in (None, 0)
-    assert re.search(r"not yet ported|TPU mechanism|one SpMM route", str(exc.value.code))
+    assert re.search(r"not yet ported.*A14\.2|TPU mechanism|one SpMM route|only 0 CUDA device",
+                     str(exc.value.code))
     assert not os.path.exists(tmp_path / "data")  # refused before any work
+
+
+def test_sharding_halo_at_one_device_trains_as_the_jax_cli_does(tmp_path):
+    # JAX builds no mesh at one device (llp_tpu/train/loop.py:71-75), so halo
+    # runs the single path; the results files agree, config line included
+    for main, name in ((jax_train.main, "jax"), (train_teacher.main, "torch")):
+        main(["--device=cpu", *_flags(tmp_path / name), "--runs=1", "--sharding=halo"])
+
+    def lines(root):
+        return (root / "results" / f"{DATASET}_supervised_transductive.txt").read_text()
+
+    ours, ref = (lines(tmp_path / n).splitlines() for n in ("torch", "jax"))
+    assert_same_config_line(ours[0], ref[0])
+    assert ast.literal_eval(ours[0])["sharding"] == "halo"
+    assert [s.split(":")[0] for s in ours[1:]] == [s.split(":")[0] for s in ref[1:]]
+    assert (tmp_path / "torch" / "saved" / f"{DATASET}-sage_transductive.npz").exists()
 
 
 def test_use_edge_weight_trains_on_a_dataset_that_ships_weights_and_a_split(tmp_path):

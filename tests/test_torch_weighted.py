@@ -232,8 +232,14 @@ def test_segsum_refuses_weighted_instances_it_does_not_have():
     ei, x, w = _problem("isolated", 8)
     g = build_graph(ei, x.shape[0], device="cpu", edge_weight=w)
     xb = torch.from_numpy(x).bfloat16()
-    with pytest.raises(TypeError, match="no weighted torch.bfloat16 -> torch.float32"):
-        segsum(xb, g.senders, g.in_ptr, weights=g.edge_weight, out_dtype=torch.float32)
+    with pytest.raises(TypeError, match="no weighted torch.float32 -> torch.bfloat16"):
+        segsum(torch.from_numpy(x), g.senders, g.in_ptr, weights=g.edge_weight,
+               out_dtype=torch.bfloat16)
+    # bf16 -> fp32 is an instance (the data-parallel aggregation's partials):
+    # the bf16 store's sum before its one rounding
+    wide = segsum(xb, g.senders, g.in_ptr, weights=g.edge_weight, out_dtype=torch.float32)
+    assert wide.dtype == torch.float32
+    assert torch.equal(wide.bfloat16(), segsum(xb, g.senders, g.in_ptr, weights=g.edge_weight))
     with pytest.raises(ValueError, match="one per sender"):
         segsum(torch.from_numpy(x), g.senders, g.in_ptr, weights=g.edge_weight[:-1])
     with pytest.raises(ValueError, match="one per sender"):
