@@ -196,8 +196,29 @@ failure exits non-zero.
                    backward fp32, forward bf16 -> fp32, weighted bf16 ->
                    fp32) against ``segsum_plain`` over the same CSR and
                    timed, entries of the kernels line.
-13. kernels     -- one JSON line: each kernel's launches on the serving,
-                   training, student, production, tooling, reorder and dp paths, its
+13. halo        -- the node-sharded path (``--sharding halo``): (a) a world
+                   of one rank over NCCL on ``cuda:0``, two epochs each in
+                   turns with the single path, of the collab SAGE teacher
+                   at full width (fp32, bf16), the weighted GCN teacher
+                   (bf16) and the collab table student (minibatch): losses,
+                   parameters, buffers and the generator bit for bit and
+                   the same B1 launches (``halo_world1:``); the halo
+                   evaluator at a world of one equal to the single path's,
+                   with its B3 launches (``halo_eval:``); (b) two ranks on
+                   the one card over gloo: the collab halo teacher's first
+                   4 steps (fp32, dropout 0) against one card at rtol 2e-4,
+                   atol 2e-5, its parameters within lr a step, and the
+                   cora table student bit for bit against the dp minibatch
+                   student (``halo_gloo:``); the rows and bytes a step
+                   exchanges and each rank's peak memory (``halo_bytes:``);
+                   (c) with two cards, ``train_teacher --num_devices 2
+                   --sharding halo`` on collab (else a ``halo_cli:`` skip
+                   line); then B1 over rank 0 of 2's halo plan (local and
+                   remote, forward and backward, the owner scatter; bf16 ->
+                   fp32 and weighted) against ``segsum_plain`` and timed,
+                   entries of the kernels line.
+14. kernels     -- one JSON line: each kernel's launches on the serving,
+                   training, student, production, tooling, reorder, dp and halo paths, its
                    time at the collab shapes, the plain version's time, a
                    library call's time where one exists, and the least time
                    the card could take. A ``top_k_partners:`` line gives the
@@ -3986,6 +4007,369 @@ def phase_dp(gen, train: dict) -> dict:
     return {"entries": _dp_shard_entries(gen, train, counts)}
 
 
+# The halo phase (--sharding halo). (b): the collab SAGE teacher's first
+# DP_STEPS steps on two gloo ranks of the one card (dropout 0: the ranks
+# draw their node rows' masks from streams of their own), its losses at
+# DP_TOL against one card and its parameters within lr a step; the cora
+# table student HALO_STUDENT_EPOCHS epochs, bit for bit against the dp
+# minibatch student in the same world.
+HALO_STUDENT_EPOCHS = 2
+
+# The halo B1 entries: (name, x's type, the plan's part, direction, weighted).
+HALO_KERNELS = (
+    ("segsum.halo.local.fwd.f32.d256", "float32", "local", "fwd", False),
+    ("segsum.halo.local.bwd.f32.d256", "float32", "local", "bwd", False),
+    ("segsum.halo.remote.fwd.f32.d256", "float32", "remote", "fwd", False),
+    ("segsum.halo.remote.bwd.f32.d256", "float32", "remote", "bwd", False),
+    ("segsum.halo.owner.bwd.f32.d256", "float32", "owner", "bwd", False),
+    ("segsum.halo.local.fwd.bf16->f32.d256", "bfloat16", "local", "fwd", False),
+    ("segsum.halo.local.bwd.bf16->f32.d256", "bfloat16", "local", "bwd", False),
+    ("segsum.halo.local.weighted.fwd.bf16->f32.d256", "bfloat16", "local", "fwd", True),
+    ("segsum.halo.local.weighted.bwd.f32.d256", "float32", "local", "bwd", True),
+)
+
+
+def _halo_epoch(trainer) -> dict:
+    """:func:`_dp_epoch` with the halo aggregation's and ``table_gather``'s
+    launches in it."""
+    from llp_tpu_torch.parallel.epoch import table_gather
+    from llp_tpu_torch.parallel.halo import halo_spmm
+
+    halo, table = Counter(halo_spmm.launch_counts), table_gather.launches
+    out = _dp_epoch(trainer)
+    out["halo_launches"] = Counter(halo_spmm.launch_counts) - halo
+    out["table_gather"] = table_gather.launches - table
+    return out
+
+
+def _halo_world_of_one(label: str, make, world) -> Counter:
+    """(a): ``make(world)``'s trainer for two epochs on the single path and
+    as the one rank of a halo ``world``, in turns (single, world, world,
+    single): losses, parameters, buffers and generator bit for bit after
+    each epoch, and the same B1 launches (the halo path's gathers through
+    ``table_gather``). Returns the halo launches."""
+    import torch
+
+    single_t, halo_t = make(None), make(world)
+    counts = Counter()
+    first = (_halo_epoch(single_t), _halo_epoch(halo_t))
+    second = _halo_epoch(halo_t), _halo_epoch(single_t)
+    for i, (single, halo) in enumerate((first, second[::-1])):
+        run = label if not i else f"{label} epoch 2"
+        bitwise = (torch.equal(single["step_losses"], halo["step_losses"])
+                   and torch.equal(single["rng"], halo["rng"])
+                   and all(torch.equal(a, b) for a, b in zip(single["state"], halo["state"])))
+        steps = halo["steps"]
+        s, h = single["launches"], halo["launches"]
+        line = {"run": run, "bitwise": bitwise, "loss_single": single["loss"],
+                "loss_world1": halo["loss"], "steps": steps,
+                "epoch_s_single": single["epoch_s"], "epoch_s_world1": halo["epoch_s"],
+                "segsum_per_step_single": s["segsum"] / steps,
+                "segsum_per_step_world1": h["segsum"] / steps,
+                "halo_launches": {" ".join(map(str, k)): v
+                                  for k, v in halo["halo_launches"].items()},
+                "table_gather_launches": halo["table_gather"],
+                "reduced_bytes_per_step": halo["reduced_bytes"] / steps}
+        log("halo_world1", line)
+        if not bitwise:
+            raise AssertionError(f"halo {run}: a world of one is not the single path bit for bit")
+        for key in ("segsum", "backward", "weighted_backward", "sddmm"):
+            if s[key] != h[key]:
+                raise AssertionError(f"halo {run}: {key} launches {h[key]} at a world of one, "
+                                     f"{s[key]} on the single path")
+        if s["gather"] != h["gather"] + halo["table_gather"]:
+            raise AssertionError(f"halo {run}: {s['gather']} gather launches on the single "
+                                 f"path, {h['gather']} + {halo['table_gather']} table_gather")
+        if "student" not in label and not halo["halo_launches"]:
+            raise AssertionError(f"halo {run}: no launch of the halo aggregation")
+        counts.update(halo["halo_launches"])
+    return counts
+
+
+def _halo_teacher(data: dict, dtype: str, encoder: str = "sage", dropout: float = 0.5):
+    """A maker of the full-width collab teacher's trainer, halo over a
+    world, for :func:`_halo_world_of_one`."""
+    import torch
+
+    from llp_tpu_torch.train.teacher import TeacherTrainer, init_teacher
+
+    def make(world):
+        model = init_teacher(encoder=encoder, in_channels=data["x"].shape[1],
+                             hidden_channels=256, num_layers=2, predictor_mode="mlp",
+                             dropout=dropout, generator=torch.Generator().manual_seed(0)).cuda()
+        return TeacherTrainer(model, data["graph"], data["x"], data["pos_edges"],
+                              encoder=encoder, batch_size=DP_BATCH, neg_mode="uniform",
+                              compute_dtype=dtype, world=world, sharding="halo")
+
+    return make
+
+
+def _halo_student(data: dict, teacher: Path):
+    """A maker of the full-width collab minibatch student's trainer, its
+    features and teacher table sharded by rows over a world."""
+    import numpy as np
+    import torch
+
+    from llp_tpu_torch.train.student import StudentTrainer, init_student
+    from llp_tpu_torch.utils.checkpoint import load_checkpoint
+    from llp_tpu_torch.utils.config import StudentConfig
+    from llp_tpu_torch.utils.params import from_jax
+
+    ckpt, _ = load_checkpoint(str(teacher))
+    t_h = torch.from_numpy(np.asarray(ckpt["features"], np.float32)).cuda()
+    n, d = data["x"].shape
+    node_batch = StudentConfig(datasets="collab").coupled_node_batch_size(n, data["num_pos"])
+
+    def make(world):
+        model = init_student(in_channels=d, hidden_channels=256, num_layers=2,
+                             predictor_mode="mlp", dropout=0.5,
+                             generator=torch.Generator().manual_seed(0)).cuda()
+        return StudentTrainer(model, data["graph"], data["x"], t_h,
+                              from_jax(ckpt["params"]["predictor"]), data["pos_edges"],
+                              link_batch_size=DP_BATCH, node_batch_size=node_batch,
+                              neg_mode="uniform", minibatch=True, world=world,
+                              table=world is not None)
+
+    return make
+
+
+def _halo_eval_world_of_one(data: dict, world) -> dict:
+    """(e): the halo evaluator at a world of one against the single path's
+    on collab, full width: the same metrics and embeddings bit for bit, and
+    the same pair-scorer (B3) launches."""
+    import torch
+
+    from llp_tpu_torch.evaln.transductive import evaluate_transductive
+    from llp_tpu_torch.parallel.eval import evaluate_halo_transductive
+    from llp_tpu_torch.parallel.halo import halo_graph
+    from llp_tpu_torch.train.teacher import init_teacher
+
+    model = init_teacher(encoder="sage", in_channels=data["x"].shape[1], hidden_channels=256,
+                         num_layers=2, predictor_mode="mlp",
+                         generator=torch.Generator().manual_seed(0)).cuda()
+    enc, pred = model["encoder"], model["predictor"]
+    hg = halo_graph(data["graph"], world)
+    ks = (10, 50, 100)
+    c0 = _counts()
+    single, h_single = evaluate_transductive(enc, pred, data["graph"], data["x"],
+                                             data["eval_edges"], hits_ks=ks)
+    c1 = _counts()
+    halo, h_halo = evaluate_halo_transductive(enc, pred, hg, data["x"], data["eval_edges"],
+                                              hits_ks=ks)
+    c2 = _counts()
+    s, h = _delta(c1, c0), _delta(c2, c1)
+    line = {"results_single": single, "results_world1": halo,
+            "h_bitwise": bool(torch.equal(h_single, h_halo)), "sddmm_single": s["sddmm"],
+            "sddmm_world1": h["sddmm"], "segsum_single": s["segsum"],
+            "segsum_world1": h["segsum"]}
+    log("halo_eval", line)
+    if single != halo or not line["h_bitwise"]:
+        raise AssertionError("halo eval: a world of one differs from the single path")
+    if not h["sddmm"] or h["sddmm"] != s["sddmm"] or h["segsum"] != s["segsum"]:
+        raise AssertionError(f"halo eval: launches {h} at a world of one, {s} single")
+    _check_sddmm_route("halo eval", h)
+    return line
+
+
+def _halo_gloo_jobs(train: dict) -> list:
+    """(b)'s jobs: the collab halo teacher's first DP_STEPS steps, fp32,
+    dropout 0; the cora table student and the dp minibatch student."""
+    kinds = dict(_dp_gloo_jobs(train))
+    teacher = dict(kinds["teacher"], dropout=0.0, sharding="halo")
+    student = dict(kinds["student"], epochs=HALO_STUDENT_EPOCHS)
+    student["trainer"] = dict(student["trainer"], minibatch=True, table=True)
+    dp_student = dict(student, trainer=dict(student["trainer"], table=False))
+    return [("teacher", teacher), ("student", student), ("student", dp_student)]
+
+
+def _halo_two_gloo_ranks(train: dict) -> dict:
+    """(b) and (d): two ranks on the one card over gloo (their exchanges go
+    through the host), so B1 runs over each rank's local and remote edges
+    and the owner scatter on the card, held against one card; the rows and
+    bytes a step exchanges, and each rank's peak memory."""
+    import torch
+
+    from llp_tpu_torch.parallel.launch import launch
+    from llp_tpu_torch.tools.dp_runs import run_jobs
+
+    jobs = _halo_gloo_jobs(train)
+    t0 = time.perf_counter()
+    ranks = launch(run_jobs, ["cuda:0", "cuda:0"], jobs, backend="gloo",
+                   timeout=DP_TIMEOUT_S, join_timeout=2 * DP_TIMEOUT_S)
+    gloo_s = time.perf_counter() - t0
+    (r0, r1) = (ranks[0][0], ranks[1][0])
+    one = run_jobs([("teacher", dict(jobs[0][1], sharding="dp", device="cuda"))])[0]
+    for key in ("params", "buffers"):
+        for a, b in zip(_leaves(r0[key]), _leaves(r1[key])):
+            if not _np_equal(a, b):
+                raise AssertionError(f"halo gloo teacher: the ranks' {key} differ")
+    got, want = r0["step_losses"][0], one["step_losses"][0]
+    err = compare(torch.as_tensor(got), torch.as_tensor(want), **DP_TOL,
+                  what="halo gloo teacher losses")
+    steps = r0["steps"]
+    for a, b in zip(_leaves(r0["params"]), _leaves(one["params"])):
+        compare(torch.as_tensor(a), torch.as_tensor(b), rtol=0.0, atol=DP_LR * steps,
+                what="halo gloo teacher parameters")
+    counts = Counter()
+    for r in (r0, r1):
+        counts.update(r["halo_launches"])
+    log("halo_gloo", {"run": "collab sage float32", "steps": steps,
+                      "losses": list(map(float, got)), "single_losses": list(map(float, want)),
+                      "loss_tol_used": err["tol_used"], "param_atol": DP_LR * steps,
+                      "segsum_per_rank_step": [r["segsum_launches"] / steps for r in (r0, r1)],
+                      "halo_launches": [{" ".join(map(str, k)): v
+                                         for k, v in r["halo_launches"].items()}
+                                        for r in (r0, r1)]})
+    log("halo_bytes", {"run": "collab sage float32, 2 gloo ranks on one card",
+                       "owned_rows": [r["owned_rows"] for r in (r0, r1)],
+                       "halo_rows_received": [r["halo_recv_rows"] for r in (r0, r1)],
+                       "halo_rows_sent": [r["halo_send_rows"] for r in (r0, r1)],
+                       "exchanged_bytes_per_step": [r["exchanged_bytes"] / steps
+                                                    for r in (r0, r1)],
+                       "all_reduce_bytes_per_step": [r["reduced_bytes"] / steps
+                                                     for r in (r0, r1)],
+                       "peak_bytes": [r["peak_bytes"] for r in (r0, r1)],
+                       "single_card_peak_bytes": one["peak_bytes"]})
+    for rank in ranks:
+        table, dp = rank[1], rank[2]
+        same = (table["losses"] == dp["losses"] and _np_equal(table["rng"], dp["rng"])
+                and all(_np_equal(a, b) for a, b in zip(_leaves(table["params"]),
+                                                        _leaves(dp["params"]))))
+        if not same:
+            raise AssertionError("halo gloo: the table student is not the dp student bit for bit")
+    log("halo_gloo", {"run": "cora table student", "epochs": HALO_STUDENT_EPOCHS,
+                      "losses": ranks[0][1]["losses"], "dp_losses": ranks[0][2]["losses"],
+                      "bitwise": True, "peak_bytes": [r[1]["peak_bytes"] for r in ranks]})
+    if not counts:
+        raise AssertionError("halo gloo: no launch of the halo aggregation")
+    log("halo_gloo_total", {"seconds": gloo_s})
+    return {"counts": counts}
+
+
+def _halo_cli_two_cards() -> None:
+    """(c): ``train_teacher --num_devices 2 --sharding halo`` on collab over
+    NCCL, with two cards visible."""
+    import torch
+
+    if torch.cuda.device_count() < 2:
+        log("halo_cli", "skipped: one card visible (train_teacher --num_devices 2 "
+                        "--sharding halo needs two)")
+        return
+    stats, report, _ = _train(["--datasets=collab", "--epochs=1", f"--dataset_dir={STANDINS}",
+                               f"--save_dir={WORK / 'halo'}", f"--results_dir={WORK / 'halo'}",
+                               *TRAIN_FLAGS, "--num_devices=2", "--sharding=halo"])
+    log("halo_cli", {"num_devices": 2, "losses": report["losses"],
+                     "epoch_s": report["epoch_s"], "Hits@50": stats["Hits@50"]})
+
+
+def _halo_entries(gen, train: dict, counts: Counter) -> list:
+    """B1 over rank 0 of 2's plan of the collab train graph (the weighted
+    export's for the weighted instances) at D=256, in each CSR the halo
+    aggregation launches it over: against ``segsum_plain`` over the same
+    CSR, two launches equal bit for bit, timed beside ``torch.sparse.mm``
+    over that CSR. The bound counts the input rows once, the output rows
+    once and the CSR once."""
+    import torch
+
+    from llp_tpu_torch.ops.segsum import segsum, segsum_plain
+    from llp_tpu_torch.parallel.halo import build_halo_plan
+    from llp_tpu_torch.parallel.mesh import World
+
+    half = World(rank=0, size=2, device=torch.device("cuda", 0), backend="gloo")
+    plans = {w: build_halo_plan(train["data"]["weighted" if w else "collab"]["graph"], half)
+             for w in (False, True)}
+    entries = []
+    for name, dtype, part, direction, weighted in HALO_KERNELS:
+        p = plans[weighted]
+        n_halo = p.halo_rows.numel()
+        idx, ptr, rows, n_out, w = {
+            ("local", "fwd"): (p.loc_senders, p.loc_in_ptr, p.n_loc, p.n_loc, p.loc_w),
+            ("local", "bwd"): (p.loc_col, p.loc_row_ptr, p.n_loc, p.n_loc,
+                               None if p.loc_w is None else p.loc_w[p.loc_sid]),
+            ("remote", "fwd"): (p.rem_senders, p.rem_in_ptr, n_halo, p.n_loc, p.rem_w),
+            ("remote", "bwd"): (p.rem_col, p.rem_row_ptr, p.n_loc, n_halo,
+                                None if p.rem_w is None else p.rem_w[p.rem_sid]),
+            ("owner", "bwd"): (p.send_senders, p.send_ptr, p.send_rows.numel(), p.n_loc, None),
+        }[part, direction]
+        w = w.contiguous() if weighted else None
+        x = torch.randn(rows, 256, generator=gen, device="cuda").to(getattr(torch, dtype))
+        got = segsum(x, idx, ptr, weights=w, out_dtype=torch.float32)
+        again = segsum(x, idx, ptr, weights=w, out_dtype=torch.float32)
+        if not torch.equal(got, again):
+            raise AssertionError(f"{name}: two launches differ")
+        err = compare(got, segsum_plain(x, idx, ptr, weights=w, out_dtype=torch.float32),
+                      **SEGSUM_TOL, what=name)
+        e = int(ptr[-1])
+        values = torch.ones(e, device="cuda") if w is None else w[:e]
+        adj = torch.sparse_csr_tensor(ptr, idx[:e], values, (n_out, rows))
+        t = _segsum_timing(x, idx, ptr, None, adj, out_dtype=torch.float32, weights=w)
+        t["bytes"] = (x.numel() * x.element_size() + n_out * 256 * 4 + idx.numel() * 4
+                      + ptr.numel() * 8 + (0 if w is None else w.numel() * 4))
+        t["bound_ms"] = t["bytes"] / HBM_BYTES_PER_S * 1e3
+        inst = f"{dtype}->float32"
+        launches = counts.get((part, direction, inst, 256, weighted), 0)
+        if not launches:
+            raise AssertionError(f"{name}: no launch on the halo path")
+        log("timing", {"kernel": name, "rows_in": rows, "rows_out": n_out, "e": e, "d": 256, **t})
+        entry = {"name": name, "route": "cuda", "source": "llp_tpu_torch/csrc/segsum.cu",
+                 "replaces": "llp_tpu/ops/pallas/segsum_kernel.py:148",
+                 "launches": launches, "max_abs_err": err["max_abs"], "ms": t["ms"],
+                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": "bytes",
+                 "library_ms": t["library_ms"],
+                 "shapes": (f"rank 0 of 2's halo plan of the {'weighted ' if weighted else ''}"
+                            f"collab train graph, {part} {direction}: {rows} rows in, {n_out} "
+                            f"out, e={e}, d=256, {inst}, no scale")}
+        if "library_note" in t:
+            entry["library_note"] = t["library_note"]
+        entries.append(entry)
+    return entries
+
+
+def phase_halo(gen, train: dict) -> dict:
+    """The node-sharded path (``--sharding halo``): (a) a world of one over
+    NCCL on ``cuda:0`` against the single path, two epochs each in turns,
+    bit for bit with the same B1 launches, for the collab SAGE teacher
+    (fp32, bf16), the weighted GCN teacher (bf16) and the collab table
+    student; (e) the halo evaluator at a world of one against the single
+    path's; (b) two gloo ranks on the card (the halo teacher's first steps
+    against one card, the table student against the dp student bit for
+    bit) and (d) the rows and bytes they exchange; (c) the CLI over two
+    cards, when there are two; then the halo B1 entries of the kernels
+    line."""
+    import torch
+
+    from llp_tpu_torch.parallel.epoch import table_gather
+    from llp_tpu_torch.parallel.halo import halo_spmm
+    from llp_tpu_torch.parallel.launch import free_tcp_address
+    from llp_tpu_torch.parallel.mesh import close_world, init_world
+
+    # the halo path starts here
+    halo_spmm.launch_counts.clear()
+    table_gather.launches = 0
+    table_gather.launch_counts.clear()
+    world = init_world(0, 1, torch.device("cuda", 0), init_method=free_tcp_address(),
+                       timeout=DP_TIMEOUT_S)
+    try:
+        counts = Counter()
+        data = train["data"]
+        runs = (("collab sage float32", _halo_teacher(data["collab"], "float32")),
+                ("collab sage bfloat16", _halo_teacher(data["collab"], "bfloat16")),
+                ("weighted collab gcn bfloat16",
+                 _halo_teacher(data["weighted"], "bfloat16", encoder="gcn")),
+                ("collab table student float32",
+                 _halo_student(data["weighted"],
+                               WORK / "teacher_weighted" / "collab-sage_transductive")))
+        for label, make in runs:
+            counts.update(_halo_world_of_one(label, make, world))
+        _halo_eval_world_of_one(data["collab"], world)
+    finally:
+        close_world()
+    counts.update(_halo_two_gloo_ranks(train)["counts"])
+    _halo_cli_two_cards()
+    log("halo_launches", {" ".join(map(str, k)): v for k, v in counts.items()})
+    return {"entries": _halo_entries(gen, train, counts)}
+
+
 def main() -> int:
     try:
         import torch
@@ -4030,8 +4414,9 @@ def main() -> int:
     scale10m = timed("scale10m", phase_scale10m, gen)
     reorder = timed("reorder", phase_reorder, gen, train, worst)
     dp = timed("dp", phase_dp, gen, train)
-    kernels = timed("kernels", phase_kernels, gen, launches, train, student, production,
-                    tooling, scale10m, reorder, worst) + dp["entries"]
+    halo = timed("halo", phase_halo, gen, train)
+    kernels = (timed("kernels", phase_kernels, gen, launches, train, student, production,
+                     tooling, scale10m, reorder, worst) + dp["entries"] + halo["entries"])
     log("total", {"seconds": time.perf_counter() - t0, "phases": seconds})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": info["name"],

@@ -4,7 +4,8 @@ flags, and YAML config loading.
 ``--device`` defaults to the card (``cuda``; ``auto`` means the same);
 ``cpu`` is the only way onto the CPU.  ``--num_devices N`` trains
 data-parallel over N worker processes: rank ``r`` on ``cuda:r`` (NCCL), or
-every rank on the CPU (gloo) under ``--device cpu`` (or ``cpu:N``).  The
+every rank on the CPU (gloo) under ``--device cpu`` (or ``cpu:N``);
+``--sharding halo`` shards the node rows over them instead.  The
 flags of what is not ported yet are parsed as in the JAX CLI, and the
 training loop refuses them (:func:`llp_tpu_torch.train.loop.refuse_unported`).
 """
@@ -59,8 +60,9 @@ def add_common_flags(p: argparse.ArgumentParser) -> None:
                    help="data-parallel ranks: cuda:0..N-1 over NCCL, or N CPU ranks over "
                         "gloo with --device cpu")
     p.add_argument("--sharding", type=str, default="dp", choices=["dp", "halo"],
-                   help="dp: edges and batches sharded, the rest replicated; halo over "
-                        "more than one device is not yet ported (ROADMAP A14.2)")
+                   help="dp: edges and batches sharded, the rest replicated; halo: node "
+                        "rows sharded, boundary rows exchanged (the sage/gcn teacher; the "
+                        "student with --minibatch)")
     p.add_argument("--reorder", type=str, default="none",
                    choices=["none", "locality", "rcm"],
                    help="node-id relabel at data-prep time (isomorphism; artifacts "

@@ -18,7 +18,7 @@ import torch
 from torch import nn
 
 from llp_tpu_torch.core.graph import Graph
-from llp_tpu_torch.evaln.scoring import score
+from llp_tpu_torch.evaln.scoring import eval_mode, score
 from llp_tpu_torch.models.encoder import apply_encoder
 from llp_tpu_torch.ops.metrics import hits_at_k, roc_auc
 
@@ -53,17 +53,25 @@ def evaluate_production(
     An empty bucket scores nothing and its metrics are NaN, as in JAX.  The
     modules run in eval mode (batch norm reads its running buffers) and go
     back to the mode they were in."""
-    modes = encoder.training, predictor.training
-    encoder.eval()
-    predictor.eval()
-    try:
+    with eval_mode(encoder):
         h_val = apply_encoder(encoder, val_graph, val_x, x_agg=val_x_agg)
-        vp, vn = score(predictor, h_val, val_pos), score(predictor, h_val, val_neg)
         h_inf = apply_encoder(encoder, inf_graph, inf_x, x_agg=inf_x_agg)
+    return production_metrics(predictor, h_val, h_inf, val_pos, val_neg, test_edges,
+                              hits_ks=hits_ks), h_val
+
+
+@torch.no_grad()
+def production_metrics(predictor: nn.Module, h_val: torch.Tensor, h_inf: torch.Tensor,
+                       val_pos: torch.Tensor, val_neg: torch.Tensor,
+                       test_edges: Dict[str, torch.Tensor], *,
+                       hits_ks: Sequence[int] = (10, 20, 30, 50)
+                       ) -> Dict[str, Tuple[float, ...]]:
+    """The 5-tuple metrics of the validation graph's embeddings ``h_val``
+    and the inference graph's ``h_inf``: the eval-mode predictor's scores,
+    then the metrics (the node-sharded evaluators score here too)."""
+    with eval_mode(predictor):
+        vp, vn = score(predictor, h_val, val_pos), score(predictor, h_val, val_neg)
         s = {k: score(predictor, h_inf, test_edges[k]) for k in TEST_SETS}
-    finally:
-        encoder.train(modes[0])
-        predictor.train(modes[1])
     names, values = [], []
     for k in hits_ks:
         names.append(f"Hits@{k}")
@@ -71,4 +79,4 @@ def evaluate_production(
     names.append("AUC")
     values += [roc_auc(vp, vn)] + [roc_auc(s[b], s["neg"]) for b in BUCKETS]
     flat = torch.stack(values).tolist()  # one transfer for every metric
-    return {name: tuple(flat[5 * i:5 * i + 5]) for i, name in enumerate(names)}, h_val
+    return {name: tuple(flat[5 * i:5 * i + 5]) for i, name in enumerate(names)}

@@ -2,7 +2,10 @@
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
+from torch import nn
 
 from llp_tpu_torch.models.predictor import LinkPredictor
 from llp_tpu_torch.ops.edge_score import score_edges
@@ -17,3 +20,17 @@ def score(predictor: LinkPredictor, h: torch.Tensor, edges: torch.Tensor) -> tor
     lins = predictor.lins if predictor.mode == "mlp" else None
     return score_edges(h, edges[:, 0].contiguous(), edges[:, 1].contiguous(),
                        mode=predictor.mode, lins=lins, fused=h.is_cuda)
+
+
+@contextlib.contextmanager
+def eval_mode(*modules: nn.Module):
+    """The modules in eval mode (batch norm reads its running buffers),
+    then back in the modes they were in."""
+    modes = [m.training for m in modules]
+    for m in modules:
+        m.eval()
+    try:
+        yield
+    finally:
+        for m, mode in zip(modules, modes):
+            m.train(mode)

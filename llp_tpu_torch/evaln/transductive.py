@@ -15,7 +15,7 @@ import torch
 from torch import nn
 
 from llp_tpu_torch.core.graph import Graph
-from llp_tpu_torch.evaln.scoring import score
+from llp_tpu_torch.evaln.scoring import eval_mode, score
 from llp_tpu_torch.models.encoder import apply_encoder
 from llp_tpu_torch.ops.metrics import hits_at_k, roc_auc
 
@@ -40,15 +40,22 @@ def evaluate_transductive(
     by the caller, since the eval graph and features never change.  The
     modules run in eval mode (batch norm reads its running buffers) and go
     back to the mode they were in."""
-    modes = encoder.training, predictor.training
-    encoder.eval()
-    predictor.eval()
-    try:
+    with eval_mode(encoder):
         h = apply_encoder(encoder, graph, x, x_agg=x_agg)
+    return transductive_metrics(predictor, h, edges, hits_ks=hits_ks), h
+
+
+@torch.no_grad()
+def transductive_metrics(predictor: nn.Module, h: torch.Tensor,
+                         edges: Dict[str, torch.Tensor], *,
+                         hits_ks: Sequence[int] = (10, 20, 30, 50)
+                         ) -> Dict[str, Tuple[float, float]]:
+    """``{'Hits@K' | 'AUC': (valid, test)}`` of the embeddings ``h``: the
+    eval-mode predictor's scores of :data:`EDGE_SETS`, then the metrics
+    (the node-sharded evaluators, :mod:`llp_tpu_torch.parallel.eval`,
+    score here too)."""
+    with eval_mode(predictor):
         s = {k: score(predictor, h, edges[k]) for k in EDGE_SETS}
-    finally:
-        encoder.train(modes[0])
-        predictor.train(modes[1])
     names, values = [], []
     for k in hits_ks:
         names.append(f"Hits@{k}")
@@ -58,4 +65,4 @@ def evaluate_transductive(
     values += [roc_auc(s["valid_pos"], s["valid_neg"]),
                roc_auc(s["test_pos"], s["test_neg"])]
     flat = torch.stack(values).tolist()  # one transfer for every metric
-    return {name: (flat[2 * i], flat[2 * i + 1]) for i, name in enumerate(names)}, h
+    return {name: (flat[2 * i], flat[2 * i + 1]) for i, name in enumerate(names)}

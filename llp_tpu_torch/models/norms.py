@@ -18,6 +18,11 @@ rank holding an equal slice of one batch: two-pass sums over every rank's
 rows, as ``llp_tpu/models/norms.py:80-106`` psums them, differentiable
 through the sums, so each rank normalises by the whole batch's moments and
 its running buffers move alike.  None keeps the moments of its own rows.
+``total`` is the rows of all ranks together: by default the rank's rows
+times the ranks (equal slices of a batch); the halo teacher's node rows
+differ per rank and set it to N, the real rows (JAX masks its padding rows
+out of the moments, ``llp_tpu/parallel/epoch.py:455-460``; the port has
+none).
 """
 
 from __future__ import annotations
@@ -39,9 +44,9 @@ class BatchNorm(nn.BatchNorm1d):
     """Batch norm over (rows, dim) in fp32, with the buffers of
     ``nn.BatchNorm1d`` (``running_mean``, ``running_var``)."""
 
-    def __init__(self, dim: int, world: Optional[World] = None):
+    def __init__(self, dim: int, world: Optional[World] = None, total: Optional[int] = None):
         super().__init__(dim, eps=EPS, momentum=MOMENTUM)
-        self.world = world
+        self.world, self.total = world, total
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
@@ -51,7 +56,7 @@ class BatchNorm(nn.BatchNorm1d):
                 mu = xf.mean(0)
                 var = (xf - mu).square().mean(0)  # biased: the normalisation
             else:
-                n = x.shape[0] * self.world.size
+                n = self.total if self.total is not None else x.shape[0] * self.world.size
                 mu = all_reduce_sum(xf.sum(0), self.world) / n
                 var = all_reduce_sum((xf - mu).square().sum(0), self.world) / n
             y = (xf - mu) * torch.rsqrt(var + EPS)

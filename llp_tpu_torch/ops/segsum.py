@@ -119,14 +119,16 @@ def segsum_plain(x: torch.Tensor, senders: torch.Tensor, in_ptr: torch.Tensor,
                  out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """The plain PyTorch version: gather, weigh in the type of ``x`` (a bf16
     product rounds to bf16), ``index_add_`` in fp32, scale, then one cast to
-    the output type."""
+    the output type.  Edges past ``in_ptr[-1]`` are not read, as the kernel
+    reads none."""
     n = in_ptr.numel() - 1
     receivers = torch.repeat_interleave(
         torch.arange(n, device=x.device), in_ptr[1:] - in_ptr[:-1]
     )
-    msgs = x.index_select(0, senders)
+    e = receivers.numel()
+    msgs = x.index_select(0, senders[:e])
     if weights is not None:
-        msgs = msgs * weights.to(x.dtype)[:, None]
+        msgs = msgs * weights[:e].to(x.dtype)[:, None]
     out = torch.zeros((n, x.shape[1]), dtype=torch.float32, device=x.device)
     out.index_add_(0, receivers, msgs.float())
     if scale is not None:
@@ -142,7 +144,7 @@ def segsum(x: torch.Tensor, senders: torch.Tensor, in_ptr: torch.Tensor,
     """(N_src, D) features -> (N, D) row sums, N = len(in_ptr) - 1.
 
     ``senders`` (E,) int64 lists each output row's edges contiguously, in
-    row order; ``scale`` (N,) fp32 multiplies each output row (the mean's
+    row order (``in_ptr[0]`` is 0; entries past ``in_ptr[-1]`` are not read); ``scale`` (N,) fp32 multiplies each output row (the mean's
     ``1/max(deg, 1)``), or None for the plain sum; ``weights`` (E,) fp32
     multiplies each edge's message, in the order of ``senders``, or None.
     ``out_dtype`` is None (the type of ``x``) or ``torch.float32``.

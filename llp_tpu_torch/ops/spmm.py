@@ -32,7 +32,11 @@ and ``mean`` run the sharded aggregation
 edges both ways, summed across the ranks.  The model code reaches it
 through :func:`spmm` alone (SAGE's :func:`mean_aggregate`, GCN's
 ``normalized_aggregate`` and the layer-1 hoist), as JAX injects its
-``impl``.
+``impl``.  On a rank's :class:`~llp_tpu_torch.parallel.halo.HaloGraph`
+(``--sharding halo``), ``x`` and the output are the rank's node rows, and
+``sum`` and ``mean`` run the halo aggregation
+(:func:`llp_tpu_torch.parallel.halo.halo_spmm`): one exchange of boundary
+rows, B1 over the rank's local and remote edges both ways.
 
 ``max`` is plain PyTorch with autograd: the JAX package has no kernel for it
 either.  :func:`spmm_backward_plain` is the backward in plain PyTorch, the
@@ -45,6 +49,7 @@ import torch
 
 from llp_tpu_torch.core.graph import Graph
 from llp_tpu_torch.ops.segsum import segsum
+from llp_tpu_torch.parallel.halo import HaloGraph, halo_spmm
 from llp_tpu_torch.parallel.mesh import ShardedGraph
 
 # Edges per chunk of the weight gradient: bounds its (chunk, D) fp32 products.
@@ -125,6 +130,8 @@ def spmm(graph: Graph, x: torch.Tensor, reduce: str = "mean", *,
         raise ValueError(f"unknown reduce {reduce!r}")
     if edge_weight is not None and reduce == "max":
         raise ValueError("edge_weight is not supported with reduce='max'")
+    if isinstance(graph, HaloGraph):
+        return halo_spmm(graph, x, reduce, edge_weight=edge_weight)
     if isinstance(graph, ShardedGraph):
         from llp_tpu_torch.parallel.sharded import sharded_spmm  # it imports this module
 

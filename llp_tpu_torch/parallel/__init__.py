@@ -1,12 +1,21 @@
-"""Data-parallel training over several ranks (counterpart of
-``llp_tpu/parallel/``, its ``--sharding dp`` path).
+"""Training over several ranks (counterpart of ``llp_tpu/parallel/``: its
+``--sharding dp`` and ``--sharding halo`` paths).
 
-* :mod:`.mesh`: the world of ranks (process group, rank, device) and each
-  rank's shard of the edges;
+* :mod:`.mesh`: the world of ranks (process group, rank, device, its
+  collectives) and each rank's shard of the edges;
 * :mod:`.sharded`: the sharded aggregation (B1 over the rank's edges, one
   sum across ranks) and the gradients' sum;
-* :mod:`.epoch`: a rank's slice of each batch;
+* :mod:`.halo`: node rows sharded by owner: the plan, the rank's
+  ``HaloGraph`` and the aggregation with one exchange of boundary rows;
+* :mod:`.epoch`: a rank's slice of each batch, and ``table_gather`` from
+  row-sharded tables;
+* :mod:`.eval`: the evaluators of node-sharded runs;
 * :mod:`.launch`: one worker process per rank.
+
+JAX's ``make_halo_teacher_step`` (``llp_tpu/parallel/halo.py:262``) and
+``make_halo_sage_forward`` (``:391``) have their counterpart in
+``TeacherTrainer(world=, sharding="halo")``, as ``make_halo_teacher_epoch_fn``
+has: its ``step`` and, in eval mode, its encoder over the ``HaloGraph``.
 
 Importing this package imports none of its modules, so that the ops layer
 can import :mod:`.mesh` without a cycle.

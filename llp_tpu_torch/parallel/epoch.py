@@ -32,8 +32,12 @@ student's batch-norm moments, as in JAX (``epoch.py:700-712``).
 
 from __future__ import annotations
 
+from collections import Counter
+
 import torch
 
+from llp_tpu_torch.ops.gather import gather_csr
+from llp_tpu_torch.ops.segsum import segsum
 from llp_tpu_torch.parallel.mesh import World
 
 
@@ -68,3 +72,60 @@ class BatchShard:
         (the positives, then the negatives) that it holds as
         ``[first slice; second slice]``."""
         return torch.cat([self.rows, self.size + self.rows])
+
+
+class _TableGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, shard, idx, lo, world):
+        n_loc = shard.shape[0]
+        loc = world.all_gather(idx) - lo
+        valid = (loc >= 0) & (loc < n_loc)
+        key = torch.where(valid, loc, n_loc)  # n_loc: a row this rank does not own
+        ctx.save_for_backward(key)
+        ctx.n_loc, ctx.world = n_loc, world
+        if n_loc:
+            rows = shard.index_select(0, key.clamp(max=n_loc - 1))
+            rows.masked_fill_(~valid[:, None], 0)
+        else:
+            rows = shard.new_zeros((key.numel(),) + tuple(shard.shape[1:]))
+        return world.reduce_scatter(rows)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None, None
+        (key,) = ctx.saved_tensors
+        # every rank's cotangents, summed onto the rows this rank owns; the
+        # CSR's rows stop at n_loc, so the other ranks' ids are not read
+        senders, in_ptr = gather_csr(key, ctx.n_loc)
+        before = segsum.launches
+        d = segsum(ctx.world.all_gather(g.contiguous()), senders, in_ptr, order_heavy=False)
+        launched = segsum.launches - before
+        table_gather.launches += launched
+        table_gather.launch_counts[(str(g.dtype).removeprefix("torch."), g.shape[1])] += launched
+        return d, None, None, None
+
+
+def table_gather(shard: torch.Tensor, idx: torch.Tensor, lo: int, world: World) -> torch.Tensor:
+    """``whole[idx]`` for this rank's ids ``idx`` (B,) int64, from the
+    row-sharded table whose rows ``[lo, lo + len(shard))`` this rank holds
+    as ``shard`` (counterpart of ``llp_tpu/parallel/epoch.py::table_gather``):
+    the ranks' ids are gathered, each rank reads the rows it owns for every
+    rank (zero elsewhere), and a reduce-scatter sums them and hands each
+    rank its own B rows.  Every rank calls it at once, with the same B.
+    Exact: each row sums one owner's copy and zeros.
+
+    Differentiable in ``shard``: the cotangents of every rank are gathered
+    and summed onto the owned rows by B1 over a CSR of the ids
+    (:func:`llp_tpu_torch.ops.gather.gather_csr`), as
+    :func:`llp_tpu_torch.ops.gather.gather_rows` sums its own: no
+    ``index_add_``, the same bits on every run.  ``table_gather.launches``
+    counts that backward's launches (``launch_counts`` by type and width).
+    A world of one is ``gather_rows`` bit for bit."""
+    if shard.dim() != 2 or idx.dim() != 1 or idx.dtype != torch.int64:
+        raise ValueError("table_gather expects a (rows, H) shard and (B,) int64 ids")
+    return _TableGather.apply(shard, idx, lo, world)
+
+
+table_gather.launches = 0
+table_gather.launch_counts = Counter()

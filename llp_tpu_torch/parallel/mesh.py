@@ -6,7 +6,11 @@ A run of ``N`` ranks is ``N`` processes, one per device, joined by one
 ``torch.distributed`` process group: NCCL between cards, gloo on the CPU
 (gloo also sums CUDA tensors, through the host).  :func:`init_world` takes
 the rendezvous address, the rank and the world size from its arguments,
-so a run across hosts needs only other arguments.
+so a run across hosts needs only other arguments.  Besides the sum across
+ranks, :class:`World` runs the exchanges of the node-sharded path
+(:mod:`.halo`, :mod:`.epoch`'s ``table_gather``): ``all_to_all`` with
+uneven splits, ``all_gather`` and ``reduce_scatter``; each counts its bytes,
+and a world of one runs no collective for them.
 
 Edges are sharded, and the rest is replicated: each rank aggregates a
 contiguous slice of the receiver-sorted edges, and the node features, the
@@ -18,14 +22,19 @@ slices whose sizes differ by at most one.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from datetime import timedelta
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 import torch.distributed as dist
 
 from llp_tpu_torch.core.graph import Graph
+
+# The tensor collectives, by their newer names where this PyTorch has them.
+_ALL_GATHER = getattr(dist, "all_gather_single", dist.all_gather_into_tensor)
+_REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", dist.reduce_scatter_tensor)
 
 # Seconds a collective (and the rendezvous) may wait before it raises.
 TIMEOUT_S = 600.0
@@ -48,6 +57,57 @@ class World:
         dist.all_reduce(t)
         return t
 
+    def all_to_all(self, t: torch.Tensor, send_splits: Sequence[int],
+                   recv_splits: Sequence[int]) -> torch.Tensor:
+        """Rows of ``t`` to every rank: the first ``send_splits[0]`` rows to
+        rank 0, the next ``send_splits[1]`` to rank 1, and so on; returns
+        the ``Σ recv_splits`` rows received, rank 0's first.  The splits may
+        differ per rank and may be 0.  ``World.all_to_all.bytes`` counts the
+        bytes this process sent to the other ranks."""
+        if self.size == 1:
+            return t.clone()
+        width = math.prod(t.shape[1:]) * t.element_size()
+        World.all_to_all.bytes += (sum(send_splits) - send_splits[self.rank]) * width
+        out = t.new_empty((sum(recv_splits),) + tuple(t.shape[1:]))
+        self._via_host(lambda o, i: dist.all_to_all_single(
+            o, i, output_split_sizes=list(recv_splits), input_split_sizes=list(send_splits)),
+            out, t.contiguous())
+        return out
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``t`` (the same shape on each) stacked on the first
+        axis, rank 0's first.  ``World.all_gather.bytes`` counts the bytes
+        this process received from the other ranks."""
+        if self.size == 1:
+            return t.clone()
+        World.all_gather.bytes += (self.size - 1) * t.numel() * t.element_size()
+        out = t.new_empty((self.size * t.shape[0],) + tuple(t.shape[1:]))
+        self._via_host(_ALL_GATHER, out, t.contiguous())
+        return out
+
+    def reduce_scatter(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum over the ranks of ``t`` (``size · B`` rows, the same shape
+        on each), of which this rank gets rows ``[rank·B, (rank+1)·B)``.
+        ``World.reduce_scatter.bytes`` counts the bytes this process sent
+        to the other ranks."""
+        if self.size == 1:
+            return t.clone()
+        World.reduce_scatter.bytes += (t.numel() * t.element_size()
+                                       * (self.size - 1) // self.size)
+        out = t.new_empty((t.shape[0] // self.size,) + tuple(t.shape[1:]))
+        self._via_host(_REDUCE_SCATTER, out, t.contiguous())
+        return out
+
+    def _via_host(self, collective, out: torch.Tensor, inp: torch.Tensor) -> None:
+        """``collective(out, inp)``; a gloo world runs it on host copies of
+        CUDA tensors (gloo's own CUDA path covers the all-reduce only)."""
+        if self.backend != "gloo" or out.device.type != "cuda":
+            collective(out, inp)
+            return
+        host = out.cpu()
+        collective(host, inp.cpu())
+        out.copy_(host)
+
     def barrier(self) -> None:
         if self.backend == "nccl":
             dist.barrier(device_ids=[self.device.index])
@@ -56,6 +116,9 @@ class World:
 
 
 World.all_reduce.bytes = 0
+World.all_to_all.bytes = 0
+World.all_gather.bytes = 0
+World.reduce_scatter.bytes = 0
 
 
 def init_world(rank: int, size: int, device, *, init_method: str,

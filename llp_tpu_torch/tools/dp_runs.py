@@ -10,8 +10,14 @@ alike.
 * :func:`teacher_run` and :func:`student_run`: epochs of the trainers from a
   seed, or from given parameters and samples; :func:`gradients_run`: one
   batch's gradients before the clip;
+* :func:`halo_parts`: the halo aggregation's output and gradient at the
+  rank's rows, and its plan; :func:`table_parts`: ``table_gather``'s;
+* :func:`eval_run`: the node-sharded evaluators, or the single path's;
 * :func:`cli_run`: a training CLI's flags run as this rank;
 * :func:`run_jobs`: a list of those, so that one world runs them all.
+
+The teacher and student runs take ``sharding="halo"`` and
+``trainer={"table": True}`` for the node-sharded paths.
 """
 
 from __future__ import annotations
@@ -28,8 +34,19 @@ import torch
 from llp_tpu_torch.cli import train_student, train_teacher
 from llp_tpu_torch.core.graph import build_graph
 from llp_tpu_torch.models.predictor import LinkPredictor
+from llp_tpu_torch.evaln.production import evaluate_production
+from llp_tpu_torch.evaln.transductive import evaluate_transductive
+from llp_tpu_torch.models.gcn import normalized_aggregate
 from llp_tpu_torch.ops.segsum import segsum
 from llp_tpu_torch.ops.spmm import mean_aggregate, spmm
+from llp_tpu_torch.parallel.epoch import table_gather
+from llp_tpu_torch.parallel.eval import (
+    evaluate_halo_production,
+    evaluate_halo_transductive,
+    evaluate_table_production,
+    evaluate_table_transductive,
+)
+from llp_tpu_torch.parallel.halo import halo_graph, halo_spmm, owned_rows
 from llp_tpu_torch.parallel.mesh import World, edge_bounds, shard_edges
 from llp_tpu_torch.parallel.sharded import sharded_spmm
 from llp_tpu_torch.sample.negative import edge_keys
@@ -46,6 +63,10 @@ def _device(world: Optional[World], spec: dict) -> torch.device:
 
 def _numpy(t: Optional[torch.Tensor]):
     return None if t is None else t.detach().float().cpu().numpy()
+
+
+def _ids(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
 
 
 def spmm_parts(case: dict, *, world: World) -> dict:
@@ -80,6 +101,108 @@ def spmm_parts(case: dict, *, world: World) -> dict:
             "bounds": edge_bounds(graph.num_edges, world.size, world.rank)}
 
 
+def halo_parts(case: dict, *, world: World) -> dict:
+    """One case of the halo aggregation.  ``case``: ``edge_index``,
+    ``num_nodes``, ``x`` (N, D) fp32, ``weight`` or None, ``reduce``
+    ('sum', 'mean', 'weighted_mean' (:func:`mean_aggregate`) or 'gcn'
+    (GCN's ``normalized_aggregate``)), ``cot`` (N, D), ``dtype``.  Returns
+    this rank's rows ``[lo, hi)`` of the output and of the gradient under
+    ``cot`` (the rank's rows of it), and its plan in global ids: per
+    requester the rows it sends, its local and remote edges (sender,
+    receiver) in slot order, their weights, and the halo rows."""
+    dev, dtype = world.device, getattr(torch, case.get("dtype", "float32"))
+    graph = build_graph(case["edge_index"], case["num_nodes"], device=dev,
+                        edge_weight=case.get("weight"))
+    hg = halo_graph(graph, world)
+    plan = hg.plan
+    lo, hi = plan.lo, plan.hi
+    x = torch.from_numpy(case["x"][lo:hi]).to(dev, dtype).requires_grad_()
+    reduce = case["reduce"]
+    if reduce == "weighted_mean":
+        out = mean_aggregate(hg, x)
+    elif reduce == "gcn":
+        out = normalized_aggregate(hg, x)
+    else:
+        out = spmm(hg, x, reduce, edge_weight=hg.edge_weight)
+    (dx,) = torch.autograd.grad(out, [x], torch.from_numpy(case["cot"][lo:hi]).to(dev, dtype))
+    sends = torch.split(plan.send_rows + lo, list(plan.send_splits))
+    el = plan.loc_senders.numel()
+    return {"lo": lo, "hi": hi, "out": _numpy(out), "dx": _numpy(dx),
+            "send": [_ids(t) for t in sends],
+            "local": _ids(torch.stack([plan.loc_senders + lo, plan.loc_receivers + lo])),
+            "remote": _ids(torch.stack([plan.halo_rows[plan.rem_senders],
+                                        plan.rem_receivers + lo])),
+            "halo_rows": _ids(plan.halo_rows),
+            "loc_w": _numpy(plan.loc_w), "rem_w": _numpy(plan.rem_w),
+            "counts": dict(halo_spmm.launch_counts)}
+
+
+def table_parts(case: dict, *, world: World) -> dict:
+    """``table_gather`` of this rank's ids ``case["idx"][rank]`` from the
+    (N, H) ``case["table"]`` sharded by rows, and the gradient of its rows
+    under the cotangent ``case["cot"][rank]``."""
+    dev = world.device
+    n = case["table"].shape[0]
+    lo, hi = owned_rows(n, world.size, world.rank)
+    shard = torch.from_numpy(case["table"][lo:hi]).to(dev).requires_grad_()
+    out = table_gather(shard, torch.from_numpy(case["idx"][world.rank]).to(dev), lo, world)
+    (grad,) = torch.autograd.grad(out, [shard], torch.from_numpy(case["cot"][world.rank]).to(dev))
+    return {"lo": lo, "hi": hi, "out": _numpy(out), "grad": _numpy(grad)}
+
+
+def eval_run(spec: dict, *, world: Optional[World] = None) -> dict:
+    """An evaluation of a model from its parameters (``spec["params"]``,
+    ``{"encoder", "predictor"}`` JAX trees): ``spec["role"]`` 'teacher'
+    (``encoder`` 'sage' or 'gcn', over ``edge_index``) or 'student' (the
+    MLP), ``setting`` 'transductive' (``x``, ``edges``) or 'production'
+    (``x``/``edge_index`` of the old nodes, ``inf_x``/``inf_edge_index``,
+    ``val_pos``, ``val_neg``, ``test_edges``), ``hits_ks``.  With a world,
+    the node-sharded evaluator of the role (halo or table); else the single
+    path's.  Returns the metrics and the embeddings."""
+    dev = _device(world, spec)
+    params = spec["params"]
+    enc, pred = from_jax(params["encoder"]).to(dev), from_jax(params["predictor"]).to(dev)
+    teacher, production = spec["role"] == "teacher", spec["setting"] == "production"
+
+    def graph_rows(ei_key, x_key):
+        x = torch.from_numpy(spec[x_key]).to(dev)
+        if not teacher:
+            return None, x
+        g = build_graph(spec[ei_key], x.shape[0], device=dev)
+        if world is None:
+            return g, x
+        hg = halo_graph(g, world)
+        return hg, x[hg.plan.lo:hg.plan.hi]
+
+    def table_rows(x):
+        lo, hi = owned_rows(x.shape[0], world.size, world.rank)
+        return x[lo:hi]
+
+    ks = spec.get("hits_ks", (10, 20))
+    edges = {k: torch.from_numpy(v).to(dev) for k, v in spec.get("edges", {}).items()}
+    g, x = graph_rows("edge_index", "x")
+    if production:
+        ig, ix = graph_rows("inf_edge_index", "inf_x")
+        vp, vn = (torch.from_numpy(spec[k]).to(dev) for k in ("val_pos", "val_neg"))
+        te = {k: torch.from_numpy(v).to(dev) for k, v in spec["test_edges"].items()}
+        if world is None:
+            res, h = evaluate_production(enc, pred, g, x, ig, ix, vp, vn, te, hits_ks=ks)
+        elif teacher:
+            res, h = evaluate_halo_production(enc, pred, g, x, ig, ix, vp, vn, te, hits_ks=ks)
+        else:
+            n, n_inf = spec["x"].shape[0], spec["inf_x"].shape[0]
+            res, h = evaluate_table_production(enc, pred, table_rows(x), n, table_rows(ix),
+                                               n_inf, vp, vn, te, world, hits_ks=ks)
+    elif world is None:
+        res, h = evaluate_transductive(enc, pred, g, x, edges, hits_ks=ks)
+    elif teacher:
+        res, h = evaluate_halo_transductive(enc, pred, g, x, edges, hits_ks=ks)
+    else:
+        res, h = evaluate_table_transductive(enc, pred, table_rows(x), spec["x"].shape[0],
+                                             edges, world, hits_ks=ks)
+    return {"results": res, "h": _numpy(h)}
+
+
 def _to(tensors: dict, dev) -> dict:
     return {k: None if v is None else torch.from_numpy(np.asarray(v)).to(dev)
             for k, v in tensors.items()}
@@ -90,15 +213,39 @@ class _Counted:
     ranks inside the block, in this process."""
 
     def __enter__(self):
-        self.start = (segsum.launches, spmm.backward_launches, World.all_reduce.bytes)
+        self.start = self._now()
         self.shards = Counter(sharded_spmm.launch_counts)
+        self.halo = Counter(halo_spmm.launch_counts)
         return self
 
     def __exit__(self, *exc):
-        now = (segsum.launches, spmm.backward_launches, World.all_reduce.bytes)
-        self.segsum, self.backward, self.reduced_bytes = (
-            b - a for a, b in zip(self.start, now))
+        (self.segsum, self.backward, self.reduced_bytes, self.exchanged_bytes,
+         self.table_launches) = (b - a for a, b in zip(self.start, self._now()))
         self.shards = dict(Counter(sharded_spmm.launch_counts) - self.shards)
+        self.halo = dict(Counter(halo_spmm.launch_counts) - self.halo)
+
+    @staticmethod
+    def _now() -> tuple:
+        return (segsum.launches, spmm.backward_launches, World.all_reduce.bytes,
+                World.all_to_all.bytes + World.all_gather.bytes + World.reduce_scatter.bytes,
+                table_gather.launches)
+
+
+def _reset_peak(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _halo_rows(trainer) -> dict:
+    """The rows a halo rank receives and sends an aggregation, and its
+    peak of device memory (None on the CPU)."""
+    dev = trainer.x.device
+    out = {"peak_bytes": torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None}
+    plan = getattr(trainer.graph, "plan", None)
+    if plan is not None:
+        out.update(halo_recv_rows=sum(plan.recv_splits), halo_send_rows=sum(plan.send_splits),
+                   owned_rows=plan.n_loc)
+    return out
 
 
 def _state(model, gen, losses, counted: _Counted) -> dict:
@@ -106,7 +253,9 @@ def _state(model, gen, losses, counted: _Counted) -> dict:
             "buffers": {k: v.cpu().numpy() for k, v in model.named_buffers()},
             "rng": gen.get_state().numpy(), "segsum_launches": counted.segsum,
             "backward_launches": counted.backward, "shard_launches": counted.shards,
-            "reduced_bytes": counted.reduced_bytes}
+            "reduced_bytes": counted.reduced_bytes, "halo_launches": counted.halo,
+            "exchanged_bytes": counted.exchanged_bytes,
+            "table_gather_launches": counted.table_launches}
 
 
 def _teacher(spec: dict, world: Optional[World]) -> TeacherTrainer:
@@ -125,7 +274,7 @@ def _teacher(spec: dict, world: Optional[World]) -> TeacherTrainer:
     t = _to({"x": spec["x"], "pos": spec["pos"]}, dev)
     neg_mode = spec.get("neg_mode", "uniform")
     keys = edge_keys(spec["edge_index"], n, device=dev) if neg_mode == "dense" else None
-    knobs = {k: spec[k] for k in ("gather_last", "remat", "hoist") if k in spec}
+    knobs = {k: spec[k] for k in ("gather_last", "remat", "hoist", "sharding") if k in spec}
     return TeacherTrainer(model, graph, t["x"], t["pos"], encoder=spec["encoder"],
                           conv=spec.get("conv", "sage"), batch_size=spec["batch"],
                           lr=spec.get("lr", 0.01), neg_mode=neg_mode, neg_keys=keys,
@@ -161,12 +310,15 @@ def teacher_run(spec: dict, *, world: Optional[World] = None) -> dict:
     ``weight`` and (without a world) ``device``; the model (``encoder``,
     ``conv``, ``hidden``, ``layers``, ``dropout``, ``norm_type``,
     ``seed``), the trainer (``batch``, ``lr``, ``neg_mode``,
-    ``compute_dtype``, and any of ``gather_last``, ``remat``, ``hoist``),
+    ``compute_dtype``, and any of ``gather_last``, ``remat``, ``hoist``,
+    ``sharding``),
     the generator's ``gen_seed`` and optionally ``negatives`` (per epoch,
     the (steps, 2, batch) negatives).  Returns the epoch losses, each
     epoch's step losses, the parameters (the JAX tree), the buffers, the
-    generator's state, the steps an epoch, and the B1 launches and bytes
-    summed across ranks in this process."""
+    generator's state, the steps an epoch, the B1 launches, the bytes
+    summed and exchanged across ranks in this process, its peak of device
+    memory and, halo, the rows it exchanges an aggregation."""
+    _reset_peak(_device(world, spec))
     trainer = _teacher(spec, world)
     dev = trainer.x.device
     gen = torch.Generator(device=dev).manual_seed(spec.get("gen_seed", 0))
@@ -178,7 +330,7 @@ def teacher_run(spec: dict, *, world: Optional[World] = None) -> dict:
             losses.append(float(trainer.epoch(gen, negatives=neg)))
             steps.append(trainer.step_losses.cpu().numpy())
     return {**_state(trainer.model, gen, losses, counted), "step_losses": steps,
-            "steps": trainer.steps}
+            "steps": trainer.steps, **_halo_rows(trainer)}
 
 
 def student_run(spec: dict, *, world: Optional[World] = None) -> dict:
@@ -190,6 +342,7 @@ def student_run(spec: dict, *, world: Optional[World] = None) -> dict:
     ``gen_seed``, optionally per epoch ``negatives`` and ``contexts``, and
     (without a world) ``device``.  Returns what :func:`teacher_run` does,
     but the step losses."""
+    _reset_peak(_device(world, spec))
     trainer = _student(spec, world)
     dev = trainer.x.device
     gen = torch.Generator(device=dev).manual_seed(spec.get("gen_seed", 0))
@@ -199,7 +352,8 @@ def student_run(spec: dict, *, world: Optional[World] = None) -> dict:
             fixed = {k: torch.from_numpy(spec[k][i]).to(dev)
                      for k in ("negatives", "contexts") if spec.get(k) is not None}
             losses.append(float(trainer.epoch(gen, **fixed)))
-    return {**_state(trainer.model, gen, losses, counted), "steps": trainer.steps}
+    return {**_state(trainer.model, gen, losses, counted), "steps": trainer.steps,
+            **_halo_rows(trainer)}
 
 
 def gradients_run(job: dict, *, world: Optional[World] = None) -> dict:
@@ -250,7 +404,8 @@ def forbidden_modules(_=None, *, world: Optional[World] = None) -> list:
 
 
 RUNS = {"spmm": spmm_parts, "teacher": teacher_run, "student": student_run,
-        "gradients": gradients_run, "cli": cli_run, "forbidden_modules": forbidden_modules}
+        "gradients": gradients_run, "cli": cli_run, "forbidden_modules": forbidden_modules,
+        "halo": halo_parts, "table": table_parts, "eval": eval_run}
 
 
 def run_jobs(jobs: list, *, world: Optional[World] = None) -> list:

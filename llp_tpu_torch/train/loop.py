@@ -70,10 +70,24 @@ dp eval is one replicated program, so that every rank stops at the same
 epoch.  Rank 0 alone prints, writes the artifact, the results file and the
 snapshots; ``resume`` restores the snapshot on every rank.
 
-Refused by :func:`refuse_unported`: ``sharding`` ``halo`` over more than
-one device (A14.2; at one device JAX builds no mesh and trains on the
-single path, and so does the port); ``epochs_per_jit`` is a TPU
-mechanism.
+``sharding`` ``halo`` over N > 1 ranks shards the node rows instead
+(``llp_tpu/train/loop.py:498-533``, ``:555-630``, ``:908-995``): each rank
+holds its rows of the features (:mod:`llp_tpu_torch.parallel.halo`).  The
+teacher trains over the rank's :class:`~llp_tpu_torch.parallel.halo.
+HaloGraph` of the training graph (``TeacherTrainer(sharding="halo")``) and
+evaluates over plans of the training graph, of the train+valid graph under
+``use_valedges_as_input`` and, in production, of the inference graph with
+its own rows of the inference features; the MLP student shards its
+features and the teacher's table by rows (``StudentTrainer(table=True)``,
+which needs ``minibatch``).  Their evaluators
+(:mod:`llp_tpu_torch.parallel.eval`) gather only the (N, H) embeddings.
+At one device JAX builds no mesh and trains ``halo`` on the single path,
+and so does the port.
+
+Refused by :func:`refuse_unported`: ``epochs_per_jit`` is a TPU mechanism,
+and ``spmm_impl`` names a route the port does not have; and, in JAX's
+words, ``halo`` over several devices for the MLP teacher and for the
+full-batch student.
 """
 
 from __future__ import annotations
@@ -103,6 +117,13 @@ from llp_tpu_torch.evaln.logger import ProductionRunLogger, RunLogger
 from llp_tpu_torch.evaln.production import evaluate_production
 from llp_tpu_torch.evaln.transductive import evaluate_transductive
 from llp_tpu_torch.models.encoder import hoists_first_aggregation, precompute_first_aggregation
+from llp_tpu_torch.parallel.eval import (
+    evaluate_halo_production,
+    evaluate_halo_transductive,
+    evaluate_table_production,
+    evaluate_table_transductive,
+)
+from llp_tpu_torch.parallel.halo import HaloGraph, halo_graph, owned_rows
 from llp_tpu_torch.parallel.launch import launch
 from llp_tpu_torch.parallel.mesh import World
 from llp_tpu_torch.sample.negative import edge_keys
@@ -116,14 +137,20 @@ from llp_tpu_torch.utils.params import from_jax, to_jax
 from llp_tpu_torch.utils.profiling import ThroughputMeter
 
 
-def _not_ported(what: str, item: str) -> SystemExit:
-    return SystemExit(f"{what} is not yet ported to llp_tpu_torch (ROADMAP {item})")
-
-
 def refuse_unported(cfg) -> None:
-    """Raise ``SystemExit`` for a setting this slice of the port does not run."""
+    """Raise ``SystemExit`` for a setting the port does not run, before any
+    work."""
     if cfg.sharding == "halo" and cfg.num_devices > 1:
-        raise _not_ported(f"--sharding halo over --num_devices {cfg.num_devices}", "A14.2")
+        if isinstance(cfg, StudentConfig) and not cfg.minibatch:
+            raise SystemExit(
+                "sharding='halo' for the student requires --minibatch: "
+                "the full-batch forward reads the whole feature matrix "
+                "per step, which is exactly what the sharded table "
+                "avoids (use sharding='dp' for full-batch)")
+        if not isinstance(cfg, StudentConfig) and cfg.encoder not in ("sage", "gcn"):
+            raise SystemExit(
+                "sharding='halo' supports the sage/gcn teacher encoders "
+                "(the MLP has no aggregation to shard — use sharding='dp')")
     if cfg.epochs_per_jit != 1:
         raise SystemExit(
             f"--epochs_per_jit {cfg.epochs_per_jit}: fusing epochs into one device "
@@ -395,6 +422,26 @@ def _is_production(data: dict) -> bool:
     return "inf_graph" in data
 
 
+def _halo_data(data: dict, world: World) -> dict:
+    """A prepared run's data as rank ``world.rank`` of a node-sharded run
+    holds it: each graph a :class:`HaloGraph` and each feature matrix the
+    rank's rows (the whole ones are dropped)."""
+    out = dict(data)
+
+    def rows(g, x):
+        hg = halo_graph(g, world)
+        return hg, x[hg.plan.lo:hg.plan.hi].clone()
+
+    out["graph"], out["x"] = rows(data["graph"], data["x"])
+    if _is_production(data):
+        out["inf_graph"], out["inf_x"] = rows(data["inf_graph"], data["inf_x"])
+    elif data["eval_graph"] is data["graph"]:
+        out["eval_graph"] = out["graph"]
+    else:
+        out["eval_graph"] = halo_graph(data["eval_graph"], world)
+    return out
+
+
 def eval_encodes(data: dict) -> list:
     """The distinct (graph, features) pairs a teacher eval encodes over: the
     train graph with ``x``; with ``use_valedges_as_input`` also the
@@ -428,20 +475,22 @@ def evaluate_teacher(model, data: dict, *, hits_ks, x_aggs: dict):
     graphs; ``h`` is the training graph's encode.  ``h`` is the table the
     artifact exports."""
     enc, pred = model["encoder"], model["predictor"]
+    halo = isinstance(data["graph"], HaloGraph)  # the node-sharded evaluators
 
     def agg(g, x):
         return x_aggs.get((id(g), id(x)))
 
     if _is_production(data):
         g, x, ig, ix = data["graph"], data["x"], data["inf_graph"], data["inf_x"]
-        return evaluate_production(enc, pred, g, x, ig, ix, data["val_pos"], data["val_neg"],
-                                   data["test_edges"], hits_ks=hits_ks, val_x_agg=agg(g, x),
-                                   inf_x_agg=agg(ig, ix))
+        evaluate = evaluate_halo_production if halo else evaluate_production
+        return evaluate(enc, pred, g, x, ig, ix, data["val_pos"], data["val_neg"],
+                        data["test_edges"], hits_ks=hits_ks, val_x_agg=agg(g, x),
+                        inf_x_agg=agg(ig, ix))
     graph, eval_graph, x = data["graph"], data["eval_graph"], data["x"]
+    evaluate = evaluate_halo_transductive if halo else evaluate_transductive
 
     def run(g):
-        return evaluate_transductive(enc, pred, g, x, data["eval_edges"], hits_ks=hits_ks,
-                                     x_agg=agg(g, x))
+        return evaluate(enc, pred, g, x, data["eval_edges"], hits_ks=hits_ks, x_agg=agg(g, x))
 
     results, h = run(graph)
     if eval_graph is not graph:
@@ -450,9 +499,20 @@ def evaluate_teacher(model, data: dict, *, hits_ks, x_aggs: dict):
     return results, h
 
 
-def evaluate_student(model, data: dict, *, hits_ks):
-    """``results`` of the MLP student, in the setting of ``data``."""
+def evaluate_student(model, data: dict, *, hits_ks, world: Optional[World] = None):
+    """``results`` of the MLP student, in the setting of ``data``; with a
+    ``world``, from the rank's rows of the features (``data["x"]``, in
+    production ``data["inf_x"]`` too) by the table evaluators."""
     enc, pred = model["encoder"], model["predictor"]
+    if world is not None:
+        n = data["graph"].num_nodes
+        if _is_production(data):
+            return evaluate_table_production(
+                enc, pred, data["x"], n, data["inf_x"], data["inf_graph"].num_nodes,
+                data["val_pos"], data["val_neg"], data["test_edges"], world,
+                hits_ks=hits_ks)[0]
+        return evaluate_table_transductive(enc, pred, data["x"], n, data["eval_edges"],
+                                           world, hits_ks=hits_ks)[0]
     if _is_production(data):
         return evaluate_production(enc, pred, None, data["x"], None, data["inf_x"],
                                    data["val_pos"], data["val_neg"], data["test_edges"],
@@ -530,6 +590,9 @@ def run_teacher(cfg: TeacherConfig, *, max_epochs: Optional[int] = None,
     verbose = verbose and lead
     with _rank_zero_first(world):
         data = _prepare(cfg, device)
+    sizes = _data_report(data)
+    if world is not None and cfg.sharding == "halo":
+        data = _halo_data(data, world)
     graph, x = data["graph"], data["x"]
     conv = _conv_variant(cfg)
     in_dim = int(x.shape[1])
@@ -575,6 +638,7 @@ def run_teacher(cfg: TeacherConfig, *, max_epochs: Optional[int] = None,
             model, graph, x, data["pos_edges"], encoder=cfg.encoder, conv=conv,
             batch_size=cfg.batch_size, lr=cfg.lr, neg_mode=cfg.neg_mode,
             neg_keys=data["neg_keys"], compute_dtype=cfg.compute_dtype, world=world,
+            sharding=cfg.sharding,
         )
         steps = trainer.steps
         best_val, cnt_wait, first = snaps.restore(run, model, trainer.optimizer, gen)
@@ -640,8 +704,7 @@ def run_teacher(cfg: TeacherConfig, *, max_epochs: Optional[int] = None,
               f"perf={perf}")
     report = dict(epoch_s=list(meter.epoch_s), eval_s=list(meter.eval_s), perf=perf,
                   losses=losses, steps_per_epoch=steps, num_pos=data["num_pos"],
-                  split_name=data["split_name"], snapshot_s=snaps.seconds,
-                  **_data_report(data))
+                  split_name=data["split_name"], snapshot_s=snaps.seconds, **sizes)
     return stats, loggers, report
 
 
@@ -681,16 +744,28 @@ def run_student(cfg: StudentConfig, *, max_epochs: Optional[int] = None,
         data = _prepare(cfg, device)
     x = data["x"]
     n, in_dim = x.shape
+    sizes = _data_report(data)
+    table = world is not None and cfg.sharding == "halo"
 
     ckpt, _ = load_checkpoint(_teacher_ckpt_path(cfg))
-    t_h = torch.from_numpy(np.asarray(ckpt["features"], np.float32)).to(device)
+    t_h = torch.from_numpy(np.asarray(ckpt["features"], np.float32))
+    if not table:
+        t_h = t_h.to(device)
     if t_h.shape[0] != n:
         raise ValueError(f"the teacher artifact {_teacher_ckpt_path(cfg)} holds "
                          f"{t_h.shape[0]} rows for a dataset of {n} nodes")
     if data["node_order"] is not None:
         # the artifact is in the original ids: row i of this run is
         # original node node_order[i]
-        t_h = t_h.index_select(0, torch.from_numpy(data["node_order"]).to(device))
+        t_h = t_h.index_select(0, torch.from_numpy(data["node_order"]).to(t_h.device))
+    if table:  # the rank's rows of each node table
+        data = dict(data)
+        lo, hi = owned_rows(n, world.size, world.rank)
+        x = data["x"] = x[lo:hi].clone()
+        t_h = t_h[lo:hi].to(device)
+        if _is_production(data):
+            ilo, ihi = owned_rows(data["inf_x"].shape[0], world.size, world.rank)
+            data["inf_x"] = data["inf_x"][ilo:ihi].clone()
     teacher_pred = from_jax(ckpt["params"]["predictor"]).to(device)
     node_bs = cfg.coupled_node_batch_size(n, data["num_pos"])
 
@@ -736,6 +811,7 @@ def run_student(cfg: StudentConfig, *, max_epochs: Optional[int] = None,
             hops=cfg.hops, ns_rate=cfg.ns_rate, ps_method=cfg.ps_method,
             neg_mode=cfg.neg_mode, neg_keys=data["neg_keys"], minibatch=cfg.minibatch,
             compute_dtype=cfg.compute_dtype, llp_r_chunk=cfg.llp_r_chunk, world=world,
+            table=table,
         )
         steps = trainer.steps
         best_val, cnt_wait, first = snaps.restore(run, model, trainer.optimizer, gen)
@@ -757,7 +833,8 @@ def run_student(cfg: StudentConfig, *, max_epochs: Optional[int] = None,
                 snapshot(epoch)
                 continue
             meter.start()
-            results = evaluate_student(model, data, hits_ks=cfg.hits_ks)
+            results = evaluate_student(model, data, hits_ks=cfg.hits_ks,
+                                       world=world if table else None)
             meter.end_eval()
             val = results[cfg.metric][0]
             if val >= best_val:
@@ -790,5 +867,5 @@ def run_student(cfg: StudentConfig, *, max_epochs: Optional[int] = None,
     report = dict(epoch_s=list(meter.epoch_s), eval_s=list(meter.eval_s), perf=perf,
                   losses=losses, steps_per_epoch=steps, node_batch=min(node_bs, n),
                   num_pos=data["num_pos"], split_name=data["split_name"],
-                  snapshot_s=snaps.seconds, **_data_report(data))
+                  snapshot_s=snaps.seconds, **sizes)
     return stats, loggers, report

@@ -42,7 +42,12 @@ make_sharded_student_epoch_fn``, ``feature_sharding="replicated"``,
 :mod:`llp_tpu_torch.parallel.epoch`): every rank holds the features, the
 teacher's table and the graph its walks read; it draws the whole batch and
 scores its slice of the link and the node batch, and the gradients are
-summed across ranks before the clip.
+summed across ranks before the clip.  With ``table`` as well
+(``feature_sharding="table"``, which needs ``minibatch``) every rank holds
+only its node rows of the features and of the teacher's table, and the
+minibatch's feature rows and the teacher's rows come through
+:func:`~llp_tpu_torch.parallel.epoch.table_gather`, which copies exact
+rows: a table run equals the data-parallel one bit for bit.
 """
 
 from __future__ import annotations
@@ -69,7 +74,8 @@ from llp_tpu_torch.ops.losses import (
     mse_loss,
 )
 from llp_tpu_torch.ops.rng import BatchRows
-from llp_tpu_torch.parallel.epoch import BatchShard
+from llp_tpu_torch.parallel.epoch import BatchShard, table_gather
+from llp_tpu_torch.parallel.halo import owned_rows
 from llp_tpu_torch.parallel.mesh import World
 from llp_tpu_torch.parallel.sharded import all_reduce_grads
 from llp_tpu_torch.sample.negative import sample_negative_edges, sample_uniform_edges
@@ -145,7 +151,8 @@ class StudentTrainer:
     ``neg_keys`` the sorted edge keys dense negatives avoid (None for
     ``neg_mode="uniform"``).  ``node_batch_size`` is the coupled node batch
     (:meth:`StudentConfig.coupled_node_batch_size`).  ``world`` makes it one
-    rank of a data-parallel run."""
+    rank of a data-parallel run; ``table`` shards ``x`` and ``t_h`` by node
+    rows over its ranks (they may be given whole or as the rank's rows)."""
 
     def __init__(self, model: nn.ModuleDict, graph: Graph, x: torch.Tensor,
                  t_h: torch.Tensor, teacher_predictor: LinkPredictor,
@@ -156,7 +163,12 @@ class StudentTrainer:
                  rw_step: int = 3, hops: int = 2, ns_rate: int = 1, ps_method: str = "nb",
                  neg_mode: str = "dense", neg_keys: Optional[torch.Tensor] = None,
                  minibatch: bool = False, compute_dtype="float32", llp_r_chunk: int = 0,
-                 world: Optional[World] = None):
+                 world: Optional[World] = None, table: bool = False):
+        if table and not minibatch:
+            raise ValueError(
+                "feature_sharding='table' requires minibatch=True: the "
+                "full-batch student forward reads the whole feature matrix "
+                "per step, which is exactly what the sharded table avoids")
         if neg_mode not in ("dense", "uniform"):
             raise ValueError(f"unknown neg_mode {neg_mode!r}")
         if neg_mode == "dense" and neg_keys is None:
@@ -173,13 +185,21 @@ class StudentTrainer:
         self.graph = graph
         self.dtype = resolve_dtype(compute_dtype)
         dev = x.device
+        self.num_nodes = x.shape[0]
+        self.owned = None  # with table: the node rows [lo, hi) this rank holds
+        if table and world is not None:
+            self.num_nodes = graph.num_nodes
+            lo, hi = self.owned = owned_rows(self.num_nodes, world.size, world.rank)
+            x, t_h = (t[lo:hi].clone() if t.shape[0] == self.num_nodes else t for t in (x, t_h))
+            if x.shape[0] != hi - lo or t_h.shape[0] != hi - lo:
+                raise ValueError(f"rank {world.rank} owns rows [{lo}, {hi}) of x and t_h")
         # cast once per run
         self.x = x.to(self.dtype)
         self.t_h = t_h.to(self.dtype)
         self.teacher = copy.deepcopy(teacher_predictor).to(device=dev, dtype=self.dtype).eval()
         self.teacher.requires_grad_(False)
         self.pos_edges = pos_edges
-        self.num_nodes, self.num_pos = x.shape[0], pos_edges.shape[0]
+        self.num_pos = pos_edges.shape[0]
         self.batch = min(link_batch_size, self.num_pos)
         self.steps = -(-self.num_pos // self.batch)
         self.node_batch = min(node_batch_size, self.num_nodes)
@@ -219,6 +239,13 @@ class StudentTrainer:
             for m in self.model.modules():
                 if isinstance(m, BatchNorm):
                     m.world = world
+
+    def _rows(self, table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        """``table``'s rows ``idx`` (no gradient): a row gather, or with
+        ``table`` sharding :func:`table_gather` from the ranks' rows."""
+        if self.owned is None:
+            return table.index_select(0, idx)
+        return table_gather(table, idx, self.owned[0], self.world)
 
     def negatives(self, generator: torch.Generator) -> torch.Tensor:
         """(2, batch) fresh negatives."""
@@ -302,7 +329,7 @@ class StudentTrainer:
         if self.minibatch:
             # one forward over the gathered rows [contexts | src | dst]
             parts = [samples.reshape(-1), src, dst] if self.use_kd else [src, dst]
-            rows = call_in_dtype(enc, dt, self.x.index_select(0, torch.cat(parts)),
+            rows = call_in_dtype(enc, dt, self._rows(self.x, torch.cat(parts)),
                                  generator=enc_drop)
             if self.use_kd:
                 ctx = rows[:samples.numel()].view(*samples.shape, -1)
@@ -324,8 +351,8 @@ class StudentTrainer:
         if self.use_kd:
             s_r = call_in_dtype(pred, dt, anchor_h[:, None, :], ctx_h, generator=ctx_drop)
             with torch.no_grad():
-                t_ctx = self.t_h.index_select(0, samples[:, 1:].reshape(-1))
-                t_r = self.teacher(self.t_h.index_select(0, samples[:, 0])[:, None, :],
+                t_ctx = self._rows(self.t_h, samples[:, 1:].reshape(-1))
+                t_r = self.teacher(self._rows(self.t_h, samples[:, 0])[:, None, :],
                                    t_ctx.view(samples.shape[0], self.num_contexts, -1))
             if w["llp_d"] != 0.0:
                 loss = loss + w["llp_d"] * kl_div_loss(s_r, t_r, 1.0, row_mask=amask,

@@ -35,7 +35,18 @@ With ``world`` (a :class:`llp_tpu_torch.parallel.mesh.World`) the trainer
 is one rank of a data-parallel run (``llp_tpu/parallel/epoch.py::
 make_sharded_teacher_epoch_fn``, :mod:`llp_tpu_torch.parallel.epoch`): it
 aggregates over the rank's edge shard, scores its slice of each batch and
-sums the gradients across ranks before the clip.
+sums the gradients across ranks before the clip.  With ``sharding="halo"``
+as well it is one rank of a node-sharded run (``llp_tpu/parallel/epoch.py::
+make_halo_teacher_epoch_fn``; ``make_halo_teacher_step`` and
+``make_halo_sage_forward``, ``llp_tpu/parallel/halo.py:262,391``, have this
+one counterpart too): it holds only its node rows of ``x``, the encoder
+aggregates over its :class:`~llp_tpu_torch.parallel.halo.HaloGraph` (one
+exchange of boundary rows an aggregation), the encoder's dropout draws its
+rows' masks from a :class:`~llp_tpu_torch.ops.rng.RankRows` stream, batch
+norm takes its moments across the ranks' rows, and the pair rows come
+through :func:`~llp_tpu_torch.parallel.epoch.table_gather`; the rest is
+the data-parallel step's.  ``gather_last`` and ``remat`` are not knobs of
+the halo epoch (nor of JAX's).
 """
 
 from __future__ import annotations
@@ -57,8 +68,10 @@ from llp_tpu_torch.models.encoder import (
 from llp_tpu_torch.models.predictor import LinkPredictor
 from llp_tpu_torch.ops.gather import gather_rows
 from llp_tpu_torch.ops.losses import bce_loss
-from llp_tpu_torch.ops.rng import BatchRows
-from llp_tpu_torch.parallel.epoch import BatchShard
+from llp_tpu_torch.models.norms import BatchNorm
+from llp_tpu_torch.ops.rng import BatchRows, RankRows
+from llp_tpu_torch.parallel.epoch import BatchShard, table_gather
+from llp_tpu_torch.parallel.halo import HaloGraph, halo_graph
 from llp_tpu_torch.parallel.mesh import World, shard_edges
 from llp_tpu_torch.parallel.sharded import all_reduce_grads
 from llp_tpu_torch.sample.negative import sample_negative_edges, sample_uniform_edges
@@ -92,7 +105,10 @@ class TeacherTrainer:
     backward in bf16 over the fp32 parameters (:mod:`llp_tpu_torch.utils.precision`).
     ``gather_last``, ``remat`` and ``hoist`` are the big-graph knobs of the
     module's docstring; ``world`` makes it one rank of a data-parallel run
-    (``graph`` is then the whole graph, which it shards).
+    (``graph`` is then the whole graph, which it shards), and with
+    ``sharding="halo"`` of a node-sharded one: ``graph`` is the whole graph
+    or the rank's :class:`HaloGraph`, ``x`` the whole features or the
+    rank's rows of them (only those are kept).
     """
 
     def __init__(self, model: nn.ModuleDict, graph: Optional[Graph], x: torch.Tensor,
@@ -100,17 +116,23 @@ class TeacherTrainer:
                  batch_size: int = 64 * 1024, lr: float = 0.005,
                  neg_mode: str = "dense", neg_keys: Optional[torch.Tensor] = None,
                  compute_dtype="float32", gather_last: bool = False, remat: bool = False,
-                 hoist: Optional[bool] = None, world: Optional[World] = None):
+                 hoist: Optional[bool] = None, world: Optional[World] = None,
+                 sharding: str = "dp"):
         if neg_mode not in ("dense", "uniform"):
             raise ValueError(f"unknown neg_mode {neg_mode!r}")
         if neg_mode == "dense" and neg_keys is None:
             raise ValueError("dense negatives need the sorted edge keys")
+        if sharding not in ("dp", "halo"):
+            raise ValueError(f"unknown sharding {sharding!r}")
         self.model = model
         self.world = world
-        if world is not None and graph is not None:
+        self.halo = world is not None and sharding == "halo"
+        self.num_nodes = x.shape[0]
+        if self.halo:
+            graph, x = self._halo(model, graph, x, world, encoder, gather_last or remat)
+        elif world is not None and graph is not None:
             graph = shard_edges(graph, world)
         self.graph = graph
-        self.num_nodes = x.shape[0]
         self.dtype = resolve_dtype(compute_dtype)
         self.x = x.to(self.dtype)  # cast once per run
         if hoist is None:
@@ -125,6 +147,30 @@ class TeacherTrainer:
         self.steps = -(-self.num_pos // self.batch)
         self.shard = None if world is None else BatchShard(world, self.batch)
         self.optimizer = torch.optim.Adam(model.parameters(), lr=lr)
+
+    def _halo(self, model, graph, x, world, encoder, knobs) -> tuple:
+        """The rank's :class:`HaloGraph` and rows of ``x``; batch norm's
+        moments across the ranks' node rows."""
+        if encoder not in ("sage", "gcn"):
+            raise ValueError(
+                "halo-sharded training supports the sage/gcn teacher encoders "
+                f"(got {encoder!r}; the MLP has no aggregation to shard — use "
+                "the DP epoch)")
+        if knobs:
+            raise ValueError("the halo teacher takes neither gather_last nor remat")
+        if not isinstance(graph, HaloGraph):
+            graph = halo_graph(graph, world)
+        plan = graph.plan
+        self.num_nodes = plan.num_nodes
+        if x.shape[0] == plan.num_nodes and plan.n_loc != plan.num_nodes:
+            x = x[plan.lo:plan.hi].clone()
+        if x.shape[0] != plan.n_loc:
+            raise ValueError(f"rank {world.rank} owns {plan.n_loc} rows, x has {x.shape[0]}")
+        if world.size > 1:
+            for m in model.modules():
+                if isinstance(m, BatchNorm):
+                    m.world, m.total = world, plan.num_nodes
+        return graph, x
 
     def negatives(self, generator: torch.Generator) -> torch.Tensor:
         """(2, batch) fresh negatives."""
@@ -167,7 +213,11 @@ class TeacherTrainer:
         pred = self.model["predictor"]
         self.model.train()
         ends = torch.cat([edges[:, 0], neg[0], edges[:, 1], neg[1]])  # [src; dst]
-        if self.gather_last:
+        if self.halo:
+            plan = self.graph.plan
+            h = self.encode(RankRows(generator, self.world.rank, plan.n_per))
+            rows = table_gather(h, ends, plan.lo, self.world)
+        elif self.gather_last:
             rows = self.encode(generator, ends)
         else:
             rows = gather_rows(self.encode(generator), ends)

@@ -52,7 +52,8 @@ def test_import_loads_no_jax_and_no_llp_tpu():
      "llp_tpu_torch.cli.sweep, llp_tpu_torch.cli.parity",
      "llp_tpu_torch.parallel, llp_tpu_torch.parallel.mesh, llp_tpu_torch.parallel.sharded, "
      "llp_tpu_torch.parallel.epoch, llp_tpu_torch.parallel.launch, "
-     "llp_tpu_torch.tools.dp_runs"],
+     "llp_tpu_torch.tools.dp_runs",
+     "llp_tpu_torch.parallel.halo, llp_tpu_torch.parallel.eval"],
 )
 def test_training_modules_load_no_jax_and_no_llp_tpu(modules):
     code = (

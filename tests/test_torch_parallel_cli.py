@@ -11,6 +11,14 @@ and resumed.
   the same world does, bit for bit.
 * The CLI's own launch (``--device cpu:2``, JAX's spelling) trains and
   writes the artifact.
+* ``--sharding halo`` (the halo teacher with dropout 0, whose ranks draw
+  their node rows' masks from streams of their own, and the table student,
+  which needs ``--minibatch``), transductive and production, and the
+  teacher with ``--reorder locality``: the same lines and files as one
+  process, the metrics within the same tolerance; the results files hold
+  the lines JAX's CLI writes for the same flags over two of its devices.
+* Without ``--minibatch`` the student refuses ``--sharding halo`` in JAX's
+  words.
 
 One spawned world runs the flags of every case (``dp_runs.cli_run`` as
 each rank); the launch case spawns its own.  60 s timeouts on the process
@@ -24,6 +32,8 @@ import numpy as np
 import pytest
 import torch
 
+from llp_tpu.cli import train_student as jax_student
+from llp_tpu.cli import train_teacher as jax_teacher
 from llp_tpu_torch.cli import train_student, train_teacher
 from llp_tpu_torch.parallel.launch import launch
 from llp_tpu_torch.tools.dp_runs import run_jobs
@@ -46,11 +56,21 @@ SETTINGS = {"transductive": (), "production": ("--transductive=production",)}
 CUT = ("--runs=1", "--checkpoint_every=2")
 
 
+HALO = {"teacher": ("--sharding=halo", "--dropout=0"),
+        "student": ("--sharding=halo", "--minibatch")}
+HALO_REORDER = ("--sharding=halo", "--dropout=0", "--reorder=locality", "--reorder_parts=2")
+
+
 def _jobs(root):
     jobs = {}
     for setting, extra in SETTINGS.items():
         for role in ("teacher", "student"):
             jobs[role, setting] = {"role": role, "argv": _flags(root / setting, role, *extra)}
+        for role in ("teacher", "student"):  # the halo teacher, then its student
+            jobs["halo", role, setting] = {"role": role, "argv": _flags(
+                root / f"halo_{setting}", role, *extra, *HALO[role])}
+    jobs["halo", "teacher", "reorder"] = {"role": "teacher", "argv": _flags(
+        root / "halo_reorder", "teacher", *HALO_REORDER)}
     jobs["whole"] = {"role": "teacher", "argv": _flags(root / "whole", "teacher", *CUT)}
     jobs["cut"] = {"role": "teacher", "argv": _flags(root / "cut", "teacher", *CUT,
                                                      "--epochs=2")}
@@ -75,8 +95,8 @@ def dp(tmp_path_factory):
 def single(tmp_path_factory):
     root = tmp_path_factory.mktemp("single")
     out = {}
-    for (role, setting), job in ((k, j) for k, j in _jobs(root).items() if len(k) == 2):
-        out[role, setting] = run_jobs([("cli", job)])[0]
+    for key, job in ((k, j) for k, j in _jobs(root).items() if len(k) >= 2):
+        out[key] = run_jobs([("cli", job)])[0]
     return root, out
 
 
@@ -85,21 +105,35 @@ def _shape(line: str) -> str:
     return re.sub(r"-?\d+(\.\d+)?(e-?\d+)?", "#", line)
 
 
-def _results(root, role, setting):
+def _results(root, role, setting, folder=None):
     kind = "supervised" if role == "teacher" else "KD"
-    path = root / setting / "results" / f"{DATASET}_{kind}_{setting}.txt"
+    name = "transductive" if setting == "reorder" else setting
+    path = root / (folder or setting) / "results" / f"{DATASET}_{kind}_{name}.txt"
     return path.read_text().splitlines()
 
 
 @pytest.mark.parametrize("setting", list(SETTINGS))
 @pytest.mark.parametrize("role", ["teacher", "student"])
 def test_rank_zero_prints_and_writes_what_one_process_does(dp, single, role, setting):
+    _assert_one_process(dp, single, (role, setting), role, setting)
+
+
+@pytest.mark.parametrize("role,setting", [("teacher", "transductive"), ("teacher", "production"),
+                                          ("teacher", "reorder"), ("student", "transductive"),
+                                          ("student", "production")])
+def test_halo_ranks_print_and_write_what_one_process_does(dp, single, role, setting):
+    _assert_one_process(dp, single, ("halo", role, setting), role, setting,
+                        folder=f"halo_{setting}")
+
+
+def _assert_one_process(dp, single, key, role, setting, folder=None):
     (root, ranks), (one_root, one) = dp, single
-    lead, other = ranks[role, setting]
-    ref = one[role, setting]
+    lead, other = ranks[key]
+    ref = one[key]
     assert other["stdout"] == []
     assert [_shape(s) for s in lead["stdout"]] == [_shape(s) for s in ref["stdout"]]
-    ours, theirs = _results(root, role, setting), _results(one_root, role, setting)
+    ours = _results(root, role, setting, folder)
+    theirs = _results(one_root, role, setting, folder)
     a, b = ast.literal_eval(ours[0]), ast.literal_eval(theirs[0])
     assert (a.pop("num_devices"), b.pop("num_devices")) == (2, 1)
     assert {k: v for k, v in a.items() if not k.endswith("_dir")} == {
@@ -134,9 +168,32 @@ def test_the_cli_launches_its_ranks(tmp_path, capfd):
 
 
 def test_the_student_cli_refuses_halo_over_two_devices(tmp_path):
-    with pytest.raises(SystemExit, match="halo.*ROADMAP A14.2"):
+    # without --minibatch, in JAX's words (llp_tpu/train/loop.py:919-925)
+    with pytest.raises(SystemExit, match="sharding='halo' for the student requires --minibatch"):
         train_student.main([*_flags(tmp_path, "student"), "--num_devices=2",
                             "--sharding=halo"])
+    assert not (tmp_path / "data").exists()  # refused before any work
+
+
+@pytest.mark.parametrize("setting", list(SETTINGS))
+def test_halo_results_files_hold_the_jax_clis_lines(dp, tmp_path, setting):
+    root, ranks = dp
+    for role, main in (("teacher", jax_teacher.main), ("student", jax_student.main)):
+        argv = _flags(tmp_path, role, *SETTINGS[setting], *HALO[role], "--num_devices=2")
+        main(argv)
+        ours = _results(root, role, setting, f"halo_{setting}")
+        ref = (tmp_path / "results" / _results_name(role, setting)).read_text().splitlines()
+        a, b = ast.literal_eval(ours[0]), ast.literal_eval(ref[0])
+        assert list(a) == list(b)
+        assert (a.pop("spmm_impl"), b.pop("spmm_impl")) == ("segsum", "xla")
+        assert {k: v for k, v in a.items() if not k.endswith("_dir")} == {
+            k: v for k, v in b.items() if not k.endswith("_dir")}
+        assert a["sharding"] == "halo" and a["num_devices"] == 2
+        assert [s.split(":")[0] for s in ours[1:]] == [s.split(":")[0] for s in ref[1:]]
+
+
+def _results_name(role, setting):
+    return f"{DATASET}_{'supervised' if role == 'teacher' else 'KD'}_{setting}.txt"
 
 
 def test_a_missing_card_names_the_count(tmp_path, monkeypatch):

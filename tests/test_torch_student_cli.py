@@ -174,8 +174,11 @@ def test_use_edge_weight_changes_nothing_in_the_student(tmp_path):
 @pytest.mark.parametrize("flag", [
     # production, --reorder and the snapshots run
     # (tests/test_torch_{production_driver,reorder_driver,resume}.py), and so do
-    # --num_devices 2 (tests/test_torch_parallel_cli.py) and --sharding halo at one
-    # device (below); a card asked for on a machine without one is refused
+    # --num_devices 2 and --sharding halo --minibatch over two
+    # (tests/test_torch_parallel_cli.py) and --sharding halo at one device (below);
+    # halo over two without --minibatch is refused in JAX's words
+    # (llp_tpu/train/loop.py:919-925); a card asked for on a machine without one is
+    # refused
     "--num_devices=2 --sharding=halo", "--epochs_per_jit=2", "--spmm_impl=xla",
     "--num_devices=2 --device=cuda",
 ])
@@ -183,7 +186,7 @@ def test_unported_settings_exit(flag, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit) as exc:
         train_student.main(["--device=cpu", *_flags(tmp_path), *flag.split()])
-    assert re.search(r"not yet ported.*ROADMAP A14\.2|TPU mechanism|one SpMM route"
+    assert re.search(r"the student requires --minibatch|TPU mechanism|one SpMM route"
                      r"|only 0 CUDA device", str(exc.value.code))
     assert not os.path.exists(tmp_path / "data")  # refused before any work
 

@@ -124,18 +124,21 @@ def assert_same_config_line(ours: str, ref: str) -> None:
 @pytest.mark.parametrize("flag", [
     # production, --reorder and the snapshots run
     # (tests/test_torch_{production_driver,reorder_driver,resume}.py), and so do
-    # --num_devices 2 (tests/test_torch_parallel_cli.py) and --sharding halo at one
-    # device (below); a card asked for on a machine without one is refused
-    "--num_devices=2 --sharding=halo", "--epochs_per_jit=2", "--spmm_impl=xla",
-    "--num_devices=2 --device=cuda",
+    # --num_devices 2 and --sharding halo over two (tests/test_torch_parallel_cli.py)
+    # and at one device (below); the MLP teacher over halo is refused in JAX's
+    # words (llp_tpu/train/loop.py:503-508); a card asked for on a machine without
+    # one is refused
+    pytest.param("--num_devices=2 --sharding=halo --encoder=mlp",
+                 id="--num_devices=2 --sharding=halo"),
+    "--epochs_per_jit=2", "--spmm_impl=xla", "--num_devices=2 --device=cuda",
 ])
 def test_unported_settings_exit(flag, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit) as exc:
         train_teacher.main(["--device=cpu", *_flags(tmp_path), *flag.split()])
     assert exc.value.code not in (None, 0)
-    assert re.search(r"not yet ported.*A14\.2|TPU mechanism|one SpMM route|only 0 CUDA device",
-                     str(exc.value.code))
+    assert re.search(r"the MLP has no aggregation to shard|TPU mechanism|one SpMM route"
+                     r"|only 0 CUDA device", str(exc.value.code))
     assert not os.path.exists(tmp_path / "data")  # refused before any work
 
 
