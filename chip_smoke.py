@@ -217,8 +217,39 @@ failure exits non-zero.
                    remote, forward and backward, the owner scatter; bf16 ->
                    fp32 and weighted) against ``segsum_plain`` and timed,
                    entries of the kernels line.
-14. kernels     -- one JSON line: each kernel's launches on the serving,
-                   training, student, production, tooling, reorder, dp and halo paths, its
+14. shard       -- the node-sharded serving daemon (``--shard``) at the
+                   serve phase's collab table (235,868 x 256 re-encoded on
+                   the card, the 256-wide 'mlp' head), Q=256 queries, k=10
+                   and 50, 1,024 pairs: (a) ``ShardedServingState`` at a
+                   world of one over NCCL (the sharded path: the query
+                   rows' all-reduce, the scan with its offset, the score's
+                   row exchange) against ``ServingState``, fp32,
+                   bf16 compute, int8 and int4, top-K and pair scores bit
+                   for bit with the same retrieval (B4) and pair-scorer
+                   (B3) launches (``shard_world1:``); (b) two ranks on the
+                   one card over gloo, each holding its rows alone
+                   (``shard_gloo:``, each rank's bytes in use after set-up);
+                   (c) ``cli.serve --shard`` over HTTP in a process of its
+                   own against the single daemon: top-K, scores, a 400 for
+                   an id >= N, and a SIGTERM that leaves no rank process
+                   (``shard_daemon:``; with two cards its ranks span them,
+                   else a ``shard_cards:`` skip line); (d)
+                   ``sharded_hits_auc`` at collab's eval size (46,329
+                   positives, 100,000 negatives) at a world of one and over
+                   two gloo ranks against ``hits_at_k``/``roc_auc``
+                   (``hits_auc:``); (e) ``measure_scaling_global`` at a
+                   world of one on the card at the collab stand-in's size
+                   (235,868 nodes, 128 features, hidden 256, batch 65,536)
+                   and two ``multihost`` processes of one CPU rank each,
+                   which show the harness runs across hosts
+                   (``multihost:``); then B4 over rank
+                   0's half of the table at Q=256 in the four table kinds
+                   against ``mlp_block_logits_plain`` and timed, and the
+                   blocked scan over rank 1's half (global ids, the self
+                   pairs masked) against a plain top-K, entries of the
+                   kernels line.
+15. kernels     -- one JSON line: each kernel's launches on the serving,
+                   training, student, production, tooling, reorder, dp, halo and shard paths, its
                    time at the collab shapes, the plain version's time, a
                    library call's time where one exists, and the least time
                    the card could take. A ``top_k_partners:`` line gives the
@@ -4370,6 +4401,497 @@ def phase_halo(gen, train: dict) -> dict:
     return {"entries": _halo_entries(gen, train, counts)}
 
 
+SHARD = WORK / "shard"  # the table file and the sharded daemon's log
+SHARD_Q = 256
+SHARD_KS = (10, 50)
+SHARD_PAIRS = 1024
+# (tag, --quantize, compute dtype)
+SHARD_VARIANTS = (("fp32", "none", None), ("bf16", "none", "bfloat16"),
+                  ("int8", "int8", None), ("int4", "int4", None))
+COLLAB_EVAL = (46_329, 100_000)  # ogbl-collab's test positives and negatives
+HITS_KS = (10, 20, 50, 100)
+# measure_scaling_global's problem at the collab stand-in's size: its nodes,
+# feature width, the teacher's hidden width and its batch
+SCALING_COLLAB = dict(n_nodes=235_868, dim=128, hidden=256, batch=64 * 1024)
+
+
+def _shard_table():
+    """The serve phase's collab teacher re-encoded on the card: its head,
+    the (235,868, 256) table and the dataset."""
+    import torch
+
+    from llp_tpu_torch.core.graph import build_graph
+    from llp_tpu_torch.data.registry import get_dataset
+    from llp_tpu_torch.serve import encode_graph_nodes, load_serving_artifacts
+
+    modules, _, _ = load_serving_artifacts(str(WORK / "collab-teacher"), device="cuda")
+    ds = get_dataset(STANDINS, "collab")
+    h = encode_graph_nodes(modules["encoder"],
+                           build_graph(ds.edge_index, ds.num_nodes, device="cuda"),
+                           torch.from_numpy(ds.x).cuda())
+    return modules["predictor"], h, ds
+
+
+def _shard_counts() -> tuple:
+    from llp_tpu_torch.ops.mlp_topk import mlp_block_logits
+    from llp_tpu_torch.ops.sddmm import sddmm_mlp_score
+
+    return mlp_block_logits.launches, sddmm_mlp_score.launches
+
+
+def _flat_answers(answers) -> list:
+    """A state's answers (top-K ``(values, ids)`` pairs and score arrays) as
+    one list of arrays."""
+    out = []
+    for a in answers:
+        out += list(a) if isinstance(a, tuple) else [a]
+    return out
+
+
+def _check_answers(got: list, want: list, what: str) -> dict:
+    """Bit for bit, or else: scores within SCORE_ATOL and top-K ids equal
+    wherever a score stands apart from its neighbours by more than that."""
+    import numpy as np
+
+    if all(np.array_equal(a, b) for a, b in zip(got, want)):
+        return {"bitwise": True, "max_abs": 0.0}
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a.dtype.kind == "f":
+            worst = max(worst, float(np.abs(a.astype(np.float64) - b).max()))
+            if worst > SCORE_ATOL:
+                raise AssertionError(f"{what}: scores differ by {worst} > {SCORE_ATOL}")
+        else:  # ids, after their values
+            vals = want[i - 1]
+            gaps = np.abs(np.diff(vals, axis=1))
+            edge = np.full((vals.shape[0], 1), np.inf)
+            apart = (np.concatenate([edge, gaps], 1) > SCORE_ATOL) & (
+                np.concatenate([gaps, edge], 1) > SCORE_ATOL)
+            if not np.array_equal(a[apart], b[apart]):
+                raise AssertionError(f"{what}: ids differ where the scores stand apart")
+    return {"bitwise": False, "max_abs": worst, "atol": SCORE_ATOL}
+
+
+def _shard_world_of_one(pred, h, queries, pairs, world) -> dict:
+    """(a): ``ShardedServingState`` at a world of one (its sharded path,
+    over one NCCL rank) against ``ServingState`` on the same table, in
+    turns (single, world, world, single), each variant's answers bit for
+    bit with the same B4 and B3 launches; returns the single answers and the world's launches per
+    variant."""
+    import numpy as np
+    import torch
+
+    from llp_tpu_torch.serve.server import ServingState, ShardedServingState
+
+    out = {}
+    for tag, quantize, cdt in SHARD_VARIANTS:
+        dtype = None if cdt is None else getattr(torch, cdt)
+        states = {"single": ServingState(pred, h, quantize=quantize, compute_dtype=dtype),
+                  "world1": ShardedServingState(pred, h, world=world, quantize=quantize,
+                                                compute_dtype=dtype)}
+        runs = {}
+        for name in ("single", "world1", "world1", "single"):
+            state = states[name]
+            torch.cuda.synchronize()
+            c0, t0 = _shard_counts(), time.perf_counter()
+            answers = [state.topk(queries, k) for k in SHARD_KS] + [state.score(pairs)]
+            torch.cuda.synchronize()
+            c1 = _shard_counts()
+            runs.setdefault(name, []).append({"answers": _flat_answers(answers),
+                                              "s": time.perf_counter() - t0,
+                                              "launches": (c1[0] - c0[0], c1[1] - c0[1])})
+        for a, b in zip(runs["single"], runs["world1"]):
+            if not all(np.array_equal(x, y) for x, y in zip(a["answers"], b["answers"])):
+                raise AssertionError(f"shard world of one {tag}: not bit for bit")
+            if a["launches"] != b["launches"]:
+                raise AssertionError(f"shard world of one {tag}: launches {b['launches']} "
+                                     f"!= {a['launches']} of the single state")
+        if not runs["world1"][0]["launches"][0] or not runs["world1"][0]["launches"][1]:
+            raise AssertionError(f"shard world of one {tag}: B4 or B3 did not launch")
+        single_s = runs["single"][1]["s"]
+        world_s = runs["world1"][1]["s"]
+        log("shard_world1", {"run": tag, "bitwise": True, "q": len(queries), "ks": SHARD_KS,
+                             "pairs": len(pairs),
+                             "mlp_topk_launches": runs["world1"][0]["launches"][0],
+                             "sddmm_launches": runs["world1"][0]["launches"][1],
+                             "single_s": single_s, "world1_s": world_s,
+                             "overhead_s": world_s - single_s})
+        out[tag] = {"answers": runs["single"][0]["answers"],
+                    "launches": [r["launches"] for r in runs["world1"]]}
+        del states, runs
+        torch.cuda.empty_cache()
+    return out
+
+
+def _shard_hits_auc(h, ds, pred, world) -> dict:
+    """(d), the world of one: scores of collab's eval size through the
+    single state (B3), ``sharded_hits_auc`` against ``hits_at_k`` and
+    ``roc_auc``; returns the scores and the job of two gloo ranks."""
+    import numpy as np
+
+    from llp_tpu_torch.parallel.eval import sharded_hits_auc
+    from llp_tpu_torch.serve import score_pairs
+
+    n_pos, n_neg = COLLAB_EVAL
+    rng = np.random.default_rng(5)
+    pos_e = ds.edge_index[:, rng.choice(ds.edge_index.shape[1], n_pos, replace=False)]
+    neg_e = rng.integers(0, h.shape[0], (2, n_neg))
+    pos = score_pairs(pred, h, pos_e[0], pos_e[1])
+    neg = score_pairs(pred, h, neg_e[0], neg_e[1])
+    got = {k: float(v) for k, v in sharded_hits_auc(pos, neg, HITS_KS, world).items()}
+    _check_hits(got, pos, neg, "hits_auc world of one")
+    log("hits_auc", {"world": 1, "positives": n_pos, "negatives": n_neg, **got})
+    cut = 37_000  # uneven cuts
+    return {"pos": pos.cpu().numpy(), "neg": neg.cpu().numpy(), "ks": HITS_KS,
+            "cuts": [0, cut, n_neg]}
+
+
+def _check_hits(got: dict, pos, neg, what: str) -> None:
+    import torch
+
+    from llp_tpu_torch.ops.metrics import hits_at_k, roc_auc
+
+    pos, neg = torch.as_tensor(pos), torch.as_tensor(neg)
+    for k in HITS_KS:
+        if got[f"Hits@{k}"] != float(hits_at_k(pos, neg, k)):
+            raise AssertionError(f"{what}: Hits@{k} {got[f'Hits@{k}']} != "
+                                 f"{float(hits_at_k(pos, neg, k))}")
+    if abs(got["AUC"] - float(roc_auc(pos, neg))) > 1e-6:
+        raise AssertionError(f"{what}: AUC {got['AUC']} != {float(roc_auc(pos, neg))}")
+
+
+def _shard_two_gloo_ranks(pred, h, queries, pairs, world1: dict, hits_job: dict) -> dict:
+    """(b) and (d): two ranks on the one card over gloo, each reading its
+    rows of the table from a file: every variant's answers against the
+    single state's, each rank's bytes in use after set-up; and
+    ``sharded_hits_auc`` over uneven cuts of the negatives. Returns each
+    variant's B4 launches and B3's, summed over the ranks."""
+    import numpy as np
+
+    from llp_tpu_torch.parallel.launch import launch
+    from llp_tpu_torch.tools.dp_runs import run_jobs
+    from llp_tpu_torch.utils.params import to_jax
+
+    SHARD.mkdir(parents=True, exist_ok=True)
+    path = SHARD / "collab_table.npy"
+    np.save(path, h.cpu().numpy())
+    requests = [("topk", queries.tolist(), k) for k in SHARD_KS] + [("score", pairs.tolist())]
+    tree = to_jax(pred)
+    jobs = [("state", {"h": str(path), "predictor": tree, "quantize": quantize,
+                       "compute_dtype": cdt, "requests": requests})
+            for _, quantize, cdt in SHARD_VARIANTS] + [("hits_auc", hits_job)]
+    t0 = time.perf_counter()
+    ranks = launch(run_jobs, ["cuda:0", "cuda:0"], jobs, backend="gloo",
+                   timeout=DP_TIMEOUT_S, join_timeout=2 * DP_TIMEOUT_S)
+    gloo_s = time.perf_counter() - t0
+    out = {}
+    whole = {"fp32": h.numel() * 4, "bf16": h.numel() * 4, "int8": h.numel() + h.shape[0] * 4,
+             "int4": h.numel() // 2 + h.shape[0] * 4}
+    for i, (tag, _, _) in enumerate(SHARD_VARIANTS):
+        r0, r1 = ranks[0][i], ranks[1][i]
+        check = _check_answers(_flat_answers(r0["answers"]), world1[tag]["answers"],
+                               f"shard gloo {tag}")
+        b4 = sum(sum(r["mlp_topk_launches"].values()) for r in (r0, r1))
+        b3 = r0["sddmm_launches"] + r1["sddmm_launches"]
+        if not b4 or not b3:
+            raise AssertionError(f"shard gloo {tag}: B4 or B3 did not launch on the ranks")
+        log("shard_gloo", {"run": tag, **check, "rows": [r0["rows"], r1["rows"]],
+                           "bytes_in_use": [r0["bytes_in_use"], r1["bytes_in_use"]],
+                           "table_bytes": whole[tag],
+                           "mlp_topk_launches": [r["mlp_topk_launches"] for r in (r0, r1)],
+                           "sddmm_launches": [r0["sddmm_launches"], r1["sddmm_launches"]],
+                           "rank0_request_s": r0["seconds"]})
+        out[tag] = (b4, b3)
+    hits = [r[-1] for r in ranks]
+    if hits[0] != hits[1]:
+        raise AssertionError("hits_auc gloo: the ranks disagree")
+    _check_hits(hits[0], hits_job["pos"], hits_job["neg"], "hits_auc gloo")
+    log("hits_auc", {"world": 2, "backend": "gloo", "cuts": hits_job["cuts"], **hits[0]})
+    log("shard_gloo_total", {"seconds": gloo_s})
+    path.unlink()
+    return out
+
+
+def _http(port: int, path: str, payload=None) -> tuple:
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _child_pids(pid: int) -> list:
+    out = []
+    for stat in Path("/proc").glob("[0-9]*/stat"):
+        try:
+            fields = stat.read_text().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        if int(fields[1]) == pid:
+            out.append(int(stat.parent.name))
+    return out
+
+
+def _shard_daemon(pred, h, queries, pairs) -> None:
+    """(c): ``cli.serve --shard`` in a process of its own, on every visible
+    card (one here: a world of one over NCCL), against the single daemon
+    on the same table over HTTP; then a SIGTERM, after which neither the
+    CLI nor a rank process is left."""
+    import signal
+
+    import numpy as np
+    import torch
+
+    from llp_tpu_torch.serve import BackgroundServer, ServingState
+
+    n = h.shape[0]
+    SHARD.mkdir(parents=True, exist_ok=True)
+    argv = [sys.executable, "-m", "llp_tpu_torch.cli.serve",
+            f"--checkpoint={WORK / 'collab-teacher'}", "--datasets=collab",
+            f"--dataset_dir={STANDINS}", "--reencode", "--port=0", "--shard", "--warmup=10"]
+    t0 = time.perf_counter()
+    with open(SHARD / "daemon.err", "w") as err:
+        proc = subprocess.Popen(argv, cwd=ROOT, stdout=subprocess.PIPE, stderr=err, text=True)
+        try:
+            summary, port = None, None
+            deadline = time.monotonic() + 600
+            while port is None:
+                line = proc.stdout.readline()
+                if not line:
+                    if proc.poll() is not None or time.monotonic() > deadline:
+                        raise AssertionError("shard daemon: no ready line; see "
+                                             f"{SHARD / 'daemon.err'}")
+                    continue
+                msg = json.loads(line)
+                if "serving" in msg:
+                    port = int(msg["serving"].rsplit(":", 1)[1])
+                else:
+                    summary = msg
+            ready_s = time.perf_counter() - t0
+            cards = torch.cuda.device_count()
+            if summary.get("shards") != cards or summary["nodes"] != n:
+                raise AssertionError(f"shard daemon: summary {summary}")
+            children = _child_pids(proc.pid)
+            checks = {}
+            with BackgroundServer(ServingState(pred, h)) as srv:
+                for name, path, payload in (
+                        ("topk10", "/v1/topk", {"queries": queries.tolist(), "k": 10}),
+                        ("topk50", "/v1/topk", {"queries": queries.tolist(), "k": 50}),
+                        ("score", "/v1/score", {"pairs": pairs.tolist()})):
+                    a, b = _http(port, path, payload), _http(srv.port, path, payload)
+                    if a[0] != 200 or b[0] != 200:
+                        raise AssertionError(f"shard daemon {name}: status {a[0]}, {b[0]}")
+                    if name == "score":
+                        got, want = [np.asarray(a[1]["scores"])], [np.asarray(b[1]["scores"])]
+                    else:
+                        got = [np.asarray([r[key]]) for r in a[1]["results"]
+                               for key in ("scores", "partners")]
+                        want = [np.asarray([r[key]]) for r in b[1]["results"]
+                                for key in ("scores", "partners")]
+                    checks[name] = _check_answers(got, want, f"shard daemon {name}")
+            status, body = _http(port, "/v1/topk", {"queries": [n], "k": 3})
+            if status != 400 or "out of range" not in body.get("error", ""):
+                raise AssertionError(f"shard daemon: an id of N got {status} {body}")
+            health = _http(port, "/healthz")[1]
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+    deadline = time.monotonic() + 60
+    while any(Path(f"/proc/{p}").exists() for p in children) and time.monotonic() < deadline:
+        time.sleep(0.2)
+    left = [p for p in children if Path(f"/proc/{p}").exists()]
+    if rc != 0 or left:
+        raise AssertionError(f"shard daemon: exit code {rc}, processes left {left}")
+    log("shard_daemon", {"shards": summary["shards"], "ready_s": ready_s,
+                         "encode_s": summary["encode_s"], "checks": checks,
+                         "bad_id_status": status, "device_calls": health["device_calls"],
+                         "exit_code": rc, "children": len(children), "left": left})
+    if cards < 2:
+        log("shard_cards", "skipped: one card visible (the --shard CLI ran as a world of one; "
+                           "its ranks span the cards where two or more are visible)")
+
+
+def _multihost_cpu() -> list:
+    """(e): two ``multihost`` processes of one CPU rank each, standing in for
+    two hosts (started here, read by :func:`_multihost_read`)."""
+    from llp_tpu_torch.parallel.launch import free_tcp_address
+
+    port = free_tcp_address().rsplit(":", 1)[1]
+    return [subprocess.Popen([sys.executable, "-m", "llp_tpu_torch.parallel.multihost",
+                              "--coordinator", f"127.0.0.1:{port}", "--num_processes", "2",
+                              "--process_id", str(i), "--device", "cpu:1", "--steps", "3"],
+                             cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for i in (0, 1)]
+
+
+def _multihost_read(procs) -> dict:
+    outs = [p.communicate(timeout=600) for p in procs]
+    if any(p.returncode for p in procs):
+        raise AssertionError(f"multihost: exit codes {[p.returncode for p in procs]}: "
+                             f"{outs[0][1][-2000:]} {outs[1][1][-2000:]}")
+    lines = outs[0][0].splitlines()
+    if len(lines) != 1 or outs[1][0].strip():
+        raise AssertionError(f"multihost: process 0 printed {lines}, process 1 {outs[1][0]!r}")
+    return json.loads(lines[0])
+
+
+def _shard_entries(gen, pred, h, queries, counts: dict) -> list:
+    """B4 over rank 0's half of the table (rank 0 of 2's rows of
+    ``shard_bounds``; int4: its even block, unpacked) at Q=256 in the four
+    table kinds, against ``mlp_block_logits_plain`` over the candidate
+    blocks the unfused route takes, and timed; and the blocked scan over
+    rank 1's half (global ids from the half's first row, the queries' own
+    rows masked) against a plain top-K of the plain logits."""
+    import torch
+
+    from llp_tpu_torch.ops.mlp_topk import (
+        bf16_tolerance,
+        head_layers,
+        mlp_block_logits,
+        mlp_block_logits_plain,
+    )
+    from llp_tpu_torch.serve.engine import auto_topk_block, scan_top_k
+    from llp_tpu_torch.serve.quant import codes_slice, dequantize_rows, quantize_table
+    from llp_tpu_torch.serve.server import shard_bounds
+
+    n, width = h.shape
+    q = SHARD_Q
+    lins = head_layers(pred.lins)
+    qidx = torch.as_tensor(queries, device="cuda")
+    block = auto_topk_block(pred, q, width)  # the unfused route's candidates per block
+    rows_q = torch.arange(q, device="cuda")
+
+    def plain(q_h, cand, scales=None):
+        out = torch.empty((q, cand.shape[0]), dtype=torch.float32, device="cuda")
+        for b0 in range(0, cand.shape[0], block):
+            out[:, b0:b0 + block] = mlp_block_logits_plain(
+                lins, q_h, cand[b0:b0 + block],
+                scales=None if scales is None else scales[b0:b0 + block])
+        return out
+
+    def inputs(tag):
+        if tag in ("fp32", "bf16"):
+            half = shard_bounds(n, 2)[1]
+            dt = torch.float32 if tag == "fp32" else torch.bfloat16
+            return h[qidx].to(dt), h[:half].to(dt), None
+        bits = 8 if tag == "int8" else 4
+        half = shard_bounds(n, 2, bits)[1]
+        qt = quantize_table(h[:half], bits)
+        return (dequantize_rows(quantize_table(h[qidx], bits), rows_q),
+                codes_slice(qt, 0, half).contiguous(), qt.scale)
+
+    flops_per_cand = 2 * q * sum(int(w["w"].shape[0]) * int(w["w"].shape[1]) for w in lins)
+    weight_values = sum(w["w"].numel() + w["b"].numel() for w in lins)
+    entries = []
+    for tag, _, _ in SHARD_VARIANTS:
+        q_h, cand, scales = inputs(tag)
+        b = cand.shape[0]
+        got = mlp_block_logits(lins, q_h, cand, scales=scales)
+        ref = plain(q_h, cand, scales)
+        what = f"mlp_topk.shard.{tag}"
+        if tag == "bf16":
+            used = 0.0
+            for b0 in range(0, b, block):
+                bound = bf16_tolerance(lins, q_h, cand[b0:b0 + block])
+                e = (got[:, b0:b0 + block] - ref[:, b0:b0 + block]).abs()
+                used = max(used, float((e / bound).max()))
+            if used > 1.0 or not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"{what}: past the bf16 bound ({used:.3g}x)")
+            err = {"max_abs": float((got - ref).abs().max()), "tol_used": used}
+        else:
+            err = compare(got, ref, **MLP_TOPK_TOL, what=what)
+        del ref
+        ms = time_ms(lambda: mlp_block_logits(lins, q_h, cand, scales=scales), reps=3, warmup=1)
+        plain_ms = time_ms(lambda: plain(q_h, cand, scales), reps=1, warmup=1)
+        flops = flops_per_cand * b
+        q_bytes = q * width * q_h.element_size()
+        cand_bytes = cand.numel() * cand.element_size() + (0 if scales is None else b * 4)
+        nbytes = cand_bytes + q_bytes + weight_values * 4 + q * b * 4
+        peak = BF16_FLOP_PER_S if tag == "bf16" else FP32_FLOP_PER_S
+        by_ops = flops / peak >= nbytes / HBM_BYTES_PER_S
+        bound_ms = max(flops / peak, nbytes / HBM_BYTES_PER_S) * 1e3
+        log("timing", {"kernel": what, "q": q, "b": b, "h": width, "flops": flops,
+                       "bytes": nbytes, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                       "tflop_per_s": flops / ms / 1e9})
+        kind = {"fp32": "fp32 dense", "bf16": "bf16 dense on the tensor cores",
+                "int8": "int8 codes + scales", "int4": "int4 rows unpacked to int8 codes"}[tag]
+        entries.append({
+            "name": what, "route": "cuda", "source": "llp_tpu_torch/csrc/mlp_topk.cu",
+            "replaces": "llp_tpu/ops/pallas/mlp_topk_kernel.py:81",
+            "launches": counts[tag], "max_abs_err": err["max_abs"], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "operations" if by_ops else "bytes", "library_ms": None,
+            "library_note": "no single PyTorch call takes the Hadamard product of every "
+                            "query x candidate pair through an MLP head",
+            "shapes": f"rank 0 of 2's rows ({b} of {n}), Q={q}, H=F={width}, 2-layer head, "
+                      f"{kind}"})
+    # the scan's global ids and self mask, over rank 1's half
+    lo = shard_bounds(n, 2)[1]
+    vals, ids, raw = scan_top_k(pred, h[lo:], h[qidx], qidx, k=10, row0=lo, exclude_self=True,
+                                mlp_fused=True)
+    logits = plain(h[qidx], h[lo:])
+    logits[(torch.arange(lo, n, device="cuda")[None, :] == qidx[:, None])] = -torch.inf
+    ref_vals, ref_pos = torch.topk(logits, 10, dim=1)
+    err = compare(vals, ref_vals, **MLP_TOPK_TOL, what="shard scan values")
+    gaps = (ref_vals[:, :-1] - ref_vals[:, 1:]).abs() > 1e-4
+    apart = torch.cat([gaps[:, :1], gaps[:, 1:] & gaps[:, :-1], gaps[:, -1:]], 1)
+    if not raw or not torch.equal(ids[apart], (ref_pos + lo)[apart]):
+        raise AssertionError("shard scan: ids off where the logits stand apart")
+    log("shard_scan", {"rows": [lo, n], "q": q, "k": 10, "self_in_half": int(
+        ((qidx >= lo)).sum()), **err})
+    return entries
+
+
+def phase_shard(gen) -> dict:
+    """The node-sharded serving daemon (``--shard``), its sharded Hits@K/AUC
+    and the multi-host harness: (a) to (e) of the module's docstring, then
+    B4's shard entries of the kernels line."""
+    import numpy as np
+    import torch
+
+    from llp_tpu_torch.parallel.launch import free_tcp_address
+    from llp_tpu_torch.parallel.mesh import close_world, init_world
+    from llp_tpu_torch.parallel.multihost import measure_scaling_global
+
+    pred, h, ds = _shard_table()
+    n = h.shape[0]
+    rng = np.random.default_rng(14)
+    queries = rng.choice(n, SHARD_Q, replace=False)
+    pairs = rng.integers(0, n, (SHARD_PAIRS, 2))
+    hosts = _multihost_cpu()
+    world = init_world(0, 1, torch.device("cuda", 0), init_method=free_tcp_address(),
+                       timeout=DP_TIMEOUT_S)
+    try:
+        world1 = _shard_world_of_one(pred, h, queries, pairs, world)
+        hits_job = _shard_hits_auc(h, ds, pred, world)
+        card = measure_scaling_global(world=world, **SCALING_COLLAB)
+    finally:
+        close_world()
+    log("multihost", {"run": "measure_scaling_global, a world of one over NCCL",
+                      **SCALING_COLLAB, **card})
+    gloo = _shard_two_gloo_ranks(pred, h, queries, pairs, world1, hits_job)
+    _shard_daemon(pred, h, queries, pairs)
+    cpu = _multihost_read(hosts)
+    log("multihost", {"run": "two multihost processes of one CPU rank each (gloo)", **cpu,
+                      "efficiency": "not measured: one card is visible, so the step's "
+                                    "efficiency across cards cannot be read here"})
+    counts = {tag: sum(b4 for b4, _ in world1[tag]["launches"]) + gloo[tag][0]
+              for tag, _, _ in SHARD_VARIANTS}
+    log("shard_launches", {"mlp_topk": counts,
+                           "sddmm": {tag: sum(b3 for _, b3 in world1[tag]["launches"])
+                                     + gloo[tag][1] for tag, _, _ in SHARD_VARIANTS}})
+    return {"entries": _shard_entries(gen, pred, h, queries, counts)}
+
+
 def main() -> int:
     try:
         import torch
@@ -4415,8 +4937,10 @@ def main() -> int:
     reorder = timed("reorder", phase_reorder, gen, train, worst)
     dp = timed("dp", phase_dp, gen, train)
     halo = timed("halo", phase_halo, gen, train)
+    shard = timed("shard", phase_shard, gen)
     kernels = (timed("kernels", phase_kernels, gen, launches, train, student, production,
-                     tooling, scale10m, reorder, worst) + dp["entries"] + halo["entries"])
+                     tooling, scale10m, reorder, worst) + dp["entries"] + halo["entries"]
+               + shard["entries"])
     log("total", {"seconds": time.perf_counter() - t0, "phases": seconds})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": info["name"],

@@ -16,26 +16,35 @@ JSON lines).
     python -m llp_tpu_torch.cli.serve --checkpoint saved/cora-teacher \
         --datasets cora --reencode --quantize int8 --port 8080 --warmup 10
 
+    # the daemon over a table sharded by rows across every visible card
+    # (--device cpu:4: four CPU ranks)
+    python -m llp_tpu_torch.cli.serve --checkpoint saved/cora-teacher \
+        --datasets cora --reencode --port 8080 --shard
+
 Runs on the GPU unless ``--device cpu`` is given; with no card visible and
 no ``--device cpu`` it exits.  Prints one JSON line per query and per pair
 batch, then a summary line; with ``--port`` it prints the summary and a
 ready line, then serves ``GET /healthz``, ``POST /v1/topk`` and
-``POST /v1/score`` until interrupted.  The sharded table (``--shard``) is
-not ported yet.
+``POST /v1/score`` until interrupted (SIGINT or SIGTERM).
+
+``--shard`` runs one rank per device (one process each; a world of one runs
+in this process): every rank loads the checkpoint and encodes the whole
+table, keeps its block of rows (:class:`~llp_tpu_torch.serve.server.
+ShardedServingState`) and drops the rest; rank 0 serves and the others
+follow it.  The summary line carries ``"shards"``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import signal
+import threading
 import time
 
 import numpy as np
 import torch
-
-
-def _not_ported(flag: str, item: str) -> SystemExit:
-    return SystemExit(f"{flag} is not yet ported to llp_tpu_torch (ROADMAP {item})")
 
 
 def main(argv=None):
@@ -73,7 +82,10 @@ def main(argv=None):
                         "POST /v1/score {pairs}")
     p.add_argument("--host", type=str, default=None,
                    help="daemon mode: the address to bind (default 127.0.0.1)")
-    p.add_argument("--shard", action="store_true")
+    p.add_argument("--shard", action="store_true",
+                   help="daemon mode: shard the table's rows across a rank per "
+                        "visible card (--device cpu:N: N CPU ranks), with an exact "
+                        "merge of the ranks' top-K")
     p.add_argument("--warmup", type=int, default=None,
                    help="daemon mode: one top-K at this k and one score "
                         "before accepting traffic, so the kernels are built "
@@ -87,74 +99,38 @@ def main(argv=None):
                    help="daemon mode: per-request pair cap (default 2^20)")
     args = p.parse_args(argv)
 
-    if args.shard:
-        raise _not_ported("--shard", "A14.5")
     daemon_flags = [f"--{name}" for name in ("host", "warmup", "max_queue", "max_queries",
                                              "max_pairs") if getattr(args, name) is not None]
+    daemon_flags += ["--shard"] if args.shard else []
     if daemon_flags and args.port is None:
         p.error(f"{', '.join(daemon_flags)} configure the daemon and need --port")
+    if args.shard:
+        return _serve_sharded(args)
 
-    from llp_tpu_torch.utils.device import setup_device, synchronize
+    from llp_tpu_torch.serve import score_pairs, top_k_partners
+    from llp_tpu_torch.utils.device import setup_device
 
     device = setup_device(args.device)
-
-    from llp_tpu_torch.data.registry import get_dataset
-    from llp_tpu_torch.serve import (
-        encode_graph_nodes,
-        encode_nodes,
-        load_serving_artifacts,
-        score_pairs,
-        top_k_partners,
-    )
-
-    modules, feats, meta = load_serving_artifacts(args.checkpoint, device=device)
+    modules, h, out = _encode(args, device)
     compute_dtype = torch.bfloat16 if args.compute_dtype == "bfloat16" else None
-
-    t0 = time.perf_counter()
-    is_gnn = meta.get("encoder", "mlp") != "mlp"
-    if is_gnn and args.reencode:
-        # Inductive serving: embed over the dataset's current edge set,
-        # unweighted, as the JAX CLI does (a --use_edge_weight teacher too).
-        from llp_tpu_torch.core.graph import build_graph
-
-        ds = get_dataset(args.dataset_dir, args.datasets)
-        graph = build_graph(ds.edge_index, ds.num_nodes, device=device)
-        h = encode_graph_nodes(modules["encoder"], graph,
-                               torch.from_numpy(ds.x).to(device))
-    elif feats is not None and is_gnn:
-        h = feats
-    else:
-        if is_gnn:
-            raise SystemExit(
-                "GNN checkpoint has no saved features — pass --reencode to "
-                "embed over the dataset's edge set"
-            )
-        ds = get_dataset(args.dataset_dir, args.datasets)
-        h = encode_nodes(modules["encoder"], torch.from_numpy(ds.x).to(device))
-    synchronize(device)
-    t_encode = time.perf_counter() - t0
-
-    out = {"checkpoint": args.checkpoint, "nodes": int(h.shape[0]),
-           "dim": int(h.shape[1]), "encode_s": round(t_encode, 4)}
 
     if args.port is not None:
         # Daemon mode: encode once (above), answer queries until interrupted.
-        from llp_tpu_torch.serve.server import MAX_QUEUE, ServingState, serve_forever
+        from llp_tpu_torch.serve.server import ServingState, serve_forever
 
+        caps = _daemon_caps(args)
         state = ServingState(
             modules["predictor"], h, block=args.block, approx=args.approx,
             compute_dtype=compute_dtype, quantize=args.quantize,
-            max_queries=4096 if args.max_queries is None else args.max_queries,
-            max_pairs=(1 << 20) if args.max_pairs is None else args.max_pairs,
+            max_queries=caps["max_queries"], max_pairs=caps["max_pairs"],
         )
         # The state owns the (possibly quantized) table now: drop the fp32
         # encode output so the daemon does not keep both copies alive.
-        del h, feats
+        del h
         if args.warmup:
             state.warmup(args.warmup)
         print(json.dumps(out), flush=True)
-        serve_forever(state, args.host or "127.0.0.1", args.port,
-                      max_queue=MAX_QUEUE if args.max_queue is None else args.max_queue)
+        serve_forever(state, args.host or "127.0.0.1", args.port, max_queue=caps["max_queue"])
         return out
 
     # One-shot paths: quantize here (the daemon's state quantizes its own).
@@ -207,6 +183,129 @@ def main(argv=None):
 
     print(json.dumps(out))
     return out
+
+
+def _encode(args, device) -> tuple:
+    """``(modules, h, summary)``: the checkpoint's modules on ``device``, the
+    (N, H) table to serve (a GNN re-encoded over the dataset's edges, its
+    saved features, or the MLP's encode of the features) and the summary
+    line's first keys."""
+    from llp_tpu_torch.data.registry import get_dataset
+    from llp_tpu_torch.serve import encode_graph_nodes, encode_nodes, load_serving_artifacts
+    from llp_tpu_torch.utils.device import synchronize
+
+    modules, feats, meta = load_serving_artifacts(args.checkpoint, device=device)
+    t0 = time.perf_counter()
+    is_gnn = meta.get("encoder", "mlp") != "mlp"
+    if is_gnn and args.reencode:
+        # Inductive serving: embed over the dataset's current edge set,
+        # unweighted, as the JAX CLI does (a --use_edge_weight teacher too).
+        from llp_tpu_torch.core.graph import build_graph
+
+        ds = get_dataset(args.dataset_dir, args.datasets)
+        graph = build_graph(ds.edge_index, ds.num_nodes, device=device)
+        h = encode_graph_nodes(modules["encoder"], graph,
+                               torch.from_numpy(ds.x).to(device))
+    elif feats is not None and is_gnn:
+        h = feats
+    else:
+        if is_gnn:
+            raise SystemExit(
+                "GNN checkpoint has no saved features — pass --reencode to "
+                "embed over the dataset's edge set"
+            )
+        ds = get_dataset(args.dataset_dir, args.datasets)
+        h = encode_nodes(modules["encoder"], torch.from_numpy(ds.x).to(device))
+    synchronize(device)
+    t_encode = time.perf_counter() - t0
+    return modules, h, {"checkpoint": args.checkpoint, "nodes": int(h.shape[0]),
+                        "dim": int(h.shape[1]), "encode_s": round(t_encode, 4)}
+
+
+def _daemon_caps(args) -> dict:
+    from llp_tpu_torch.serve.server import MAX_QUEUE
+
+    return {"max_queries": 4096 if args.max_queries is None else args.max_queries,
+            "max_pairs": (1 << 20) if args.max_pairs is None else args.max_pairs,
+            "max_queue": MAX_QUEUE if args.max_queue is None else args.max_queue}
+
+
+@contextlib.contextmanager
+def _on_signals(handler):
+    """``handler`` on SIGINT and SIGTERM inside the block (in the main
+    thread only, where Python runs signal handlers)."""
+    if threading.current_thread() is not threading.main_thread():
+        yield
+        return
+    saved = {sig: signal.signal(sig, handler) for sig in (signal.SIGINT, signal.SIGTERM)}
+    try:
+        yield
+    finally:
+        for sig, old in saved.items():
+            signal.signal(sig, old)
+
+
+def _interrupt(*_):
+    raise KeyboardInterrupt
+
+
+def serve_rank(argv: dict, stop=None, *, world) -> dict:
+    """One rank of ``--shard``: encode, keep this rank's rows, then serve
+    (rank 0, until interrupted or ``stop`` is set) or follow rank 0 (the
+    others, until its stop).  Returns the summary line."""
+    from llp_tpu_torch.serve.server import ShardedServingState, serve_forever
+
+    args = argparse.Namespace(**argv)
+    if world.rank != 0 and threading.current_thread() is threading.main_thread():
+        signal.signal(signal.SIGINT, signal.SIG_IGN)  # a follower ends at rank 0's stop
+    modules, h, out = _encode(args, world.device)
+    caps = _daemon_caps(args)
+    state = ShardedServingState(
+        modules["predictor"], h, world=world, block=args.block, approx=args.approx,
+        compute_dtype=torch.bfloat16 if args.compute_dtype == "bfloat16" else None,
+        quantize=args.quantize, max_queries=caps["max_queries"], max_pairs=caps["max_pairs"])
+    # The rank keeps its own rows only: drop the whole table.
+    del h
+    if world.device.type == "cuda":
+        torch.cuda.empty_cache()
+    out["shards"] = world.size
+    if world.size > 1:
+        world.barrier()  # every rank holds its rows before the first request
+    if world.rank != 0:
+        out["requests"] = state.follow()
+        return out
+    if args.warmup:
+        state.warmup(args.warmup)
+    print(json.dumps(out), flush=True)
+    serve_forever(state, args.host or "127.0.0.1", args.port, max_queue=caps["max_queue"],
+                  stop=stop)
+    return out
+
+
+def _serve_sharded(args) -> dict:
+    """``--shard``: a rank per device of :func:`~llp_tpu_torch.utils.device.
+    host_devices`; a world of one in this process, more as spawned workers
+    whose rank 0 this process stops on SIGINT or SIGTERM."""
+    from llp_tpu_torch.parallel.launch import free_tcp_address, launch
+    from llp_tpu_torch.parallel.mesh import close_world, init_world
+    from llp_tpu_torch.serve.server import ACK_TIMEOUT_S
+    from llp_tpu_torch.utils.device import host_devices
+
+    devices = host_devices(args.device)
+    if len(devices) == 1:
+        world = init_world(0, 1, devices[0], init_method=free_tcp_address())
+        try:
+            with _on_signals(_interrupt):
+                return serve_rank(vars(args), world=world)
+        finally:
+            close_world()
+    import multiprocessing as mp
+
+    stop = mp.get_context("spawn").Event()
+    with _on_signals(lambda *_: stop.set()):
+        # a failed rank gives rank 0 time to answer the request it fails
+        return launch(serve_rank, devices, vars(args), stop,
+                      failure_grace=ACK_TIMEOUT_S + 10.0)[0]
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
-"""Evaluation of node-sharded runs (counterpart of the halo and table
-evaluators of ``llp_tpu/parallel/eval.py``: ``make_halo_transductive_eval_fn``,
-``make_halo_production_eval_fn``, ``make_table_transductive_eval_fn`` and
-``make_table_production_eval_fn``).
+"""Evaluation and retrieval over node-sharded rows (counterpart of
+``llp_tpu/parallel/eval.py``: the halo and table evaluators
+``make_halo_transductive_eval_fn``, ``make_halo_production_eval_fn``,
+``make_table_transductive_eval_fn`` and ``make_table_production_eval_fn``;
+``make_sharded_hits_auc``; ``make_sharded_topk_partners``).
 
 A run that shards its node rows because the (N, D) features do not fit one
 device cannot evaluate on the whole features either.  Each evaluator
@@ -14,13 +15,21 @@ transductive_metrics`, :func:`llp_tpu_torch.evaln.production.
 production_metrics`), so the pair scores go through the SDDMM kernel (B3)
 on the card as the single path's do.  Every rank returns the same metrics
 and the whole embeddings (the teacher's export).  A world of one is the
-single path bit for bit.  ``make_sharded_hits_auc`` and
-``make_sharded_topk_partners`` are ROADMAP A14.4 and A14.5.
+single path bit for bit.
+
+:func:`sharded_hits_auc` computes Hits@K and AUC over negatives sharded
+across the ranks, with one ``all_gather`` of each rank's best ``kmax`` and
+one sum of the AUC's counts.  :func:`sharded_topk_partners` retrieves the
+top-K partners of replicated queries over a table whose rows the ranks own
+in contiguous blocks: each rank runs the single engine's blocked scan
+(:func:`llp_tpu_torch.serve.engine.scan_top_k`, B4 on the card for an
+'mlp' head) over its rows, and one ``all_gather`` of the (Q, k) candidates
+merges them.  The shards may differ in size, down to an empty rank.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -31,6 +40,8 @@ from llp_tpu_torch.evaln.transductive import transductive_metrics
 from llp_tpu_torch.models.encoder import apply_encoder
 from llp_tpu_torch.parallel.halo import HaloGraph, owned_rows
 from llp_tpu_torch.parallel.mesh import World
+from llp_tpu_torch.serve.engine import scan_top_k, squash
+from llp_tpu_torch.serve.quant import QuantTable, TableLike, quantize_rows
 
 
 def all_gather_rows(rows: torch.Tensor, num_nodes: int, world: World) -> torch.Tensor:
@@ -113,3 +124,90 @@ def evaluate_table_production(encoder: nn.Module, predictor: nn.Module,
     h_inf = encode_rows(encoder, None, inf_x, inf_nodes, world)
     return production_metrics(predictor, h_val, h_inf, val_pos, val_neg, test_edges,
                               hits_ks=hits_ks), h_val
+
+
+def sharded_hits_auc(pos: torch.Tensor, neg_shard: torch.Tensor, ks: Sequence[int],
+                     world: World) -> Dict[str, torch.Tensor]:
+    """``{'Hits@K': ..., 'AUC': ...}`` (0-d fp32, the same on every rank)
+    of the replicated positive scores ``pos`` against the negatives whose
+    shard ``neg_shard`` this rank holds, as :func:`llp_tpu_torch.ops.metrics.
+    hits_at_k` and ``roc_auc`` over all of them.
+
+    Each rank's best ``min(kmax, n_local)`` negatives, padded to ``kmax``
+    with ``-inf`` (the gather takes equal shapes), go to every rank in one
+    ``all_gather``; the K-th best of them is the whole set's, and Hits@K is
+    1.0 when fewer than K negatives exist in all.  The AUC's counts of
+    negatives below and equal to each positive come from two
+    ``searchsorted`` passes over the sorted shard and are summed across the
+    ranks, with the negatives' count."""
+    kmax = max(ks)
+    pos, neg = pos.float(), neg_shard.float()
+    top = torch.full((kmax,), -torch.inf, dtype=torch.float32, device=neg.device)
+    k_eff = min(kmax, neg.shape[0])
+    top[:k_eff] = torch.topk(neg, k_eff).values
+    sorted_neg = torch.sort(neg).values
+    less = torch.searchsorted(sorted_neg, pos, side="left")
+    leq = torch.searchsorted(sorted_neg, pos, side="right")
+    # one sum across ranks: [less (P), equal (P), the negatives' count]
+    counts = torch.cat([less, leq - less, less.new_tensor([neg.shape[0]])])
+    if world.size > 1:
+        top = world.all_gather(top)
+        counts = world.all_reduce(counts)
+    n_neg = int(counts[-1])
+    out = {}
+    for k in ks:
+        if n_neg < k:
+            out[f"Hits@{k}"] = torch.ones((), dtype=torch.float32, device=pos.device)
+        else:
+            out[f"Hits@{k}"] = (pos > torch.topk(top, k).values[-1]).float().mean()
+    m = pos.shape[0]
+    less, equal = counts[:m].float(), counts[m:2 * m].float()
+    out["AUC"] = ((less + 0.5 * equal) / max(n_neg, 1)).mean()
+    return out
+
+
+@torch.no_grad()
+def sharded_topk_partners(predictor: nn.Module, h_rows: TableLike, row0: int, num_nodes: int,
+                          query_ids, q_h: torch.Tensor, *, k: int, world: World,
+                          block: Optional[int] = None, exclude_self: bool = True,
+                          compute_dtype=None, approx: bool = False,
+                          mlp_fused: Optional[bool] = None,
+                          q_codes: Optional[torch.Tensor] = None,
+                          q_scale: Optional[torch.Tensor] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The top-``k`` partners ``(scores, node_ids)``, each (Q, k) and the
+    same on every rank, of the queries ``query_ids`` (global ids, the same
+    on every rank) among the ``num_nodes`` rows of a table of which this
+    rank holds ``h_rows``, nodes ``row0 ..`` (a tensor or a
+    :class:`~llp_tpu_torch.serve.quant.QuantTable`; any count, none
+    included).
+
+    ``q_h`` (Q, H) are the queries' rows in the table's type (dequantized
+    fp32 for a quantized table), on every rank; an 'inner' head over a
+    quantized table also takes their codes and scales (``q_codes``,
+    ``q_scale``), and requantizes ``q_h`` without them, as the JAX engine
+    does.  The other arguments are :func:`llp_tpu_torch.serve.engine.
+    top_k_partners`' (``approx`` retrieves exactly).  Each rank scans its
+    rows (:func:`~llp_tpu_torch.serve.engine.scan_top_k`), padded to ``k``
+    with ``-inf`` and id -1; one ``all_gather`` of the (Q, k) candidates,
+    rank 0's first, is merged by one top-``k``.  Sigmoid goes on last, for
+    raw dots or logits only; ``-inf`` slots keep ``-inf`` and id -1.  A
+    world of one is :func:`top_k_partners` bit for bit."""
+    del approx
+    dev = h_rows.device
+    query_ids = torch.as_tensor(query_ids, dtype=torch.int64, device=dev)
+    k = min(k, num_nodes - 1 if exclude_self else num_nodes)
+    if q_codes is None and predictor.mode != "mlp" and isinstance(h_rows, QuantTable):
+        q_codes, q_scale = quantize_rows(q_h, bits=h_rows.bits)
+    vals, ids, raw = scan_top_k(predictor, h_rows, q_h, query_ids, k=k, row0=row0,
+                                block=block, exclude_self=exclude_self,
+                                compute_dtype=compute_dtype, mlp_fused=mlp_fused,
+                                q_codes=q_codes, q_scale=q_scale)
+    if world.size > 1:
+        q = query_ids.shape[0]
+        all_vals = world.all_gather(vals).view(world.size, q, k).transpose(0, 1)
+        all_ids = world.all_gather(ids).view(world.size, q, k).transpose(0, 1)
+        vals, pos = torch.topk(all_vals.reshape(q, world.size * k), k, dim=1)
+        ids = torch.gather(all_ids.reshape(q, world.size * k), 1, pos)
+    ids = ids.masked_fill(vals == -torch.inf, -1)
+    return squash(vals, raw), ids

@@ -5,9 +5,18 @@ program over a mesh).
 ``multiprocessing``'s ``spawn`` method, joins them into one world
 (:func:`llp_tpu_torch.parallel.mesh.init_world`) and calls the same
 function in each.  A worker imports only this package and what the
-function's module imports.  Every rendezvous and collective raises after
-``timeout`` seconds; a worker that raises, or dies, ends the run: the
-others are stopped and its traceback is raised here.
+function's module imports.  Every collective raises after ``timeout``
+seconds (the rendezvous after at least ``TIMEOUT_S``); a worker that
+raises, or dies, ends the run: the others are stopped (after
+``failure_grace`` seconds to end on their own) and its traceback is
+raised here.
+
+The ranks of one host may be a part of a larger world: ``rank0`` and
+``world_size`` place them at global ranks ``rank0 ..`` of ``world_size``,
+meeting the other hosts' ranks at ``init_method`` (``tcp://`` the address
+of the host that runs global rank 0);
+:func:`llp_tpu_torch.parallel.multihost.initialize_multihost` resolves
+these from a coordinator's address, the host count and the host's index.
 """
 
 from __future__ import annotations
@@ -36,12 +45,13 @@ def free_tcp_address() -> str:
         return f"tcp://127.0.0.1:{s.getsockname()[1]}"
 
 
-def _worker(fn, rank, devices, init_method, backend, timeout, args, kwargs, results):
+def _worker(fn, rank, devices, rank0, world_size, init_method, backend, timeout, args,
+            kwargs, results):
     try:
         device = torch.device(devices[rank])
         if device.type == "cpu":  # the ranks share the host's cores
             torch.set_num_threads(max(1, (os.cpu_count() or 1) // len(devices)))
-        world = init_world(rank, len(devices), device, init_method=init_method,
+        world = init_world(rank0 + rank, world_size, device, init_method=init_method,
                            backend=backend, timeout=timeout)
         try:
             out = fn(*args, **kwargs, world=world)
@@ -55,23 +65,36 @@ def _worker(fn, rank, devices, init_method, backend, timeout, args, kwargs, resu
 
 def launch(fn: Callable, devices: Sequence, *args, init_method: Optional[str] = None,
            backend: Optional[str] = None, timeout: float = TIMEOUT_S,
-           join_timeout: Optional[float] = None, **kwargs) -> list:
+           join_timeout: Optional[float] = None, rank0: int = 0,
+           world_size: Optional[int] = None, failure_grace: float = 0.0,
+           **kwargs) -> list:
     """``[fn(*args, **kwargs, world=world_r) for each rank r]``, one spawned
-    process per entry of ``devices`` (rank ``r`` on ``devices[r]``).
+    process per entry of ``devices`` (rank ``rank0 + r`` of ``world_size``,
+    by default ``len(devices)``, on ``devices[r]``).
 
     ``fn`` is a module-level function (a worker imports it by name) and its
     arguments and result are pickled.  ``init_method`` defaults to a free
-    local TCP port; ``backend`` to NCCL on cards, gloo on the CPU.
-    ``timeout`` bounds every collective; ``join_timeout``, if given, the
-    whole call.  Raises ``RuntimeError`` with the failing worker's
-    traceback."""
+    local TCP port (so a world across hosts must give it); ``backend`` to
+    NCCL on cards, gloo on the CPU.  ``timeout`` bounds every collective
+    (:func:`~llp_tpu_torch.parallel.mesh.init_world`); ``join_timeout``, if
+    given, the whole call; ``failure_grace`` the seconds the other workers
+    get to end on their own once one has failed.
+    Returns this host's results, in the order of ``devices``; raises
+    ``RuntimeError`` with the failing worker's traceback."""
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
-    init_method = init_method or free_tcp_address()
     devices = [str(d) for d in devices]
-    procs = [ctx.Process(target=_worker, name=f"llp-rank{r}",
-                         args=(fn, r, devices, init_method, backend, timeout, args, kwargs,
-                               results))
+    world_size = len(devices) if world_size is None else world_size
+    if not 0 <= rank0 <= world_size - len(devices):
+        raise ValueError(f"ranks {rank0}..{rank0 + len(devices) - 1} do not fit a world of "
+                         f"{world_size}")
+    if init_method is None:
+        if world_size != len(devices):
+            raise ValueError("a world across hosts needs the init_method of global rank 0's")
+        init_method = free_tcp_address()
+    procs = [ctx.Process(target=_worker, name=f"llp-rank{rank0 + r}",
+                         args=(fn, r, devices, rank0, world_size, init_method, backend, timeout,
+                               args, kwargs, results))
              for r in range(len(devices))]
     for p in procs:
         p.start()
@@ -89,11 +112,11 @@ def launch(fn: Callable, devices: Sequence, *args, init_method: Optional[str] = 
                     failure = f"the workers did not finish within {join_timeout} s"
                 continue
             if error is not None:
-                failure = f"rank {rank} of {len(procs)} failed:\n{error}"
+                failure = f"rank {rank0 + rank} of {world_size} failed:\n{error}"
             else:
                 out[rank] = value
     finally:
-        grace = time.monotonic() + (EXIT_GRACE_S if failure is None else 0.0)
+        grace = time.monotonic() + (EXIT_GRACE_S if failure is None else failure_grace)
         for p in procs:
             p.join(timeout=max(0.0, grace - time.monotonic()))
             if p.is_alive():

@@ -8,9 +8,10 @@ A run of ``N`` ranks is ``N`` processes, one per device, joined by one
 the rendezvous address, the rank and the world size from its arguments,
 so a run across hosts needs only other arguments.  Besides the sum across
 ranks, :class:`World` runs the exchanges of the node-sharded path
-(:mod:`.halo`, :mod:`.epoch`'s ``table_gather``): ``all_to_all`` with
-uneven splits, ``all_gather`` and ``reduce_scatter``; each counts its bytes,
-and a world of one runs no collective for them.
+(:mod:`.halo`, :mod:`.epoch`'s ``table_gather``) and of the node-sharded
+serving state (:mod:`llp_tpu_torch.serve.server`): ``all_to_all`` with
+uneven splits, ``all_gather``, ``reduce_scatter`` and ``broadcast``; each
+counts its bytes, and a world of one runs no collective for them.
 
 Edges are sharded, and the rest is replicated: each rank aggregates a
 contiguous slice of the receiver-sorted edges, and the node features, the
@@ -36,19 +37,20 @@ from llp_tpu_torch.core.graph import Graph
 _ALL_GATHER = getattr(dist, "all_gather_single", dist.all_gather_into_tensor)
 _REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", dist.reduce_scatter_tensor)
 
-# Seconds a collective (and the rendezvous) may wait before it raises.
+# Seconds a collective may wait before it raises (and the rendezvous at least).
 TIMEOUT_S = 600.0
 
 
 @dataclass(frozen=True)
 class World:
-    """This process's place in a run: its rank among ``size``, its device
-    and the process group's backend."""
+    """This process's place in a run: its rank among ``size``, its device,
+    the process group's backend and the seconds its collectives wait."""
 
     rank: int
     size: int
     device: torch.device
     backend: str
+    timeout: float = TIMEOUT_S
 
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         """Sum ``t`` across the ranks, in place; returns it.
@@ -98,6 +100,17 @@ class World:
         self._via_host(_REDUCE_SCATTER, out, t.contiguous())
         return out
 
+    def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
+        """Rank ``src``'s ``t`` on every rank, in place (the same shape on
+        each); returns it.  ``World.broadcast.bytes`` counts the bytes this
+        process received."""
+        if self.size == 1:
+            return t
+        if self.rank != src:
+            World.broadcast.bytes += t.numel() * t.element_size()
+        self._via_host(lambda o, _: dist.broadcast(o, src), t, t)
+        return t
+
     def _via_host(self, collective, out: torch.Tensor, inp: torch.Tensor) -> None:
         """``collective(out, inp)``; a gloo world runs it on host copies of
         CUDA tensors (gloo's own CUDA path covers the all-reduce only)."""
@@ -119,6 +132,7 @@ World.all_reduce.bytes = 0
 World.all_to_all.bytes = 0
 World.all_gather.bytes = 0
 World.reduce_scatter.bytes = 0
+World.broadcast.bytes = 0
 
 
 def init_world(rank: int, size: int, device, *, init_method: str,
@@ -126,14 +140,18 @@ def init_world(rank: int, size: int, device, *, init_method: str,
     """Join the process group as ``rank`` of ``size`` through
     ``init_method`` (``tcp://host:port`` or ``file://path``), on ``device``.
     The backend is NCCL on a card and gloo on the CPU unless ``backend``
-    says otherwise; every collective raises after ``timeout`` seconds."""
+    says otherwise; every collective raises after ``timeout`` seconds.  The
+    rendezvous waits ``max(timeout, TIMEOUT_S)``, so that a short
+    collective timeout does not cut the start of ranks on a loaded host."""
     device = torch.device(device)
     if device.type == "cuda":
         torch.cuda.set_device(device)
     backend = backend or ("nccl" if device.type == "cuda" else "gloo")
-    dist.init_process_group(backend, init_method=init_method, rank=rank,
-                            world_size=size, timeout=timedelta(seconds=timeout))
-    return World(rank=rank, size=size, device=device, backend=backend)
+    store, _, _ = next(dist.rendezvous(init_method, rank, size,
+                                       timeout=timedelta(seconds=max(timeout, TIMEOUT_S))))
+    dist.init_process_group(backend, store=store, rank=rank, world_size=size,
+                            timeout=timedelta(seconds=timeout))
+    return World(rank=rank, size=size, device=device, backend=backend, timeout=timeout)
 
 
 def close_world() -> None:

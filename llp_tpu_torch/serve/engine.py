@@ -14,7 +14,9 @@ retrieval (counterpart of ``llp_tpu/serve/engine.py``).
 
 The table may be a :class:`~llp_tpu_torch.serve.quant.QuantTable` (int8 or
 int4): rows dequantize on the fly, 'inner' dots run on the codes.  The
-sharded serving state (ROADMAP A14) is not ported yet.
+blocked scan of :func:`top_k_partners` is :func:`scan_top_k`, which each
+rank of the node-sharded engine (:mod:`llp_tpu_torch.parallel.eval`) runs
+over its own rows.
 """
 
 from __future__ import annotations
@@ -109,8 +111,8 @@ def score_pairs(predictor: LinkPredictor, h: TableLike, src, dst, *,
     the kernel scores all pairs in one launch, since it gathers the rows
     itself; a quantized table is gathered and dequantized ``block`` pairs at
     a time, and each block is scored by the kernel or the expression."""
-    src = torch.as_tensor(src, dtype=torch.int64, device=h.device)
-    dst = torch.as_tensor(dst, dtype=torch.int64, device=h.device)
+    src = torch.as_tensor(src, dtype=torch.int64, device=h.device).contiguous()
+    dst = torch.as_tensor(dst, dtype=torch.int64, device=h.device).contiguous()
     if fused is None:
         fused = h.device.type == "cuda"
     lins = predictor.lins if predictor.mode == "mlp" else None
@@ -177,12 +179,44 @@ def top_k_partners(predictor: LinkPredictor, h: TableLike, query_ids, *,
     measurement that does not carry over; PERF.md records both top-K times
     on the H100."""
     del approx
+    query_ids = torch.as_tensor(query_ids, dtype=torch.int64, device=h.device)
+    n = h.shape[0]
+    q_codes = q_scale = None
+    if isinstance(h, QuantTable) and predictor.mode != "mlp":
+        q_codes, q_scale = codes_rows(h, query_ids), h.scale.index_select(0, query_ids)
+    vals, ids, raw = scan_top_k(predictor, h, _take_rows(h, query_ids), query_ids,
+                                k=min(k, n - 1 if exclude_self else n), block=block,
+                                exclude_self=exclude_self, compute_dtype=compute_dtype,
+                                mlp_fused=mlp_fused, q_codes=q_codes, q_scale=q_scale)
+    return squash(vals, raw), ids
+
+
+def squash(vals: torch.Tensor, raw: bool) -> torch.Tensor:
+    """Raw dots or logits -> probabilities; ``-inf`` slots stay ``-inf``."""
+    return torch.where(torch.isfinite(vals), torch.sigmoid(vals), vals) if raw else vals
+
+
+@torch.no_grad()
+def scan_top_k(predictor: LinkPredictor, h: TableLike, q_h: torch.Tensor,
+               query_ids: torch.Tensor, *, k: int, row0: int = 0,
+               block: Optional[int] = None, exclude_self: bool = True, compute_dtype=None,
+               mlp_fused: Optional[bool] = None, q_codes: Optional[torch.Tensor] = None,
+               q_scale: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor, bool]:
+    """The blocked top-``k`` of the queries against the rows of ``h``, whose
+    first row is node ``row0``: ``(values, node_ids, raw)``, each (Q, k)
+    fp32 and int64, padded with ``-inf`` and id -1 where ``h`` has fewer
+    than ``k`` rows.  ``raw`` says the values are dots or logits, which
+    :func:`squash` turns into probabilities; the unfused 'mlp' expression
+    gives probabilities already.  ``q_h`` (Q, H) are the queries' rows in
+    the table's type (dequantized fp32 for a :class:`QuantTable`), and
+    ``q_codes``/``q_scale`` their codes and scales, which an 'inner' head
+    over a :class:`QuantTable` dots with the table's codes.  The single
+    engine (:func:`top_k_partners`) and each rank of the node-sharded one
+    (:func:`llp_tpu_torch.parallel.eval.sharded_topk_partners`) run it."""
     quant = isinstance(h, QuantTable)
     dev = h.device
-    query_ids = torch.as_tensor(query_ids, dtype=torch.int64, device=dev)
     n, width = h.shape
     q = query_ids.shape[0]
-    k = min(k, n - 1 if exclude_self else n)
     mlp = predictor.mode == "mlp"
     if mlp_fused is None:
         mlp_fused = dev.type == "cuda"
@@ -192,23 +226,20 @@ def top_k_partners(predictor: LinkPredictor, h: TableLike, query_ids, *,
         # the kernel's plain version on the CPU does materialize the tile
         block = auto_topk_block(predictor, q, width, fused and dev.type == "cuda")
     block = max(1, min(block, n))
-    cdtype = None
     if compute_dtype is not None and compute_dtype != h.dtype:
-        cdtype = compute_dtype
         if not quant:
-            h = h.to(cdtype)
-        predictor = copy.deepcopy(predictor).to(cdtype)
+            h = h.to(compute_dtype)
+        q_h = q_h.to(compute_dtype)
+        predictor = copy.deepcopy(predictor).to(compute_dtype)
         lins = head_layers(predictor.lins) if mlp else None
     inner = not mlp
-    q_h = _take_rows(h, query_ids, dtype=cdtype)  # (Q, H)
-    if inner and quant:
-        q_codes = codes_rows(h, query_ids)
-        q_scale = h.scale.index_select(0, query_ids)
+    if inner and quant and q_codes is None:
+        raise ValueError("an 'inner' head over a quantized table needs the queries' codes")
     vals = torch.full((q, k), -torch.inf, dtype=torch.float32, device=dev)
     ids = torch.full((q, k), -1, dtype=torch.int64, device=dev)
     for b0 in range(0, n, block):
         size = min(block, n - b0)
-        cand_ids = torch.arange(b0, b0 + size, device=dev)
+        cand_ids = torch.arange(row0 + b0, row0 + b0 + size, device=dev)
         if inner and quant:
             # sigmoid is monotone: rank raw dots, squash the K winners last
             cs = h.scale[b0:b0 + size]
@@ -223,8 +254,8 @@ def top_k_partners(predictor: LinkPredictor, h: TableLike, query_ids, *,
         elif fused:
             scores = mlp_block_logits(lins, q_h, h[b0:b0 + size])
         else:
-            cand = (dequantize_slice(h, b0, size, dtype=cdtype or torch.float32) if quant
-                    else h[b0:b0 + size])
+            cand = (dequantize_slice(h, b0, size, dtype=compute_dtype or torch.float32)
+                    if quant else h[b0:b0 + size])
             scores = predictor(q_h[:, None, :], cand[None, :, :]).float()
         if exclude_self:
             scores = scores.masked_fill(cand_ids[None, :] == query_ids[:, None], -torch.inf)
@@ -232,6 +263,4 @@ def top_k_partners(predictor: LinkPredictor, h: TableLike, query_ids, *,
         all_ids = torch.cat([ids, cand_ids[None, :].expand(q, -1)], dim=1)
         vals, pos = torch.topk(all_vals, k, dim=1)
         ids = torch.gather(all_ids, 1, pos)
-    if inner or fused:  # raw dots or logits -> probabilities; -inf slots stay
-        vals = torch.where(torch.isfinite(vals), torch.sigmoid(vals), vals)
-    return vals, ids
+    return vals, ids, inner or fused

@@ -25,8 +25,18 @@ Endpoints (all JSON):
 * ``POST /v1/topk``  {"queries": [int...], "k": int} -> partners + scores
 * ``POST /v1/score`` {"pairs": [[src, dst]...]}     -> pair probabilities
 
-The stdlib only: ``http.server`` and ``json``.  The node-sharded serving
-state (``--shard``) is ROADMAP A14.
+The stdlib only: ``http.server`` and ``json``.
+
+:class:`ShardedServingState` serves a table whose rows the ranks of a world
+own in contiguous blocks (the CLI's ``--shard``).  Rank 0 owns the HTTP
+server and the batching engine; every other rank runs
+:meth:`ShardedServingState.follow`, which executes the same calls.  A
+follower never waits inside a collective for the next request: rank 0 posts
+each request's header (operation, sizes, sequence number) to the process
+group's store, and the ranks post the request's collectives only once every
+follower has taken the header.  A stop header ends the followers; a
+follower that does not take a header in time, or a collective that fails,
+gets the request an error status and stops the daemon with a non-zero exit.
 """
 
 from __future__ import annotations
@@ -34,14 +44,16 @@ from __future__ import annotations
 import json
 import queue as _queue
 import threading
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from llp_tpu_torch.parallel.mesh import World
 from llp_tpu_torch.serve.engine import score_pairs, top_k_partners
-from llp_tpu_torch.serve.quant import QuantTable, quantize_table
+from llp_tpu_torch.serve.quant import QuantTable, codes_rows, dequantize_rows, quantize_table
 
 MAX_BODY_BYTES = 16 << 20  # reject absurd request bodies before parsing
 MAX_QUEUE = 8  # in-flight + waiting POSTs beyond this get an orderly 503
@@ -142,6 +154,223 @@ class ServingState:
         are built and loaded before the first request waits on them."""
         self.topk([0], k)
         self.score([[0, 0]])
+
+
+def shard_bounds(num_nodes: int, size: int, bits: Optional[int] = None) -> List[int]:
+    """The first row each of ``size`` ranks owns of a ``num_nodes``-row
+    table, and ``num_nodes`` last: ``ceil(N/P)`` rows a rank
+    (:func:`llp_tpu_torch.parallel.halo.owned_rows`), or for an int4 table,
+    which packs two rows a storage row, an even count, so that every shard
+    starts on a storage row (the JAX state pads to a multiple of ``2P``)."""
+    per = -(-num_nodes // size)
+    if bits == 4:
+        per += per % 2
+    return [min(r * per, num_nodes) for r in range(size)] + [num_nodes]
+
+
+def _store():
+    """The default process group's key-value store."""
+    import torch.distributed as dist
+
+    return dist.distributed_c10d._get_default_store()
+
+
+# Seconds rank 0 waits for every follower to take a request's header, at
+# most (and no longer than the world's collectives wait); the longest pause
+# between two polls of the store.
+ACK_TIMEOUT_S = 60.0
+POLL_S = 0.01
+
+
+def _poll(store, key: str, deadline: Optional[float] = None) -> bool:
+    """Wait until ``key`` is in the store (True) or ``deadline`` passes
+    (False).  Polls with ``check``, which returns at once: a blocking
+    ``wait`` that times out logs a warning, and the followers wait for the
+    next request without end."""
+    pause = 2e-4
+    while not store.check([key]):
+        if deadline is not None and time.monotonic() > deadline:
+            return False
+        time.sleep(pause)
+        pause = min(2 * pause, POLL_S)
+    return True
+
+
+class ShardedServingState(ServingState):
+    """A :class:`ServingState` over a table whose rows the ranks of
+    ``world`` own in contiguous blocks (:func:`shard_bounds`): the
+    counterpart of ``llp_tpu/serve/server.py``'s ``ShardedServingState``.
+
+    ``h`` is the whole (N, H) table, of which the rank keeps a copy of its
+    rows, or with ``num_nodes`` given the rank's rows alone, those of
+    :func:`shard_bounds` (for int4, its even blocks).  The rows are
+    quantized in place (``quantize``); ids are checked against ``N``.
+
+    Rank 0 validates and answers (:meth:`topk`, :meth:`score`, behind the
+    HTTP server); every other rank runs :meth:`follow`.  A top-K
+    broadcasts the query ids, sums the queries' rows from their owners
+    into every rank and retrieves through
+    :func:`llp_tpu_torch.parallel.eval.sharded_topk_partners`.  A score
+    broadcasts the pairs' distinct ids, brings each id's row from its owner
+    to rank 0 once (``all_to_all``) and scores there through
+    :func:`llp_tpu_torch.serve.engine.score_pairs` (B3 on the card).
+    Quantized rows travel as their codes and scales, so rank 0 scores the
+    values the single state does.  A world of one runs the same path (its
+    collectives over one rank) and posts no header: it has no followers."""
+
+    def __init__(self, predictor, h, *, world: World, num_nodes: Optional[int] = None,
+                 **kwargs):
+        quantize = kwargs.get("quantize", "none")
+        n = int(h.shape[0]) if num_nodes is None else int(num_nodes)
+        self.bounds = shard_bounds(n, world.size, 4 if quantize == "int4" else None)
+        lo, hi = self.bounds[world.rank], self.bounds[world.rank + 1]
+        if num_nodes is None:
+            h = h[lo:hi].clone() if hi - lo < n else h
+        elif h.shape[0] != hi - lo:
+            raise ValueError(f"rank {world.rank} owns rows [{lo}, {hi}), got {h.shape[0]}")
+        super().__init__(predictor, h, **kwargs)
+        self.num_nodes = n  # ids are checked against the real rows
+        self.row0 = lo
+        self.world = world
+        self.seq = 0
+        self.failed: Optional[BaseException] = None
+        self.store = _store() if world.size > 1 else None
+        # the ranks build their states in the same order: one key space each
+        ShardedServingState.built += 1
+        self.prefix = f"llp_serve/{ShardedServingState.built}/"
+
+    built = 0  # states built in this process
+
+    # -- rank 0 -----------------------------------------------------------
+    def topk(self, queries, k: int) -> Tuple[np.ndarray, np.ndarray]:
+        qi = self.validate_topk(queries, k)
+        return self._run("topk", self._topk, torch.from_numpy(qi), k=k, n=int(qi.size))
+
+    def score(self, pairs) -> np.ndarray:
+        arr = torch.from_numpy(self.validate_score(pairs))
+        ids, inv = torch.unique(arr, return_inverse=True)  # sorted: owners in rank order
+        return self._run("score", self._score, ids, inv, n=int(arr.shape[0]),
+                         u=int(ids.shape[0]))
+
+    def stop(self) -> None:
+        """Rank 0: end every follower's :meth:`follow` (waits for them to
+        take the stop header, as for any request)."""
+        if self.world.size > 1 and self.failed is None:
+            self._post({"op": "stop"})
+
+    def _run(self, op: str, fn, *args, **header):
+        if self.failed is not None:
+            raise RuntimeError(f"the sharded state stopped after a failure: {self.failed}")
+        try:
+            self._post({"op": op, **header})
+            return fn(*args, **header)
+        except Exception as e:
+            self.failed = e
+            raise
+
+    def _post(self, header: dict) -> None:
+        """Rank 0: the next header, and the wait for every follower to take
+        it; raises ``RuntimeError`` past the wait."""
+        self.seq += 1
+        if self.world.size == 1:
+            return
+        key = f"{self.prefix}{self.seq}"
+        self.store.set(key, json.dumps(header))
+        wait = min(ACK_TIMEOUT_S, self.world.timeout)
+        if not _poll(self.store, f"{key}/taken", time.monotonic() + wait):
+            raise RuntimeError(f"a follower rank did not take request {self.seq} within "
+                               f"{wait} s; it may have exited")
+        if self.seq > 1:  # every follower has read the previous request's keys
+            for name in ("", "/n", "/taken"):
+                self.store.delete_key(f"{self.prefix}{self.seq - 1}{name}")
+
+    # -- the followers ----------------------------------------------------
+    def follow(self) -> int:
+        """Every rank but 0: take rank 0's request headers in order and run
+        each request's part of the work, until the stop header; returns the
+        requests run.  Raises if the store goes away (rank 0 has exited)."""
+        if self.world.rank == 0:
+            raise RuntimeError("rank 0 answers requests; the other ranks follow")
+        runs = 0
+        while True:
+            self.seq += 1
+            key = f"{self.prefix}{self.seq}"
+            _poll(self.store, key)
+            header = json.loads(self.store.get(key))
+            if self.store.add(f"{key}/n", 1) == self.world.size - 1:
+                self.store.set(f"{key}/taken", "1")
+            if header["op"] == "stop":
+                return runs
+            if header["op"] == "topk":
+                self._topk(None, **header)
+            elif header["op"] == "score":
+                self._score(None, None, **header)
+            else:
+                raise ValueError(f"unknown request {header['op']!r}")
+            runs += 1
+
+    # -- every rank -------------------------------------------------------
+    def _ids(self, ids: Optional[torch.Tensor], count: int) -> torch.Tensor:
+        """Rank 0's ``ids`` (int64) on every rank's device."""
+        dev = self.world.device
+        if ids is None:
+            ids = torch.empty(count, dtype=torch.int64, device=dev)
+        return self.world.broadcast(ids.to(dev))
+
+    def _owned(self, ids: torch.Tensor) -> torch.Tensor:
+        return (ids >= self.row0) & (ids < self.row0 + self.h.shape[0])
+
+    def _rows(self, local: torch.Tensor) -> torch.Tensor:
+        """This rank's rows ``local`` as fp32: the values (dequantized), or
+        for a quantized table their codes and, last, their scales."""
+        if isinstance(self.h, QuantTable):
+            return torch.cat([codes_rows(self.h, local).float(),
+                              self.h.scale.index_select(0, local)[:, None]], dim=1)
+        return self.h.index_select(0, local).float()
+
+    def _table(self, payload: torch.Tensor):
+        """Rows from :meth:`_rows` as a table of the state's kind."""
+        if isinstance(self.h, QuantTable):
+            return QuantTable(q=payload[:, :-1].to(torch.int8).contiguous(),
+                              scale=payload[:, -1].contiguous(), bits=8)
+        return payload.to(self.h.dtype)
+
+    def _topk(self, qi, k: int, n: int, **_) -> Tuple[np.ndarray, np.ndarray]:
+        # (imported here: parallel.eval imports the engine, and so this package)
+        from llp_tpu_torch.parallel.eval import sharded_topk_partners
+
+        qi = self._ids(qi, n)
+        mine = self._owned(qi)
+        width = self.h.shape[1] + isinstance(self.h, QuantTable)
+        payload = torch.zeros((n, width), dtype=torch.float32, device=qi.device)
+        payload[mine] = self._rows(qi[mine] - self.row0)
+        q = self._table(self.world.all_reduce(payload))  # one owner per row
+        kw = {}
+        if isinstance(q, QuantTable):
+            kw = dict(q_codes=q.q, q_scale=q.scale)
+            q = dequantize_rows(q, torch.arange(n, device=qi.device))
+        vals, ids = sharded_topk_partners(
+            self.predictor, self.h, self.row0, self.num_nodes, qi, q, k=k, world=self.world,
+            block=self.block, compute_dtype=self.compute_dtype, mlp_fused=self.fused, **kw)
+        return vals.cpu().numpy(), ids.cpu().numpy()
+
+    def _score(self, ids, inv, n: int, u: int = 0, **_) -> Optional[np.ndarray]:
+        ids = self._ids(ids, u)
+        starts = torch.tensor(self.bounds[1:-1], dtype=torch.int64, device=ids.device)
+        per_rank = torch.searchsorted(ids, starts).diff(
+            prepend=ids.new_zeros(1), append=ids.new_full((1,), u)).tolist()
+        mine = self._owned(ids)
+        rows = self._rows(ids[mine] - self.row0)
+        send = [0] * self.world.size
+        send[0] = rows.shape[0]
+        recv = per_rank if self.world.rank == 0 else [0] * self.world.size
+        got = self.world.all_to_all(rows, send, recv)
+        if self.world.rank != 0:
+            return None
+        table = self._table(got)
+        inv = inv.to(ids.device)
+        return score_pairs(self.predictor, table, inv[:, 0], inv[:, 1],
+                           fused=self.fused).cpu().numpy()
 
 
 class BatchingEngine:
@@ -336,15 +565,48 @@ def make_server(state: ServingState, host: str = "127.0.0.1", port: int = 0, *,
     return srv
 
 
+def _watch(srv: ThreadingHTTPServer, state: ServingState, stop) -> None:
+    """Shut ``srv`` down once ``stop`` (an event, or None) is set, or a
+    second after a sharded state failed: the failed request's answer goes
+    out first."""
+    while stop is None or not stop.is_set():
+        if getattr(state, "failed", None) is not None:
+            time.sleep(1.0)
+            break
+        time.sleep(0.1)
+    srv.shutdown()
+
+
+def _stop_followers(state: ServingState) -> None:
+    if isinstance(state, ShardedServingState) and state.world.rank == 0:
+        try:
+            state.stop()
+        except Exception as e:  # noqa: BLE001 — a follower gone before the stop
+            state.failed = state.failed or e
+
+
 def serve_forever(state: ServingState, host: str = "127.0.0.1", port: int = 8080, *,
-                  max_queue: int = MAX_QUEUE, ready_line: bool = True) -> None:
-    """Run the daemon until interrupted (the CLI's ``--port``)."""
+                  max_queue: int = MAX_QUEUE, ready_line: bool = True, stop=None) -> None:
+    """Run the daemon until interrupted or until ``stop`` (an event) is set
+    (the CLI's ``--port``); see :func:`run_server`."""
     srv = make_server(state, host, port, max_queue=max_queue)
     if ready_line:
         print(json.dumps({
             "serving": f"http://{host}:{srv.server_port}",
             "nodes": state.num_nodes, "dim": state.dim, "mode": state.mode,
         }), flush=True)
+    run_server(srv, state, stop=stop)
+
+
+def run_server(srv: ThreadingHTTPServer, state: ServingState, *, stop=None) -> None:
+    """Serve ``srv`` (:func:`make_server`'s, over ``state``) until
+    interrupted or until ``stop`` (an object with ``is_set()``) is set.
+    Over a :class:`ShardedServingState` (rank 0's) it then stops the
+    followers, and after a failure it stops serving a second after the
+    failed request's answer and raises ``SystemExit`` with the failure."""
+    sharded = isinstance(state, ShardedServingState)
+    if stop is not None or sharded:
+        threading.Thread(target=_watch, args=(srv, state, stop), daemon=True).start()
     try:
         srv.serve_forever()
     except KeyboardInterrupt:
@@ -352,6 +614,9 @@ def serve_forever(state: ServingState, host: str = "127.0.0.1", port: int = 8080
     finally:
         srv.server_close()
         srv.engine.close()
+        _stop_followers(state)
+    if sharded and state.failed is not None:
+        raise SystemExit(f"the sharded daemon stopped after a failure: {state.failed}")
 
 
 class BackgroundServer:
@@ -372,5 +637,6 @@ class BackgroundServer:
         self.server.shutdown()
         self.server.server_close()
         self.server.engine.close()
+        _stop_followers(self.server.engine.state)
         if self._thread is not None:
             self._thread.join(timeout=10)

@@ -14,7 +14,10 @@ alike.
   rank's rows, and its plan; :func:`table_parts`: ``table_gather``'s;
 * :func:`eval_run`: the node-sharded evaluators, or the single path's;
 * :func:`cli_run`: a training CLI's flags run as this rank;
-* :func:`run_jobs`: a list of those, so that one world runs them all.
+* :func:`run_jobs`: a list of those, and of the node-sharded serving runs
+  of :mod:`llp_tpu_torch.tools.shard_runs`, so that one world runs them all;
+* :class:`Worlds`: gloo worlds of CPU ranks of several sizes, spawned at
+  once, each running the same jobs, waited for only when read.
 
 The teacher and student runs take ``sharding="halo"`` and
 ``trainer={"table": True}`` for the node-sharded paths.
@@ -26,7 +29,9 @@ import contextlib
 import io
 import sys
 from collections import Counter
-from typing import Optional
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+from typing import Callable, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -47,10 +52,18 @@ from llp_tpu_torch.parallel.eval import (
     evaluate_table_transductive,
 )
 from llp_tpu_torch.parallel.halo import halo_graph, halo_spmm, owned_rows
+from llp_tpu_torch.parallel.launch import launch
 from llp_tpu_torch.parallel.mesh import World, edge_bounds, shard_edges
 from llp_tpu_torch.parallel.sharded import sharded_spmm
 from llp_tpu_torch.sample.negative import edge_keys
 from llp_tpu_torch.train.student import StudentTrainer, init_student
+from llp_tpu_torch.tools.shard_runs import (
+    hits_auc_run,
+    pipeline_run,
+    serve_run,
+    state_run,
+    topk_run,
+)
 from llp_tpu_torch.train.teacher import TeacherTrainer, init_teacher
 from llp_tpu_torch.utils.params import from_jax, to_jax
 
@@ -405,7 +418,9 @@ def forbidden_modules(_=None, *, world: Optional[World] = None) -> list:
 
 RUNS = {"spmm": spmm_parts, "teacher": teacher_run, "student": student_run,
         "gradients": gradients_run, "cli": cli_run, "forbidden_modules": forbidden_modules,
-        "halo": halo_parts, "table": table_parts, "eval": eval_run}
+        "halo": halo_parts, "table": table_parts, "eval": eval_run,
+        "hits_auc": hits_auc_run, "topk": topk_run, "pipeline": pipeline_run,
+        "serve": serve_run, "state": state_run}
 
 
 def run_jobs(jobs: list, *, world: Optional[World] = None) -> list:
@@ -415,3 +430,32 @@ def run_jobs(jobs: list, *, world: Optional[World] = None) -> list:
     if world is not None and world.device.type == "cpu":
         torch.set_num_threads(1)
     return [RUNS[kind](arg, world=world) for kind, arg in jobs]
+
+
+class Worlds:
+    """A gloo world of CPU ranks for each of ``sizes``, all spawned at once
+    (a thread each waits on its :func:`launch`), each running
+    :func:`run_jobs` over ``jobs``: a dict of named ``(kind, arg)`` jobs, or
+    a function of the size that returns one.  ``worlds[size]`` waits for
+    that world and returns ``{name: [each rank's result]}``; the caller
+    does other work meanwhile.  Each world meets at a ``file://`` store
+    under ``rendezvous``; ``timeout`` bounds every collective and
+    ``join_timeout`` a world's whole run."""
+
+    def __init__(self, jobs: Union[dict, Callable[[int], dict]], sizes: Sequence[int], *,
+                 rendezvous: Path, timeout: float, join_timeout: float):
+        pool = ThreadPoolExecutor(len(sizes))
+        self._futures = {size: pool.submit(self._run, jobs(size) if callable(jobs) else jobs,
+                                           size, Path(rendezvous) / f"store{size}", timeout,
+                                           join_timeout)
+                         for size in sizes}
+        pool.shutdown(wait=False)
+
+    @staticmethod
+    def _run(jobs: dict, size: int, store: Path, timeout: float, join_timeout: float) -> dict:
+        res = launch(run_jobs, ["cpu"] * size, list(jobs.values()),
+                     init_method=f"file://{store}", timeout=timeout, join_timeout=join_timeout)
+        return {name: [r[i] for r in res] for i, name in enumerate(jobs)}
+
+    def __getitem__(self, size: int) -> dict:
+        return self._futures[size].result()

@@ -4,7 +4,9 @@ The port runs on the GPU unless the caller asks for the CPU: ``cpu`` is the
 only way onto the CPU, and a missing card is an error, never a silent move
 to the CPU.  A data-parallel run of ``N`` ranks (``--num_devices N``) puts
 rank ``r`` on ``cuda:r``, or every rank on the CPU under ``cpu`` (also
-spelled ``cpu:N``, the JAX CLI's virtual CPU devices).
+spelled ``cpu:N``, the JAX CLI's virtual CPU devices).  The sharded serving
+daemon (``--shard``) and a host of a multi-host run take a rank for every
+visible card, or ``N`` CPU ranks under ``cpu:N`` (:func:`host_devices`).
 """
 
 from __future__ import annotations
@@ -63,6 +65,22 @@ def rank_devices(spec, num_devices: int) -> list:
             f"are visible; pass --device cpu to run the ranks on the CPU"
         )
     return [torch.device("cuda", r) for r in range(num_devices)]
+
+
+def host_devices(spec="cuda") -> list:
+    """A rank's device for each device of this host, as JAX's
+    ``jax.devices()`` lists them: ``cuda`` (or ``auto``) gives every
+    visible card (``SystemExit`` with none), ``cpu:N`` N CPU ranks and
+    ``cpu`` one."""
+    spec = str(spec)
+    if _is_cpu(spec):
+        return rank_devices(spec, int(spec[4:]) if spec.startswith("cpu:") else 1)
+    if spec not in ("cuda", "auto"):
+        setup_device(spec)  # raises for an unknown spelling or a missing card
+        raise SystemExit(f"--device {spec}: a rank runs on every visible card; pass "
+                         f"--device cuda")
+    setup_device(spec)
+    return rank_devices(spec, torch.cuda.device_count())
 
 
 def synchronize(device: torch.device) -> None:

@@ -25,8 +25,9 @@ its ``table_gather`` (``llp_tpu_torch/parallel/epoch.py``), against JAX's
   and bf16 (``chip_smoke.py``'s ``halo`` phase counts the kernel's
   launches on the card, where the wrappers launch it).
 
-Each world is one spawn for all the cases, with 60 s timeouts on the
-process group's collectives and 300 s on the world's whole run.
+Each world is one spawn for all the cases, both spawned at the start of
+the module while the references compute, with 60 s timeouts on the process
+group's collectives and 300 s on the world's whole run.
 """
 
 from types import SimpleNamespace
@@ -46,9 +47,8 @@ from llp_tpu_torch.core.graph import build_graph
 from llp_tpu_torch.models.gcn import normalized_aggregate
 from llp_tpu_torch.ops.spmm import mean_aggregate, spmm
 from llp_tpu_torch.parallel.halo import build_halo_plan, halo_spmm
-from llp_tpu_torch.parallel.launch import launch
 from llp_tpu_torch.parallel.mesh import World
-from llp_tpu_torch.tools.dp_runs import halo_parts, run_jobs, table_parts
+from llp_tpu_torch.tools.dp_runs import Worlds, halo_parts, table_parts
 from test_halo_comm_volume import _true_boundary_sets
 
 N, D = 201, 16
@@ -104,18 +104,19 @@ def _table_case(size, seed=3):
                     np.float32))
 
 
-@pytest.fixture(scope="module")
+def _jobs(problem, size):
+    jobs = {name: ("halo", _case(problem, name)) for name in CASES}
+    jobs.update(tiny=("halo", _tiny()), table=("table", _table_case(size)))
+    return jobs
+
+
+@pytest.fixture(scope="module", autouse=True)
 def worlds(problem, tmp_path_factory):
-    out = {}
-    for size in SIZES:
-        jobs = [("halo", _case(problem, name)) for name in CASES]
-        jobs += [("halo", _tiny()), ("table", _table_case(size))]
-        rdv = tmp_path_factory.mktemp(f"rendezvous{size}") / "store"
-        res = launch(run_jobs, ["cpu"] * size, jobs, init_method=f"file://{rdv}",
-                     timeout=TIMEOUT, join_timeout=RUN_TIMEOUT)
-        names = list(CASES) + ["tiny", "table"]
-        out[size] = {name: [r[i] for r in res] for i, name in enumerate(names)}
-    return out
+    # spawned at the start of the module; the plan and JAX's references
+    # compute while the worlds run
+    return Worlds(lambda size: _jobs(problem, size), SIZES,
+                  rendezvous=tmp_path_factory.mktemp("rendezvous"), timeout=TIMEOUT,
+                  join_timeout=RUN_TIMEOUT)
 
 
 def _graphs(problem, weights):
@@ -216,8 +217,8 @@ def _whole(ranks, key):
 @pytest.mark.parametrize("size", SIZES)
 @pytest.mark.parametrize("name", [n for n, c in CASES.items() if c[2]])
 def test_halo_spmm_matches_jax_make_halo_spmm(problem, worlds, name, size):
-    ranks = worlds[size][name]
     out, dx = _jax_halo(problem, name, size)
+    ranks = worlds[size][name]
     np.testing.assert_allclose(_whole(ranks, "out"), out, **TOL)
     np.testing.assert_allclose(_whole(ranks, "dx"), dx, **TOL)
 
@@ -225,8 +226,8 @@ def test_halo_spmm_matches_jax_make_halo_spmm(problem, worlds, name, size):
 @pytest.mark.parametrize("size", SIZES)
 @pytest.mark.parametrize("name", [*CASES, "tiny"])
 def test_halo_spmm_matches_the_single_path(problem, worlds, name, size):
-    ranks = worlds[size][name]
     out, dx = _single(_tiny() if name == "tiny" else _case(problem, name))
+    ranks = worlds[size][name]
     np.testing.assert_allclose(_whole(ranks, "out"), out, **TOL)
     np.testing.assert_allclose(_whole(ranks, "dx"), dx, **TOL)
     isolated = np.flatnonzero(np.bincount(
@@ -253,8 +254,9 @@ def _jax_table(case, size):
 
 @pytest.mark.parametrize("size", SIZES)
 def test_table_gather_matches_jax(worlds, size):
-    case, ranks = _table_case(size), worlds[size]["table"]
+    case = _table_case(size)
     out, grad = _jax_table(case, size)
+    ranks = worlds[size]["table"]
     got = np.concatenate([r["out"] for r in ranks])
     assert np.array_equal(got, out)
     assert np.array_equal(got, case["table"][case["idx"].reshape(-1)])

@@ -32,9 +32,12 @@ and a world of one.
   embeddings at rtol 2e-4, atol 2e-5 (``tests/test_parallel_epoch.py:
   511-640``); a world of one equals the single-path evaluator bit for bit.
 
-Each world is one spawn for all the cases, with 60 s timeouts on the
-process group's collectives and 300 s on the world's whole run.
+Each world is one spawn for all the cases, both spawned at the start of
+the module while the references compute, with 60 s timeouts on the process
+group's collectives and 300 s on the world's whole run.
 """
+
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -55,15 +58,15 @@ from llp_tpu.parallel.halo import build_halo_partition, pad_nodes
 from llp_tpu.sample.negative import edge_hash_keys
 from llp_tpu_torch.data.synthetic import community_features, sbm_graph
 from llp_tpu_torch.models.predictor import LinkPredictor
-from llp_tpu_torch.parallel.launch import launch
 from llp_tpu_torch.parallel.mesh import close_world, init_world
 from llp_tpu_torch.train.student import init_student
 from llp_tpu_torch.train.teacher import init_teacher
-from llp_tpu_torch.tools.dp_runs import eval_run, run_jobs, student_run, teacher_run
+from llp_tpu_torch.tools.dp_runs import Worlds, eval_run, student_run, teacher_run
 from llp_tpu_torch.utils.params import to_jax
 
 N, D, H = 201, 32, 32
 SIZES = (2, 4)
+REF_THREADS = 4  # JAX references compiled at once
 TIMEOUT = 60  # every collective and the rendezvous
 RUN_TIMEOUT = 300  # a world's whole run of the module's cases, on a loaded host
 LOSS_TOL = dict(rtol=1e-4, atol=1e-5)
@@ -188,15 +191,33 @@ def _jobs(problem):
     return jobs
 
 
-@pytest.fixture(scope="module")
+@pytest.fixture(scope="module", autouse=True)
 def worlds(problem, tmp_path_factory):
-    jobs = _jobs(problem)
-    out = {}
+    # spawned at the start of the module; the references compute while the
+    # worlds run
+    return Worlds(_jobs(problem), SIZES, rendezvous=tmp_path_factory.mktemp("rendezvous"),
+                  timeout=TIMEOUT, join_timeout=RUN_TIMEOUT)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def refs(problem, worlds):
+    """JAX's halo and table epochs and evaluators at each size, and the
+    one-process sampled teacher, computed while the worlds run, on threads
+    (XLA compiles outside the interpreter lock).  Every patch of JAX's
+    samplers returns the same fixed samples, so the threads' patches
+    agree."""
+    calls = {}
     for size in SIZES:
-        rdv = tmp_path_factory.mktemp(f"rendezvous{size}") / "store"
-        res = launch(run_jobs, ["cpu"] * size, list(jobs.values()),
-                     init_method=f"file://{rdv}", timeout=TIMEOUT, join_timeout=RUN_TIMEOUT)
-        out[size] = {name: [r[i] for r in res] for i, name in enumerate(jobs)}
+        for case in JAX_CASES:
+            calls["halo", case, size] = (_jax_halo_epochs, problem, case, size)
+        calls["table", size] = (_jax_table_epochs, problem, size)
+        for case in EVAL_CASES:
+            calls["eval", case, size] = (_jax_eval, _eval_specs(problem)[case], size)
+    with pytest.MonkeyPatch.context() as patch, ThreadPoolExecutor(REF_THREADS) as pool:
+        futures = {key: pool.submit(fn, *args, *((patch,) if key[0] != "eval" else ()))
+                   for key, (fn, *args) in calls.items()}
+        out = {"sampled": teacher_run(dict(_sampled_teacher(problem, 0.0), sharding="dp"))}
+        out.update({key: f.result() for key, f in futures.items()})
     return out
 
 
@@ -250,10 +271,10 @@ def _jax_halo_epochs(problem, case, size, monkeypatch):
 
 @pytest.mark.parametrize("size", SIZES)
 @pytest.mark.parametrize("case", list(JAX_CASES))
-def test_halo_teacher_epochs_match_jax_halo_epochs(problem, worlds, monkeypatch, case, size):
+def test_halo_teacher_epochs_match_jax_halo_epochs(worlds, refs, case, size):
+    losses, params = refs["halo", case, size]
     ranks = worlds[size][case]
     _assert_ranks_equal(ranks)
-    losses, params = _jax_halo_epochs(problem, case, size, monkeypatch)
     np.testing.assert_allclose(ranks[0]["losses"], losses, **LOSS_TOL)
     tol = {"batch_norm": BN_PARAM_TOL, "gcn_weighted": GCN_W_PARAM_TOL}.get(case, PARAM_TOL)
     _assert_close(ranks[0]["params"], params, tol)
@@ -261,13 +282,12 @@ def test_halo_teacher_epochs_match_jax_halo_epochs(problem, worlds, monkeypatch,
 
 @pytest.mark.parametrize("size", SIZES)
 @pytest.mark.parametrize("dropout", [0.0, 0.5])
-def test_sampled_halo_epochs_keep_the_ranks_in_step(problem, worlds, dropout, size):
+def test_sampled_halo_epochs_keep_the_ranks_in_step(worlds, refs, dropout, size):
     ranks = worlds[size][f"teacher_sampled_{dropout}"]
     _assert_ranks_equal(ranks)
     assert ranks[0]["losses"][-1] < ranks[0]["losses"][0]
     if dropout == 0.0:
-        spec = dict(_sampled_teacher(problem, 0.0), sharding="dp")
-        one = teacher_run(spec)
+        one = refs["sampled"]
         np.testing.assert_allclose(ranks[0]["losses"], one["losses"], **LOSS_TOL)
         _assert_close(ranks[0]["params"], one["params"], PARAM_TOL)
         assert np.array_equal(ranks[0]["rng"], one["rng"])
@@ -319,10 +339,10 @@ def _jax_table_epochs(problem, size, monkeypatch):
 
 
 @pytest.mark.parametrize("size", SIZES)
-def test_the_table_student_matches_jax_table_epochs(problem, worlds, monkeypatch, size):
+def test_the_table_student_matches_jax_table_epochs(worlds, refs, size):
+    losses, params = refs["table", size]
     ranks = worlds[size]["table_jax"]
     _assert_ranks_equal(ranks)
-    losses, params = _jax_table_epochs(problem, size, monkeypatch)
     np.testing.assert_allclose(ranks[0]["losses"], losses, rtol=2e-4, atol=2e-6)
     _assert_close(ranks[0]["params"], params, PARAM_TOL)
 
@@ -375,11 +395,11 @@ EVAL_CASES = ["sage_transductive", "sage_production", "gcn_transductive",
 
 @pytest.mark.parametrize("size", SIZES)
 @pytest.mark.parametrize("case", EVAL_CASES)
-def test_the_evaluators_match_jax(problem, worlds, case, size):
+def test_the_evaluators_match_jax(worlds, refs, case, size):
+    res, h = refs["eval", case, size]
     ranks = worlds[size][f"eval_{case}"]
     for r in ranks[1:]:
         assert r["results"] == ranks[0]["results"] and np.array_equal(r["h"], ranks[0]["h"])
-    res, h = _jax_eval(_eval_specs(problem)[case], size)
     for k, v in res.items():
         np.testing.assert_allclose(ranks[0]["results"][k], v, **METRIC_TOL)
     np.testing.assert_allclose(ranks[0]["h"], h[:ranks[0]["h"].shape[0]], **H_TOL)

@@ -53,7 +53,8 @@ def test_import_loads_no_jax_and_no_llp_tpu():
      "llp_tpu_torch.parallel, llp_tpu_torch.parallel.mesh, llp_tpu_torch.parallel.sharded, "
      "llp_tpu_torch.parallel.epoch, llp_tpu_torch.parallel.launch, "
      "llp_tpu_torch.tools.dp_runs",
-     "llp_tpu_torch.parallel.halo, llp_tpu_torch.parallel.eval"],
+     "llp_tpu_torch.parallel.halo, llp_tpu_torch.parallel.eval, "
+     "llp_tpu_torch.parallel.multihost, llp_tpu_torch.tools.shard_runs"],
 )
 def test_training_modules_load_no_jax_and_no_llp_tpu(modules):
     code = (
@@ -88,7 +89,8 @@ def test_no_source_imports_jax_or_llp_tpu(path):
 def test_the_scan_covers_the_parallel_package():
     scanned = {str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")}
     assert {f"llp_tpu_torch/parallel/{m}.py" for m in
-            ("__init__", "mesh", "sharded", "epoch", "launch")} <= scanned
+            ("__init__", "mesh", "sharded", "epoch", "launch", "halo", "eval",
+             "multihost")} <= scanned
 
 
 def test_a_spawned_worker_loads_no_jax_and_no_llp_tpu(tmp_path):
@@ -165,11 +167,19 @@ def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("flag", ["--port=0", "--shard", "--quantize=int8", "--quantize=int4"])
-def test_serve_cli_rejects_what_is_not_ported(flag, tmp_path):
-    # the sharded table (ROADMAP A14) is refused with any other serving flag
-    with pytest.raises(SystemExit, match="--shard is not yet ported.*A14"):
-        torch_serve.main([f"--checkpoint={tmp_path / 'missing'}", "--device=cpu", flag,
-                          "--shard"])
+def test_serve_cli_rejects_what_is_not_ported(flag, tmp_path, capsys):
+    # --shard is ported: with --port it reaches the daemon's set-up (a world
+    # of one on the CPU, which then looks for the missing checkpoint);
+    # without --port it is a daemon flag that argparse refuses
+    argv = [f"--checkpoint={tmp_path / 'missing'}", "--device=cpu", flag, "--shard"]
+    if flag == "--port=0":
+        with pytest.raises(FileNotFoundError, match="missing"):
+            torch_serve.main(argv)
+        return
+    with pytest.raises(SystemExit) as exc:
+        torch_serve.main(argv)
+    assert exc.value.code == 2
+    assert "--shard configure the daemon and need --port" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("flag", ["--host=0.0.0.0", "--warmup=1", "--max_queue=2",

@@ -21,12 +21,16 @@ and resumed.
   words.
 
 One spawned world runs the flags of every case (``dp_runs.cli_run`` as
-each rank); the launch case spawns its own.  60 s timeouts on the process
-group's collectives, 300 s on the world's whole run.
+each rank), spawned at the start of the module; the one-process runs (in a
+spawned process of their own) and JAX's CLIs (in this one) run meanwhile.  The launch case spawns its own.
+60 s timeouts on the process group's collectives, 300 s on the world's
+whole run.
 """
 
 import ast
+import multiprocessing as mp
 import re
+from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 import pytest
@@ -35,8 +39,7 @@ import torch
 from llp_tpu.cli import train_student as jax_student
 from llp_tpu.cli import train_teacher as jax_teacher
 from llp_tpu_torch.cli import train_student, train_teacher
-from llp_tpu_torch.parallel.launch import launch
-from llp_tpu_torch.tools.dp_runs import run_jobs
+from llp_tpu_torch.tools.dp_runs import Worlds, run_jobs
 
 DATASET = "synthetic:sbm:300:4:6.0:1:48:gauss"
 TIMEOUT = 60  # every collective and the rendezvous
@@ -79,25 +82,42 @@ def _jobs(root):
     return jobs
 
 
-@pytest.fixture(scope="module")
+@pytest.fixture(scope="module", autouse=True)
 def dp(tmp_path_factory):
+    # spawned at the start of the module; the one-process runs and JAX's
+    # CLIs run meanwhile
     root = tmp_path_factory.mktemp("dp")
     jobs = _jobs(root)
     for job in jobs.values():
         job["argv"].append("--num_devices=2")
-    res = launch(run_jobs, ["cpu", "cpu"], [("cli", j) for j in jobs.values()],
-                 init_method=f"file://{tmp_path_factory.mktemp('rendezvous') / 'store'}",
-                 timeout=TIMEOUT, join_timeout=RUN_TIMEOUT)
-    return root, {name: [r[i] for r in res] for i, name in enumerate(jobs)}
+    return root, Worlds({name: ("cli", job) for name, job in jobs.items()}, (2,),
+                        rendezvous=tmp_path_factory.mktemp("rendezvous"), timeout=TIMEOUT,
+                        join_timeout=RUN_TIMEOUT)
 
 
-@pytest.fixture(scope="module")
-def single(tmp_path_factory):
+@pytest.fixture(scope="module", autouse=True)
+def single(dp, tmp_path_factory):
+    """The one-process runs, in a spawned process of two threads beside the
+    world (their CLIs print into their own buffers there)."""
     root = tmp_path_factory.mktemp("single")
-    out = {}
-    for key, job in ((k, j) for k, j in _jobs(root).items() if len(k) >= 2):
-        out[key] = run_jobs([("cli", job)])[0]
-    return root, out
+    jobs = {key: job for key, job in _jobs(root).items() if len(key) >= 2}
+    pool = ProcessPoolExecutor(1, mp_context=mp.get_context("spawn"),
+                               initializer=torch.set_num_threads, initargs=(2,))
+    future = pool.submit(run_jobs, [("cli", job) for job in jobs.values()])
+    pool.shutdown(wait=False)
+    return root, jobs, future
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_runs(single, tmp_path_factory):
+    """JAX's CLIs with the halo flags over two of its devices, in both
+    settings, in this process while the world and the one-process runs go
+    on: ``{setting: root}``."""
+    roots = {setting: tmp_path_factory.mktemp(f"jax_{setting}") for setting in SETTINGS}
+    for setting, root in roots.items():
+        for role, main in (("teacher", jax_teacher.main), ("student", jax_student.main)):
+            main(_flags(root, role, *SETTINGS[setting], *HALO[role], "--num_devices=2"))
+    return roots
 
 
 def _shape(line: str) -> str:
@@ -127,9 +147,9 @@ def test_halo_ranks_print_and_write_what_one_process_does(dp, single, role, sett
 
 
 def _assert_one_process(dp, single, key, role, setting, folder=None):
-    (root, ranks), (one_root, one) = dp, single
-    lead, other = ranks[key]
-    ref = one[key]
+    (root, worlds), (one_root, jobs, one) = dp, single
+    lead, other = worlds[2][key]
+    ref = one.result(timeout=RUN_TIMEOUT)[list(jobs).index(key)]
     assert other["stdout"] == []
     assert [_shape(s) for s in lead["stdout"]] == [_shape(s) for s in ref["stdout"]]
     ours = _results(root, role, setting, folder)
@@ -148,7 +168,8 @@ def _assert_one_process(dp, single, key, role, setting, folder=None):
 
 
 def test_a_cut_and_resumed_run_ends_as_the_whole_run(dp):
-    root, ranks = dp
+    root, worlds = dp
+    ranks = worlds[2]
     (whole, _), (cut, _), (resumed, _) = ranks["whole"], ranks["cut"], ranks["resumed"]
     assert resumed["stdout"][0] == "resuming from run 0 epoch 2"
     assert resumed["report"]["losses"] == whole["report"]["losses"]
@@ -176,13 +197,13 @@ def test_the_student_cli_refuses_halo_over_two_devices(tmp_path):
 
 
 @pytest.mark.parametrize("setting", list(SETTINGS))
-def test_halo_results_files_hold_the_jax_clis_lines(dp, tmp_path, setting):
-    root, ranks = dp
-    for role, main in (("teacher", jax_teacher.main), ("student", jax_student.main)):
-        argv = _flags(tmp_path, role, *SETTINGS[setting], *HALO[role], "--num_devices=2")
-        main(argv)
+def test_halo_results_files_hold_the_jax_clis_lines(dp, jax_runs, setting):
+    root, worlds = dp
+    worlds[2]  # the world has written its results files
+    jax_root = jax_runs[setting]
+    for role in ("teacher", "student"):
         ours = _results(root, role, setting, f"halo_{setting}")
-        ref = (tmp_path / "results" / _results_name(role, setting)).read_text().splitlines()
+        ref = (jax_root / "results" / _results_name(role, setting)).read_text().splitlines()
         a, b = ast.literal_eval(ours[0]), ast.literal_eval(ref[0])
         assert list(a) == list(b)
         assert (a.pop("spmm_impl"), b.pop("spmm_impl")) == ("segsum", "xla")

@@ -21,9 +21,12 @@ with a ``world``) over gloo worlds of 2 and 4 CPU ranks.
   norm), summed across the ranks, equal one process's, teacher and student,
   at rtol 1e-5, atol 1e-6.
 
-Each world is one spawn for all the cases, with 60 s timeouts on the
-process group's collectives and 300 s on the world's whole run.
+Each world is one spawn for all the cases, both spawned at the start of
+the module while the references compute, with 60 s timeouts on the process
+group's collectives and 300 s on the world's whole run.
 """
+
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -36,13 +39,13 @@ import llp_tpu.parallel.epoch as jax_epoch
 from llp_tpu.core import build_graph as jax_build_graph
 from llp_tpu_torch.data.synthetic import community_features, sbm_graph
 from llp_tpu_torch.models.predictor import LinkPredictor
-from llp_tpu_torch.parallel.launch import launch
 from llp_tpu_torch.train.teacher import init_teacher
-from llp_tpu_torch.tools.dp_runs import run_jobs, student_run, teacher_run
+from llp_tpu_torch.tools.dp_runs import Worlds, run_jobs, student_run, teacher_run
 from llp_tpu_torch.utils.params import to_jax
 
 N, D, H = 200, 32, 32
 SIZES = (2, 4)
+REF_THREADS = 4  # JAX references compiled at once
 TIMEOUT = 60  # every collective and the rendezvous
 RUN_TIMEOUT = 300  # a world's whole run of the module's cases, on a loaded host
 LOSS_TOL = dict(rtol=1e-5, atol=1e-6)
@@ -117,17 +120,28 @@ def _gradient_jobs(problem):
     return jobs
 
 
-@pytest.fixture(scope="module")
+@pytest.fixture(scope="module", autouse=True)
 def worlds(problem, tmp_path_factory):
-    jobs = [("teacher", _jax_spec(problem, case)) for case in JAX_CASES]
-    jobs += list(_sampled_specs(problem).values()) + list(_gradient_jobs(problem).values())
-    names = list(JAX_CASES) + list(_sampled_specs(problem)) + list(_gradient_jobs(problem))
-    out = {}
-    for size in SIZES:
-        rdv = tmp_path_factory.mktemp(f"rendezvous{size}") / "store"
-        res = launch(run_jobs, ["cpu"] * size, jobs, init_method=f"file://{rdv}",
-                     timeout=TIMEOUT, join_timeout=RUN_TIMEOUT)
-        out[size] = {name: [r[i] for r in res] for i, name in enumerate(names)}
+    # spawned at the start of the module; the references compute while the
+    # worlds run
+    jobs = {case: ("teacher", _jax_spec(problem, case)) for case in JAX_CASES}
+    jobs.update(_sampled_specs(problem))
+    jobs.update(_gradient_jobs(problem))
+    return Worlds(jobs, SIZES, rendezvous=tmp_path_factory.mktemp("rendezvous"),
+                  timeout=TIMEOUT, join_timeout=RUN_TIMEOUT)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def refs(problem, worlds):
+    """JAX's sharded epochs at each size, on threads (XLA compiles outside
+    the interpreter lock; every patch of the sampler returns the same fixed
+    negatives), and one process's gradients, computed while the worlds
+    run."""
+    with pytest.MonkeyPatch.context() as patch, ThreadPoolExecutor(REF_THREADS) as pool:
+        futures = {(case, size): pool.submit(_jax_epochs, problem, case, size, patch)
+                   for size in SIZES for case in JAX_CASES}
+        out = {case: run_jobs([job])[0] for case, job in _gradient_jobs(problem).items()}
+        out.update({key: f.result() for key, f in futures.items()})
     return out
 
 
@@ -177,16 +191,16 @@ def _assert_ranks_equal(ranks):
 
 @pytest.mark.parametrize("size", SIZES)
 @pytest.mark.parametrize("case", list(JAX_CASES))
-def test_teacher_epochs_match_jax_sharded_epochs(problem, worlds, monkeypatch, case, size):
+def test_teacher_epochs_match_jax_sharded_epochs(worlds, refs, case, size):
+    losses, params = refs[case, size]
     ranks = worlds[size][case]
     _assert_ranks_equal(ranks)
-    losses, params = _jax_epochs(problem, case, size, monkeypatch)
     np.testing.assert_allclose(ranks[0]["losses"], losses, **LOSS_TOL)
     _assert_close(ranks[0]["params"], params, PARAM_TOL)
 
 
-@pytest.fixture(scope="module")
-def single(problem):
+@pytest.fixture(scope="module", autouse=True)
+def single(problem, refs):
     return {name: (teacher_run if kind == "teacher" else student_run)(spec)
             for name, (kind, spec) in _sampled_specs(problem).items()}
 
@@ -194,7 +208,8 @@ def single(problem):
 @pytest.mark.parametrize("size", SIZES)
 @pytest.mark.parametrize("case", ["teacher", *STUDENT_CASES])
 def test_sampled_epochs_match_one_process(worlds, single, case, size):
-    ranks, one = worlds[size][case], single[case]
+    one = single[case]
+    ranks = worlds[size][case]
     _assert_ranks_equal(ranks)
     np.testing.assert_allclose(ranks[0]["losses"], one["losses"], **SELF_LOSS_TOL)
     _assert_close(ranks[0]["params"], one["params"],
@@ -205,10 +220,9 @@ def test_sampled_epochs_match_one_process(worlds, single, case, size):
 
 @pytest.mark.parametrize("size", SIZES)
 @pytest.mark.parametrize("case", [*(f"grads_{c}" for c in GRAD_CASES), "grads_gcn_weighted"])
-def test_gradients_summed_across_ranks_are_one_process_gradients(problem, worlds, case, size):
+def test_gradients_summed_across_ranks_are_one_process_gradients(worlds, refs, case, size):
+    one = refs[case]
     ranks = worlds[size][case]
-    kind, job = _gradient_jobs(problem)[case]
-    one = run_jobs([(kind, job)])[0]
     for r in ranks[1:]:
         assert r["loss"] == ranks[0]["loss"]
         for k, g in r["grads"].items():

@@ -16,8 +16,9 @@ weighted.
   fp32 and bf16.
 
 Each world is one spawn for all the cases (about 4 s for two ranks on a
-CPU), with 60 s timeouts on the process group's collectives and 300 s on
-the world's whole run.
+CPU), both spawned at the start of the module while JAX's references
+compute, with 60 s timeouts on the process group's collectives and 300 s
+on the world's whole run.
 """
 
 import jax
@@ -37,9 +38,8 @@ from llp_tpu.parallel.sharded import make_sharded_spmm
 from llp_tpu_torch.core.graph import build_graph
 from llp_tpu_torch.data.synthetic import sbm_graph
 from llp_tpu_torch.ops.spmm import mean_aggregate, spmm
-from llp_tpu_torch.parallel.launch import launch
 from llp_tpu_torch.parallel.mesh import close_world, edge_bounds, init_world
-from llp_tpu_torch.tools.dp_runs import run_jobs, spmm_parts
+from llp_tpu_torch.tools.dp_runs import Worlds, spmm_parts
 
 N, D = 200, 32
 ISOLATED = (0, 77, 199)
@@ -72,16 +72,13 @@ def problem():
     return _problem()
 
 
-@pytest.fixture(scope="module")
+@pytest.fixture(scope="module", autouse=True)
 def worlds(problem, tmp_path_factory):
-    jobs = [("spmm", _case(problem, case)) for case in CASES]
-    out = {}
-    for size in SIZES:
-        rdv = tmp_path_factory.mktemp(f"rendezvous{size}") / "store"
-        res = launch(run_jobs, ["cpu"] * size, jobs, init_method=f"file://{rdv}",
-                     timeout=TIMEOUT, join_timeout=RUN_TIMEOUT)
-        out[size] = {case: [r[i] for r in res] for i, case in enumerate(CASES)}
-    return out
+    # spawned at the start of the module; JAX's references compute while
+    # the worlds run
+    return Worlds({case: ("spmm", _case(problem, case)) for case in CASES}, SIZES,
+                  rendezvous=tmp_path_factory.mktemp("rendezvous"), timeout=TIMEOUT,
+                  join_timeout=RUN_TIMEOUT)
 
 
 def _jax(problem, case, size):
