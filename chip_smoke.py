@@ -18,7 +18,22 @@ failure exits non-zero.
                    route and of the pair scorer (``sass[mlp_topk]:``,
                    ``sass[sddmm]:``, from ``cuobjdump -sass``), which must
                    not be 0.
-3. kernel_check -- each kernel against its plain PyTorch version on the card,
+3. trace_tie    -- the program's spans (``llp_tpu_torch.utils.profiling``)
+                   on the device trace's clock, in the process's first
+                   profiler session, as the benchmark's traced slice is
+                   (B1's library and the sleep kernel loaded before it, as
+                   a warm step has them): under a CUDA-only
+                   ``torch.profiler``, after a synchronise, a span around
+                   ``torch.cuda._sleep``, TRACE_TIE_REPS times after one
+                   untimed launch in the session; on the recorder's own
+                   tie (its marker kernel) the sleep kernels start within
+                   TRACE_TIE_US of their spans' starts (median), none
+                   more than TRACE_TIE_US before its span's start or after
+                   its launch returned, and a span's device time holds
+                   its kernel
+                   (``trace_tie:`` line: the errors, the marker's name, and
+                   how far a tie through a PyTorch fill reads from it).
+4. kernel_check -- each kernel against its plain PyTorch version on the card,
                    at stated tolerances: segsum in its three unweighted
                    instances (fp32, bf16 -> fp32, bf16 -> bf16) and its two
                    weighted ones (fp32, bf16 -> bf16; weights with zeros and
@@ -50,7 +65,7 @@ failure exits non-zero.
                    equal bit for bit. With more than one card visible
                    (other_card), segsum and SDDMM run again on the last card
                    while card 0 stays current.
-4. serve        -- the serving CLI (``llp_tpu_torch.cli.serve.main``) at full
+5. serve        -- the serving CLI (``llp_tpu_torch.cli.serve.main``) at full
                    width: a 2-layer GraphSAGE teacher, hidden 256, with a
                    2-layer mlp head. It runs with random weights from a seed
                    on the ``cora`` and ``collab`` stand-ins, and then an MLP
@@ -61,11 +76,11 @@ failure exits non-zero.
                    counters show that the kernels served (the top-K through
                    mlp_topk). The kernels' answers are held against the
                    plain routes on the card and against the CPU.
-5. weighted_data -- writes the collab stand-in as an ogbl-collab export
+6. weighted_data -- writes the collab stand-in as an ogbl-collab export
                    (``save_dataset_npz``: integer weights >= 1, the official
                    held-out counts, 100,000 negatives each) and a
                    20,000-node sibling, under ``build/chip_smoke/``.
-6. train        -- the training CLI (``llp_tpu_torch.cli.train_teacher.main``)
+7. train        -- the training CLI (``llp_tpu_torch.cli.train_teacher.main``)
                    at full width (hidden 256, 2 layers, mlp head, batch
                    65,536, dropout 0.5): the GraphSAGE teacher 20 epochs on
                    ``cora`` and 2 epochs each at fp32 and bf16 on
@@ -86,7 +101,7 @@ failure exits non-zero.
                    must agree: SAGE on ``cora``, weighted GCN on the
                    20,000-node export; and a profiled collab epoch per type
                    and of weighted GCN and SAGE (where the time goes).
-7. student      -- the student's CLI (``llp_tpu_torch.cli.train_student.main``)
+8. student      -- the student's CLI (``llp_tpu_torch.cli.train_student.main``)
                    at full width (hidden 256, 2 layers, mlp head, link
                    batch 65,536, dropout 0.5, C = 12 contexts) from the
                    train phase's teachers: on ``cora`` 20 epochs full-batch
@@ -99,7 +114,7 @@ failure exits non-zero.
                    through mlp_topk) and on the CPU alike; 3 single-step
                    epochs with fixed contexts and negatives agree with the
                    CPU's; a profiled collab student epoch.
-8. production   -- the production (unseen-node) setting through both
+9. production   -- the production (unseen-node) setting through both
                    training CLIs (``--transductive production``) at full
                    width: the SAGE teacher 20 epochs on ``cora`` (ratios
                    0.3) and 2 epochs at fp32 on ``collab`` (0.1), then the
@@ -112,7 +127,7 @@ failure exits non-zero.
                    evaluation agrees on the card and the CPU, and its
                    artifact, served with ``--reencode``, answers alike on
                    both.
-9. tooling      -- raw downloads, snapshots, the reference's artifacts and
+10. tooling     -- raw downloads, snapshots, the reference's artifacts and
                    the sweep and parity CLIs at full width: a Planetoid raw
                    cora (2,708 x 1,433, 10,556 directed edges) and a
                    GNN-benchmark coauthor-cs (18,333 x 6,805 CSR attributes,
@@ -138,7 +153,7 @@ failure exits non-zero.
                    and coauthor-cs (1 run, 3 epochs). Launch counters show
                    segsum in both directions and the gathers' backward on
                    every teacher step and SDDMM four times in every eval.
-10. scale10m    -- the teacher at 10M nodes through ``TeacherTrainer``
+11. scale10m    -- the teacher at 10M nodes through ``TeacherTrainer``
                    (``scripts/scale10m_r5.py``'s configuration: an SBM of
                    10,000,000 nodes, 64 communities, mean degree 7, 64
                    Gaussian features, seed 5; SAGE 2 layers, hidden 128,
@@ -158,7 +173,7 @@ failure exits non-zero.
                    through mlp_topk (recall@10 and times); then segsum
                    bf16 -> bf16 at D=128 forward and backward over the
                    10M CSR beside ``torch.sparse.mm`` and its bound.
-11. reorder     -- ``--reorder rcm|locality`` and the tile SpMM: the
+12. reorder     -- ``--reorder rcm|locality`` and the tile SpMM: the
                    orders of the collab stand-in (their host time) and the
                    tile fill under each (min_tile_edges 16 and 0); on the
                    RCM graph the hybrid ``spmm_tiles`` mean forward and
@@ -178,7 +193,7 @@ failure exits non-zero.
                    (the hybrid beside B1 and ``torch.sparse.mm``, its
                    residual segment sum alone, and ``spmm_tiles_apply`` at
                    min_tile_edges 0).
-12. dp          -- the data-parallel path (``--num_devices``): (a) a world
+13. dp          -- the data-parallel path (``--num_devices``): (a) a world
                    of one rank over NCCL on ``cuda:0`` through the trainers'
                    ``world``, one epoch each of the collab SAGE teacher at
                    full width (fp32, bf16), the weighted GCN teacher (bf16)
@@ -196,7 +211,7 @@ failure exits non-zero.
                    backward fp32, forward bf16 -> fp32, weighted bf16 ->
                    fp32) against ``segsum_plain`` over the same CSR and
                    timed, entries of the kernels line.
-13. halo        -- the node-sharded path (``--sharding halo``): (a) a world
+14. halo        -- the node-sharded path (``--sharding halo``): (a) a world
                    of one rank over NCCL on ``cuda:0``, two epochs each in
                    turns with the single path, of the collab SAGE teacher
                    at full width (fp32, bf16), the weighted GCN teacher
@@ -217,7 +232,7 @@ failure exits non-zero.
                    remote, forward and backward, the owner scatter; bf16 ->
                    fp32 and weighted) against ``segsum_plain`` and timed,
                    entries of the kernels line.
-14. shard       -- the node-sharded serving daemon (``--shard``) at the
+15. shard       -- the node-sharded serving daemon (``--shard``) at the
                    serve phase's collab table (235,868 x 256 re-encoded on
                    the card, the 256-wide 'mlp' head), Q=256 queries, k=10
                    and 50, 1,024 pairs: (a) ``ShardedServingState`` at a
@@ -248,7 +263,7 @@ failure exits non-zero.
                    blocked scan over rank 1's half (global ids, the self
                    pairs masked) against a plain top-K, entries of the
                    kernels line.
-15. kernels     -- one JSON line: each kernel's launches on the serving,
+16. kernels     -- one JSON line: each kernel's launches on the serving,
                    training, student, production, tooling, reorder, dp, halo and shard paths, its
                    time at the collab shapes, the plain version's time, a
                    library call's time where one exists, and the least time
@@ -4892,6 +4907,101 @@ def phase_shard(gen) -> dict:
     return {"entries": _shard_entries(gen, pred, h, queries, counts)}
 
 
+TRACE_TIE_US = 20.0      # a span's start against its first kernel's, on the tie
+TRACE_TIE_REPS = 20
+TRACE_TIE_CYCLES = 200_000  # about 0.1 ms of spinning at the card's clock
+
+
+def phase_trace_tie() -> dict:
+    """(3) of the module's docstring."""
+    import os
+    import tempfile
+
+    import torch
+
+    from llp_tpu_torch.utils import profiling
+
+    # B1's library (the marker's) and the sleep kernel loaded before the
+    # profiler, as a training step has its kernels in a traced slice
+    from llp_tpu_torch.ops.build import load_library
+
+    flag = torch.empty(1, dtype=torch.int32, device="cuda")
+    load_library("segsum", "llp_trace_marker")(flag.data_ptr(),
+                                               torch.cuda.current_stream().cuda_stream)
+    torch.cuda._sleep(TRACE_TIE_CYCLES)
+    torch.cuda.synchronize()
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+    prof.start()
+    try:
+        with profiling.span("trace_tie.open"):  # the session's tie
+            pass
+        # a session's first launch of a kernel pays the profiler's set-up
+        # (37-54 us here), as a traced slice's first step does: not timed
+        torch.cuda.synchronize()
+        torch.cuda._sleep(TRACE_TIE_CYCLES)
+        # a tie through a PyTorch op, as the benchmark's trace makes its own
+        fill = torch.empty(1, dtype=torch.float64, device="cuda")
+        torch.cuda.synchronize()
+        t_fill = time.perf_counter()
+        fill.fill_(1.0)
+        returns = []  # the host times the sleeps' launches returned at
+        for _ in range(TRACE_TIE_REPS):
+            torch.cuda.synchronize()
+            with profiling.span("trace_tie.sleep"):
+                torch.cuda._sleep(TRACE_TIE_CYCLES)
+                returns.append(time.perf_counter())
+        torch.cuda.synchronize()
+    finally:
+        prof.stop()
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.unlink(path)
+    kernels = sorted((e["ts"], e.get("dur", 0.0), e["name"]) for e in events
+                     if e.get("ph") == "X" and e.get("cat") == "kernel")
+    session = profiling.last_session()
+    offset = session.offset_us([(n, t) for t, _, n in kernels])
+    if offset is None:
+        raise AssertionError(f"trace_tie: no marker kernel ({profiling.MARKER_KERNEL!r}) in "
+                             f"{sorted({n for _, _, n in kernels})}")
+    sleeps = [k for k in kernels if "spin_kernel" in k[2]][1:]  # the untimed one first
+    spans = [s for s in session.spans if s.name == "trace_tie.sleep"]
+    if len(sleeps) != len(spans):
+        raise AssertionError(f"trace_tie: {len(sleeps)} kernels for {len(spans)} spans: "
+                             f"{sorted({n for _, _, n in sleeps})}")
+    errors = [t - (s.t0 * 1e6 + offset) for (t, _, _), s in zip(sleeps, spans)]
+    after_return = [t - (r * 1e6 + offset) for (t, _, _), r in zip(sleeps, returns)]
+    covered = [s.device_ms * 1e3 - dur for (_, dur, _), s in zip(sleeps, spans)]
+    median = sorted(errors)[len(errors) // 2]
+    out = {"reps": len(spans), "error_us_median": median,
+           "error_us_range": [min(errors), max(errors)],
+           "after_return_us_range": [min(after_return), max(after_return)],
+           "device_minus_kernel_us": [min(covered), max(covered)],
+           "kernel_us": sorted(d for _, d, _ in sleeps)[len(sleeps) // 2],
+           "marker": next(n for _, _, n in kernels if session.marker in n)[:160],
+           "sleep_kernel": sleeps[0][2][:80], "limit_us": TRACE_TIE_US,
+           "fill_tie_minus_marker_tie_us": min(t for t, _, n in kernels
+                                               if "FillFunctor<double>" in n)
+           - t_fill * 1e6 - offset}
+    log("trace_tie", out)
+    # a kernel starts after its span's start and before its launch returns
+    # (a slow launch call is the host's, not the tie's); typically within
+    # TRACE_TIE_US of the span's start
+    if (abs(median) > TRACE_TIE_US or min(errors) < -TRACE_TIE_US
+            or max(after_return) > TRACE_TIE_US):
+        raise AssertionError(f"trace_tie: on the tie the kernels start {median:.1f} us "
+                             f"(median) from their spans' starts, {out['error_us_range']} in "
+                             f"all, and {out['after_return_us_range']} from their launches' "
+                             f"returns (limit {TRACE_TIE_US} us)")
+    if min(covered) < 0:
+        raise AssertionError("trace_tie: a span's device time is shorter than its kernel")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -4924,6 +5034,7 @@ def main() -> int:
 
     info = timed("device", phase_device)
     timed("build", phase_build)
+    timed("trace_tie", phase_trace_tie)
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst = timed("kernel_check", phase_kernel_check, gen)
     timed("other_card", phase_other_card)

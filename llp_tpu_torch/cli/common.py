@@ -80,6 +80,9 @@ def add_common_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--resume", action="store_true",
                    help="continue from the <artifact>_trainstate snapshot, if any, at its "
                         "run and epoch")
+    p.add_argument("--profile_dir", type=str, default="",
+                   help="trace the second epoch and its eval with torch.profiler into "
+                        "<dir>/trace.json, the program's spans on it (\"\" = off)")
 
 
 def config_from_args(cls, args: argparse.Namespace, rename: dict,

@@ -46,6 +46,7 @@ SIGNATURES = {
 ENTRY_POINTS = {
     "llp_sddmm_split_w1": [_P, _P, _I64, _I64, _P],
     "llp_mlp_topk_mma": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P, _INT, _I64, _I64, _P],
+    "llp_trace_marker": [_P, _P],
 }
 
 

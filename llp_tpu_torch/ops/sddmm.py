@@ -97,7 +97,6 @@ def split_w1(w1: torch.Tensor) -> torch.Tensor:
         raise ValueError("split_w1 takes a contiguous cpu or cuda tensor")
     out = _split_scratch(w1)
     launch = load_library("sddmm", "llp_sddmm_split_w1")
-    split_w1.launches += 1
     with torch.cuda.device(w1.device):
         rc = launch(w1.data_ptr(), out.data_ptr(), *w1.shape,
                     torch.cuda.current_stream(w1.device).cuda_stream)
@@ -111,9 +110,6 @@ def _split_scratch(w1: torch.Tensor) -> torch.Tensor:
     d, h = w1.shape
     return torch.empty((2, -(-h // N_PASS) * -(-d // K_STEP), N_PASS * K_STEP),
                        dtype=torch.float32, device=w1.device)
-
-
-split_w1.launches = 0
 
 
 def gather_route(ha: torch.Tensor, hb: torch.Tensor) -> str:
@@ -171,8 +167,7 @@ def sddmm_mlp_score(ha: torch.Tensor, hb: torch.Tensor, src: torch.Tensor,
 
 # Kernel launches, for proving a run went through the kernel: in all, and
 # per (route, D, H), the route the kernel was told to take.  Each call
-# splits W1 first, in the same entry point (``split_w1.launches`` counts
-# only calls of :func:`split_w1`).
+# splits W1 first, in the same entry point.
 sddmm_mlp_score.launches = 0
 sddmm_mlp_score.launch_counts = Counter()
 

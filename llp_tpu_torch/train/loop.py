@@ -59,6 +59,13 @@ and the losses), first writing the pending best-validation artifact;
 ``resume`` starts from that snapshot's run and epoch, so a run that was cut
 ends as an uninterrupted one does (bit for bit on the CPU).
 
+``profile_dir`` runs the second epoch of the call and its evaluation (the
+first after warm-up) under ``torch.profiler`` and writes one Chrome trace,
+``<profile_dir>/trace.json``: the card's kernels (the host's operators on
+the CPU) and the trainers' and evaluator's spans on the trace's clock
+(:func:`llp_tpu_torch.utils.profiling.trace`); with ``num_devices`` N,
+rank 0's.
+
 ``num_devices`` N > 1 trains data-parallel (``sharding`` ``dp``, the
 JAX drivers' ``llp_tpu/train/loop.py:534-552`` and ``:906-954``): the call
 starts N worker processes (:func:`llp_tpu_torch.parallel.launch.launch`),
@@ -134,7 +141,7 @@ from llp_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from llp_tpu_torch.utils.config import SPMM_IMPLS, SplitConfig, StudentConfig, TeacherConfig
 from llp_tpu_torch.utils.device import rank_devices, setup_device
 from llp_tpu_torch.utils.params import from_jax, to_jax
-from llp_tpu_torch.utils.profiling import ThroughputMeter
+from llp_tpu_torch.utils.profiling import ThroughputMeter, trace
 
 
 def refuse_unported(cfg) -> None:
@@ -606,6 +613,8 @@ def run_teacher(cfg: TeacherConfig, *, max_epochs: Optional[int] = None,
     val_max = snaps.meta.get("val_max", 0.0)
     best_artifact = None  # the best-validation artifact not yet written
     meter = ThroughputMeter(device, edges_per_epoch=2 * data["num_pos"])
+    profile_dir = cfg.profile_dir if lead else ""
+    epochs_run = 0
     losses = snaps.losses()
     steps = 0
     t0 = time.time()
@@ -652,16 +661,21 @@ def run_teacher(cfg: TeacherConfig, *, max_epochs: Optional[int] = None,
                              val_max=val_max, losses=losses)
 
         for epoch in range(first, epochs + 1):
-            meter.start()
-            loss = trainer.epoch(gen)
-            meter.end_epoch()
+            evaluates = epoch % max(cfg.eval_steps, 1) == 0
+            with trace(profile_dir if epochs_run == 1 else "", device):
+                meter.start()
+                loss = trainer.epoch(gen)
+                meter.end_epoch()
+                if evaluates:
+                    meter.start()
+                    results, h = evaluate_teacher(model, data, hits_ks=cfg.hits_ks,
+                                                  x_aggs=x_aggs)
+                    meter.end_eval()
+            epochs_run += 1
             run_losses.append(float(loss))
-            if epoch % max(cfg.eval_steps, 1) != 0:
+            if not evaluates:
                 snapshot(epoch)
                 continue
-            meter.start()
-            results, h = evaluate_teacher(model, data, hits_ks=cfg.hits_ks, x_aggs=x_aggs)
-            meter.end_eval()
             val = results[cfg.metric][0]
             if val > val_max:
                 val_max = val
@@ -774,6 +788,8 @@ def run_student(cfg: StudentConfig, *, max_epochs: Optional[int] = None,
                          resume=cfg.resume, loggers=loggers, verbose=verbose, write=lead)
     epochs = max_epochs if max_epochs is not None else cfg.epochs
     meter = ThroughputMeter(device, edges_per_epoch=2 * data["num_pos"])
+    profile_dir = cfg.profile_dir if lead else ""
+    epochs_run = 0
     losses = snaps.losses()
     steps = 0
     t0 = time.time()
@@ -825,17 +841,21 @@ def run_student(cfg: StudentConfig, *, max_epochs: Optional[int] = None,
                              val_max=val_smax, losses=losses)
 
         for epoch in range(first, epochs + 1):
-            meter.start()
-            loss = trainer.epoch(gen)
-            meter.end_epoch()
+            evaluates = epoch % max(cfg.eval_steps, 1) == 0
+            with trace(profile_dir if epochs_run == 1 else "", device):
+                meter.start()
+                loss = trainer.epoch(gen)
+                meter.end_epoch()
+                if evaluates:
+                    meter.start()
+                    results = evaluate_student(model, data, hits_ks=cfg.hits_ks,
+                                               world=world if table else None)
+                    meter.end_eval()
+            epochs_run += 1
             run_losses.append(float(loss))
-            if epoch % max(cfg.eval_steps, 1) != 0:
+            if not evaluates:
                 snapshot(epoch)
                 continue
-            meter.start()
-            results = evaluate_student(model, data, hits_ks=cfg.hits_ks,
-                                       world=world if table else None)
-            meter.end_eval()
             val = results[cfg.metric][0]
             if val >= best_val:
                 best_val, cnt_wait = val, 0

@@ -48,6 +48,11 @@ only its node rows of the features and of the teacher's table, and the
 minibatch's feature rows and the teacher's rows come through
 :func:`~llp_tpu_torch.parallel.epoch.table_gather`, which copies exact
 rows: a table run equals the data-parallel one bit for bit.
+
+Under a profiler the epoch records the teacher's spans under ``student.*``
+names (:mod:`llp_tpu_torch.train.teacher`); ``student.sample`` holds the
+negatives, the walks (:meth:`StudentTrainer.contexts`) and
+:meth:`StudentTrainer.batch_of`.
 """
 
 from __future__ import annotations
@@ -82,6 +87,7 @@ from llp_tpu_torch.sample.negative import sample_negative_edges, sample_uniform_
 from llp_tpu_torch.sample.walk import sample_contexts
 from llp_tpu_torch.train.optim import clip_by_group_norm
 from llp_tpu_torch.utils.precision import call_in_dtype, resolve_dtype
+from llp_tpu_torch.utils.profiling import span
 
 
 def init_student(*, in_channels: int, hidden_channels: int, num_layers: int,
@@ -284,9 +290,10 @@ class StudentTrainer:
         batches are this rank's slices and ``counts`` the whole batches'
         real (positives, anchors); the loss returned is the whole batch's."""
         loss = self.gradients(edges, emask, anchors, amask, neg, samples, generator, counts)
-        clip_by_group_norm({"encoder": self.model["encoder"],
-                            "predictor": self.model["predictor"]}, 1.0)
-        self.optimizer.step()
+        with span("student.optimizer"):
+            clip_by_group_norm({"encoder": self.model["encoder"],
+                                "predictor": self.model["predictor"]}, 1.0)
+            self.optimizer.step()
         return loss
 
     def batch_of(self, lidx: torch.Tensor, nidx: torch.Tensor, neg: torch.Tensor,
@@ -315,74 +322,78 @@ class StudentTrainer:
         clip; returns the loss (0-d, detached)."""
         enc, pred = self.model["encoder"], self.model["predictor"]
         w, dt = self.coef, self.dtype
-        self.model.train()
-        n_pos, n_anchors = (None, None) if counts is None else counts
-        enc_drop = ctx_drop = link_drop = generator
-        if self.world is not None:
+        with span("student.forward"):
+            self.model.train()
+            n_pos, n_anchors = (None, None) if counts is None else counts
+            enc_drop = ctx_drop = link_drop = generator
+            if self.world is not None:
+                if self.minibatch:
+                    enc_drop = BatchRows(generator, *self.enc_rows)
+                ctx_drop = BatchRows(generator, *self.ctx_rows)
+                link_drop = BatchRows(generator, *self.link_rows)
+            src = torch.cat([edges[:, 0], neg[0]])
+            dst = torch.cat([edges[:, 1], neg[1]])
+            h = None
             if self.minibatch:
-                enc_drop = BatchRows(generator, *self.enc_rows)
-            ctx_drop = BatchRows(generator, *self.ctx_rows)
-            link_drop = BatchRows(generator, *self.link_rows)
-        src = torch.cat([edges[:, 0], neg[0]])
-        dst = torch.cat([edges[:, 1], neg[1]])
-        h = None
-        if self.minibatch:
-            # one forward over the gathered rows [contexts | src | dst]
-            parts = [samples.reshape(-1), src, dst] if self.use_kd else [src, dst]
-            rows = call_in_dtype(enc, dt, self._rows(self.x, torch.cat(parts)),
-                                 generator=enc_drop)
-            if self.use_kd:
-                ctx = rows[:samples.numel()].view(*samples.shape, -1)
-                anchor_h, ctx_h = ctx[:, 0], ctx[:, 1:]
-                rows = rows[samples.numel():]
-            src_h, dst_h = rows[:src.shape[0]], rows[src.shape[0]:]
-        else:
-            # one gather of [anchors | contexts | src | dst], split (whose
-            # backward is one concatenation)
-            h = call_in_dtype(enc, dt, self.x, generator=generator)
-            parts = ([samples[:, 0], samples[:, 1:].reshape(-1), src, dst] if self.use_kd
-                     else [src, dst])
-            rows = gather_rows(h, torch.cat(parts)).split([p.shape[0] for p in parts])
-            if self.use_kd:
-                anchor_h, ctx_h = rows[0], rows[1].view(samples.shape[0], self.num_contexts, -1)
-            src_h, dst_h = rows[-2:]
+                # one forward over the gathered rows [contexts | src | dst]
+                parts = [samples.reshape(-1), src, dst] if self.use_kd else [src, dst]
+                rows = call_in_dtype(enc, dt, self._rows(self.x, torch.cat(parts)),
+                                     generator=enc_drop)
+                if self.use_kd:
+                    ctx = rows[:samples.numel()].view(*samples.shape, -1)
+                    anchor_h, ctx_h = ctx[:, 0], ctx[:, 1:]
+                    rows = rows[samples.numel():]
+                src_h, dst_h = rows[:src.shape[0]], rows[src.shape[0]:]
+            else:
+                # one gather of [anchors | contexts | src | dst], split (whose
+                # backward is one concatenation)
+                h = call_in_dtype(enc, dt, self.x, generator=generator)
+                parts = ([samples[:, 0], samples[:, 1:].reshape(-1), src, dst] if self.use_kd
+                         else [src, dst])
+                rows = gather_rows(h, torch.cat(parts)).split([p.shape[0] for p in parts])
+                if self.use_kd:
+                    anchor_h = rows[0]
+                    ctx_h = rows[1].view(samples.shape[0], self.num_contexts, -1)
+                src_h, dst_h = rows[-2:]
 
-        loss = torch.zeros((), device=self.x.device)
-        if self.use_kd:
-            s_r = call_in_dtype(pred, dt, anchor_h[:, None, :], ctx_h, generator=ctx_drop)
-            with torch.no_grad():
-                t_ctx = self._rows(self.t_h, samples[:, 1:].reshape(-1))
-                t_r = self.teacher(self._rows(self.t_h, samples[:, 0])[:, None, :],
-                                   t_ctx.view(samples.shape[0], self.num_contexts, -1))
-            if w["llp_d"] != 0.0:
-                loss = loss + w["llp_d"] * kl_div_loss(s_r, t_r, 1.0, row_mask=amask,
-                                                       count=n_anchors)
-            if w["llp_r"] != 0.0:
-                loss = loss + w["llp_r"] * self._rank_loss(s_r, t_r, amask, n_anchors)
-
-        out = call_in_dtype(pred, dt, src_h, dst_h, generator=link_drop)
-        labels = torch.cat([torch.ones(edges.shape[0], device=out.device),
-                            torch.zeros(neg.shape[1], device=out.device)])
-        fmask = torch.cat([emask, emask])
-        n_pairs = None if n_pos is None else 2 * n_pos
-        loss = loss + w["true_label"] * bce_loss(out, labels, fmask, count=n_pairs)
-        if h is not None:  # the baselines run in full-batch mode only
-            if w["kd_rm"] != 0.0:
-                cos = cosine_loss(gather_rows(h, anchors), self.t_h.index_select(0, anchors),
-                                  amask, count=n_anchors)
-                if self.world is not None and self.world.rank:
-                    cos = cos - 1.0  # the loss's constant 1 counts once across ranks
-                loss = loss + w["kd_rm"] * cos
-            if w["kd_lm"] != 0.0:
+            loss = torch.zeros((), device=self.x.device)
+            if self.use_kd:
+                s_r = call_in_dtype(pred, dt, anchor_h[:, None, :], ctx_h, generator=ctx_drop)
                 with torch.no_grad():
-                    t_out = self.teacher(self.t_h.index_select(0, src),
-                                         self.t_h.index_select(0, dst))
-                loss = loss + w["kd_lm"] * mse_loss(out, t_out, fmask, count=n_pairs)
+                    t_ctx = self._rows(self.t_h, samples[:, 1:].reshape(-1))
+                    t_r = self.teacher(self._rows(self.t_h, samples[:, 0])[:, None, :],
+                                       t_ctx.view(samples.shape[0], self.num_contexts, -1))
+                if w["llp_d"] != 0.0:
+                    loss = loss + w["llp_d"] * kl_div_loss(s_r, t_r, 1.0, row_mask=amask,
+                                                           count=n_anchors)
+                if w["llp_r"] != 0.0:
+                    loss = loss + w["llp_r"] * self._rank_loss(s_r, t_r, amask, n_anchors)
 
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        if self.world is not None:
-            loss = all_reduce_grads(self.model.parameters(), loss, self.world)
+            out = call_in_dtype(pred, dt, src_h, dst_h, generator=link_drop)
+            labels = torch.cat([torch.ones(edges.shape[0], device=out.device),
+                                torch.zeros(neg.shape[1], device=out.device)])
+            fmask = torch.cat([emask, emask])
+            n_pairs = None if n_pos is None else 2 * n_pos
+            loss = loss + w["true_label"] * bce_loss(out, labels, fmask, count=n_pairs)
+            if h is not None:  # the baselines run in full-batch mode only
+                if w["kd_rm"] != 0.0:
+                    cos = cosine_loss(gather_rows(h, anchors), self.t_h.index_select(0, anchors),
+                                      amask, count=n_anchors)
+                    if self.world is not None and self.world.rank:
+                        cos = cos - 1.0  # the loss's constant 1 counts once across ranks
+                    loss = loss + w["kd_rm"] * cos
+                if w["kd_lm"] != 0.0:
+                    with torch.no_grad():
+                        t_out = self.teacher(self.t_h.index_select(0, src),
+                                             self.t_h.index_select(0, dst))
+                    loss = loss + w["kd_lm"] * mse_loss(out, t_out, fmask, count=n_pairs)
+
+        with span("student.backward"):
+            self.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            if self.world is not None:
+                with span("student.allreduce"):
+                    loss = all_reduce_grads(self.model.parameters(), loss, self.world)
         return loss.detach()
 
     def epoch(self, generator: torch.Generator, negatives: Optional[torch.Tensor] = None,
@@ -395,23 +406,26 @@ class StudentTrainer:
         with a world too)."""
         e, bl, n, bn = self.num_pos, self.batch, self.num_nodes, self.node_batch
         dev = self.x.device
-        lperm = torch.randperm(e, generator=generator, device=dev)
-        lperm = torch.cat([lperm, torch.full((self.steps * bl - e,), e, device=dev)])
-        nperm = torch.randperm(n, generator=generator, device=dev)
-        nperm = torch.cat([nperm, torch.full((max(self.steps * bn - n, 0),), n, device=dev)])
-        nperm = nperm[:self.steps * bn].view(self.steps, bn)
-        total = torch.zeros((), device=dev)
-        count = torch.zeros((), device=dev)
-        for i, (lidx, nidx) in enumerate(zip(lperm.view(self.steps, bl), nperm)):
-            anchors = nidx.clamp(max=n - 1)
-            neg = self.negatives(generator) if negatives is None else negatives[i]
-            samples = None
-            if self.use_kd:
-                samples = (self.contexts(generator, anchors) if contexts is None
-                           else contexts.index_select(0, anchors))
-            *batch, counts = self.batch_of(lidx, nidx, neg, samples)
-            loss = self.step(*batch, generator, counts)
-            k = (lidx < e).sum()
-            total += loss * k
-            count += k
-        return total / count.clamp(min=1)
+        with span("student.epoch", steps=self.steps):
+            lperm = torch.randperm(e, generator=generator, device=dev)
+            lperm = torch.cat([lperm, torch.full((self.steps * bl - e,), e, device=dev)])
+            nperm = torch.randperm(n, generator=generator, device=dev)
+            nperm = torch.cat([nperm, torch.full((max(self.steps * bn - n, 0),), n, device=dev)])
+            nperm = nperm[:self.steps * bn].view(self.steps, bn)
+            total = torch.zeros((), device=dev)
+            count = torch.zeros((), device=dev)
+            for i, (lidx, nidx) in enumerate(zip(lperm.view(self.steps, bl), nperm)):
+                with span("student.step", pairs=2 * min(bl, e - i * bl)):
+                    with span("student.sample"):
+                        anchors = nidx.clamp(max=n - 1)
+                        neg = self.negatives(generator) if negatives is None else negatives[i]
+                        samples = None
+                        if self.use_kd:
+                            samples = (self.contexts(generator, anchors) if contexts is None
+                                       else contexts.index_select(0, anchors))
+                        *batch, counts = self.batch_of(lidx, nidx, neg, samples)
+                    loss = self.step(*batch, generator, counts)
+                    k = (lidx < e).sum()
+                    total += loss * k
+                    count += k
+            return total / count.clamp(min=1)

@@ -47,6 +47,14 @@ norm takes its moments across the ranks' rows, and the pair rows come
 through :func:`~llp_tpu_torch.parallel.epoch.table_gather`; the rest is
 the data-parallel step's.  ``gather_last`` and ``remat`` are not knobs of
 the halo epoch (nor of JAX's).
+
+Under a profiler the epoch records spans
+(:func:`llp_tpu_torch.utils.profiling.span`): ``teacher.epoch``, and for
+each step ``teacher.step`` with ``teacher.sample`` (the negatives and
+:meth:`TeacherTrainer.batch_of`), ``teacher.forward`` (encode, gather,
+head, loss), ``teacher.backward`` (``zero_grad`` and the backward, with a
+world ``teacher.allreduce`` inside it) and ``teacher.optimizer`` (the clip
+and Adam).
 """
 
 from __future__ import annotations
@@ -77,6 +85,7 @@ from llp_tpu_torch.parallel.sharded import all_reduce_grads
 from llp_tpu_torch.sample.negative import sample_negative_edges, sample_uniform_edges
 from llp_tpu_torch.train.optim import clip_by_group_norm
 from llp_tpu_torch.utils.precision import call_in_dtype, resolve_dtype
+from llp_tpu_torch.utils.profiling import span
 
 
 def init_teacher(*, encoder: str, in_channels: int, hidden_channels: int,
@@ -187,9 +196,10 @@ class TeacherTrainer:
         slice and ``count`` the whole batch's real positives; the loss
         returned is the whole batch's."""
         loss = self.gradients(edges, mask, neg, generator, count)
-        clip_by_group_norm({"encoder": self.model["encoder"],
-                            "predictor": self.model["predictor"]}, 1.0)
-        self.optimizer.step()
+        with span("teacher.optimizer"):
+            clip_by_group_norm({"encoder": self.model["encoder"],
+                                "predictor": self.model["predictor"]}, 1.0)
+            self.optimizer.step()
         return loss
 
     def batch_of(self, idx: torch.Tensor, neg: torch.Tensor) -> tuple:
@@ -211,30 +221,33 @@ class TeacherTrainer:
         (with a world, the whole batch's: summed across ranks), before the
         clip; returns the loss (0-d, detached)."""
         pred = self.model["predictor"]
-        self.model.train()
-        ends = torch.cat([edges[:, 0], neg[0], edges[:, 1], neg[1]])  # [src; dst]
-        if self.halo:
-            plan = self.graph.plan
-            h = self.encode(RankRows(generator, self.world.rank, plan.n_per))
-            rows = table_gather(h, ends, plan.lo, self.world)
-        elif self.gather_last:
-            rows = self.encode(generator, ends)
-        else:
-            rows = gather_rows(self.encode(generator), ends)
-        hi, hj = rows.chunk(2)
-        drop = generator
-        if self.shard is not None:
-            drop = BatchRows(generator, self.shard.pair_rows(), 2 * self.batch)
-        out = call_in_dtype(pred, self.dtype, hi, hj, generator=drop)
-        b = edges.shape[0]
-        labels = torch.cat([torch.ones(b, device=out.device),
-                            torch.zeros(b, device=out.device)])
-        loss = bce_loss(out, labels, torch.cat([mask, mask]),
-                        count=None if count is None else 2 * count)
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        if self.world is not None:
-            loss = all_reduce_grads(self.model.parameters(), loss, self.world)
+        with span("teacher.forward"):
+            self.model.train()
+            ends = torch.cat([edges[:, 0], neg[0], edges[:, 1], neg[1]])  # [src; dst]
+            if self.halo:
+                plan = self.graph.plan
+                h = self.encode(RankRows(generator, self.world.rank, plan.n_per))
+                rows = table_gather(h, ends, plan.lo, self.world)
+            elif self.gather_last:
+                rows = self.encode(generator, ends)
+            else:
+                rows = gather_rows(self.encode(generator), ends)
+            hi, hj = rows.chunk(2)
+            drop = generator
+            if self.shard is not None:
+                drop = BatchRows(generator, self.shard.pair_rows(), 2 * self.batch)
+            out = call_in_dtype(pred, self.dtype, hi, hj, generator=drop)
+            b = edges.shape[0]
+            labels = torch.cat([torch.ones(b, device=out.device),
+                                torch.zeros(b, device=out.device)])
+            loss = bce_loss(out, labels, torch.cat([mask, mask]),
+                            count=None if count is None else 2 * count)
+        with span("teacher.backward"):
+            self.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            if self.world is not None:
+                with span("teacher.allreduce"):
+                    loss = all_reduce_grads(self.model.parameters(), loss, self.world)
         return loss.detach()
 
     def encode(self, generator: torch.Generator,
@@ -273,21 +286,24 @@ class TeacherTrainer:
         replaces the sampler, so that a test can drive the epoch with fixed
         samples (at the whole batch's shape, with a world too)."""
         e, b, dev = self.num_pos, self.batch, self.x.device
-        perm = torch.randperm(e, generator=generator, device=dev)
-        perm = torch.cat([perm, torch.full((self.steps * b - e,), e, device=dev)])
-        total = torch.zeros((), device=dev)
-        count = torch.zeros((), device=dev)
-        losses = []
-        for i, idx in enumerate(perm.view(self.steps, b)):
-            neg = self.negatives(generator) if negatives is None else negatives[i]
-            edges, mask, neg, whole = self.batch_of(idx, neg)
-            loss = self.step(edges, mask, neg, generator, whole)
-            losses.append(loss)
-            n = (idx < e).sum()
-            total += loss * n
-            count += n
-        self.step_losses = torch.stack(losses)
-        return total / count.clamp(min=1)
+        with span("teacher.epoch", steps=self.steps):
+            perm = torch.randperm(e, generator=generator, device=dev)
+            perm = torch.cat([perm, torch.full((self.steps * b - e,), e, device=dev)])
+            total = torch.zeros((), device=dev)
+            count = torch.zeros((), device=dev)
+            losses = []
+            for i, idx in enumerate(perm.view(self.steps, b)):
+                with span("teacher.step", pairs=2 * min(b, e - i * b)):
+                    with span("teacher.sample"):
+                        neg = self.negatives(generator) if negatives is None else negatives[i]
+                        edges, mask, neg, whole = self.batch_of(idx, neg)
+                    loss = self.step(edges, mask, neg, generator, whole)
+                    losses.append(loss)
+                    n = (idx < e).sum()
+                    total += loss * n
+                    count += n
+            self.step_losses = torch.stack(losses)
+            return total / count.clamp(min=1)
 
 
 @contextlib.contextmanager

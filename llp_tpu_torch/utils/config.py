@@ -57,7 +57,7 @@ class CommonConfig:
     checkpoint_every: int = 0
     epochs_per_jit: int = 1
     resume: bool = False
-    profile_dir: str = ""  # as in JAX; nothing reads it
+    profile_dir: str = ""  # the second epoch and its eval traced to <dir>/trace.json ("" = off)
     num_devices: int = 1
     sharding: str = "dp"
     reorder: str = "none"
