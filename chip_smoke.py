@@ -62,7 +62,15 @@ failure exits non-zero.
                    gathers' backward (``gather_rows``: segsum over the ids'
                    CSR) at the collab teacher's and student's shapes, fp32
                    and bf16, against ``index_add_`` in fp32, two passes
-                   equal bit for bit. With more than one card visible
+                   equal bit for bit; the ReLU-dropout kernel
+                   (``relu_dropout``) at the collab teacher's two dropout
+                   sites, fp32 and bf16, with and without the addend, and on
+                   a ragged view that starts inside a vector, against
+                   ``relu_dropout_plain`` bit for bit (forward, both
+                   gradients, the generator's state); inputs it does not
+                   take raise; its launches through the trainers on cora: 2
+                   + 2 a teacher step, none a student step at dropout 0,
+                   none in an eval. With more than one card visible
                    (other_card), segsum and SDDMM run again on the last card
                    while card 0 stays current.
 5. serve        -- the serving CLI (``llp_tpu_torch.cli.serve.main``) at full
@@ -93,7 +101,9 @@ failure exits non-zero.
                    directions on every step (the weighted instances on the
                    weighted runs, twice a step for GCN), over both graphs
                    with the validation edges as input, the D=256 steps on
-                   128-byte feature slices, and the SDDMM kernel in eval, on
+                   128-byte feature slices, the ReLU-dropout kernel 2 + 2 a
+                   step and none in an eval (the encoder's hidden layer and
+                   the head's), and the SDDMM kernel in eval, on
                    its tensor-core route (as in every phase below). The
                    serving CLI serves both cora artifacts, on
                    the card and on the CPU. Then 3 steps with dropout 0 and
@@ -109,7 +119,10 @@ failure exits non-zero.
                    --llp_r_chunk=16`` and 5 epochs with KD_RM = KD_LM = 0.3;
                    on the weighted collab export 2 epochs each at fp32,
                    bf16 and fp32 ``--minibatch``. Every loss falls, every
-                   eval launches SDDMM 4 times and nothing launches segsum.
+                   eval launches SDDMM 4 times and nothing launches segsum;
+                   the ReLU-dropout kernel runs 3 + 3 a step (the encoder's
+                   hidden layer, the head's over the context pairs and over
+                   the link pairs) and none in an eval.
                    The default cora student serves on the card (top-K
                    through mlp_topk) and on the CPU alike; 3 single-step
                    epochs with fixed contexts and negatives agree with the
@@ -278,7 +291,10 @@ failure exits non-zero.
                    backward three ways (``gather_rows`` through segsum,
                    ``index_add_``, ``index_add_`` under deterministic
                    algorithms) at the teacher's, the student's and the
-                   10M teacher's shapes.
+                   10M teacher's shapes. ``relu_dropout:`` times the
+                   ReLU-dropout kernel at the collab teacher's two sites,
+                   fp32 and bf16, with and without the addend, beside its
+                   byte bound, the draw, and the plain composition.
 
 After each phase a ``memory:`` line gives the card's bytes in use, the
 phase's peak (``llp_tpu_torch.utils.memory``; the peak is reset before
@@ -797,6 +813,8 @@ def phase_kernel_check(gen) -> dict:
     worst.update(mlp_topk_check(gen))
     worst.update(spmm_tiles_check(gen))
     worst.update(gather_check(gen))
+    worst.update(relu_dropout_check(gen))
+    relu_dropout_launch_check()
     return worst
 
 
@@ -884,6 +902,155 @@ def gather_check(gen) -> dict:
                                  "d": d, "repeat_equal": True, "equal_to_plain": True,
                                  "max_abs": max_abs})
     return worst
+
+
+# The dropout sites of the collab teacher's step: the encoder's hidden layer
+# (every node) and the 'mlp' head's (the products of the 2 x 65,536 pairs).
+RELU_DROPOUT_SHAPES = (("encoder", 235_868, 256), ("head", 131_072, 256))
+
+
+def _bits(t):
+    """``t``'s bits as integers, so that equality also tells -0 from 0."""
+    import torch
+
+    return t.detach().view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def relu_dropout_check(gen) -> dict:
+    """``relu_dropout``'s kernel (``csrc/relu_dropout.cu``) against
+    ``relu_dropout_plain`` at :data:`RELU_DROPOUT_SHAPES`, fp32 and bf16,
+    with and without the addend, at rates 0.5, 0.1 and 0.15 (where fp32's
+    1 / keep and the reciprocal of fp32 keep differ), and on a ragged view
+    that starts inside a vector (the wrapper copies it to an aligned
+    tensor): the forward, both gradients and the generator's state
+    afterwards equal to the bit, one forward and one backward launch a
+    call.  An input the kernel does not take (fp64, an addend of another
+    type or shape) raises ValueError, and the entry points refuse an
+    unaligned pointer.  Returns the largest abs error (0)."""
+    import torch
+
+    from llp_tpu_torch.ops.build import load_library
+    from llp_tpu_torch.ops.rng import relu_dropout, relu_dropout_plain
+
+    def run(fn, pre, addend, rate, cot):
+        g = torch.Generator(device="cuda").manual_seed(1234)
+        before = relu_dropout.launches, relu_dropout.backward_launches
+        out = fn(pre, rate, g, addend=addend)
+        grads = torch.autograd.grad(out, [t for t in (pre, addend) if t is not None], cot)
+        torch.cuda.synchronize()
+        return (out, grads, g.get_state(),
+                (relu_dropout.launches - before[0], relu_dropout.backward_launches - before[1]))
+
+    def check(label, pre, addend, rate, cot):
+        got, ref = (run(fn, pre, addend, rate, cot) for fn in (relu_dropout, relu_dropout_plain))
+        if got[3] != (1, 1) or ref[3] != (0, 0):
+            raise AssertionError(f"relu_dropout {label}: launches {got[3]} (kernel), "
+                                 f"{ref[3]} (plain)")
+        for what, a, b in (("forward", got[0], ref[0]),
+                           *((f"grad {i}", x, y) for i, (x, y) in enumerate(zip(got[1], ref[1])))):
+            if not torch.equal(_bits(a), _bits(b)):
+                raise AssertionError(f"relu_dropout {label} {what}: not the plain version's "
+                                     f"bits ({int((_bits(a) != _bits(b)).sum())} differ)")
+        if not torch.equal(got[2], ref[2]):
+            raise AssertionError(f"relu_dropout {label}: the generator moved otherwise")
+        kept = float((got[0] != 0).float().mean())
+        log("kernel_check", {"kernel": "relu_dropout", "case": label, "equal_to_plain": True,
+                             "nonzero_share": kept})
+
+    for label, n, d in RELU_DROPOUT_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).removeprefix("torch.")
+            x, a, cot = (torch.randn(n, d, generator=gen, device="cuda").to(dtype)
+                         for _ in range(3))
+            pre, addend = x.requires_grad_(True), a.requires_grad_(True)
+            for with_addend in (False, True):
+                for rate in (0.5, 0.1, 0.15):
+                    check(f"{label} {name} addend={with_addend} rate={rate}", pre,
+                          addend if with_addend else None, rate, cot)
+            del x, a, cot, pre, addend
+    base = torch.randn(999 * 37 + 1, generator=gen, device="cuda")
+    view = base[1:].view(999, 37).requires_grad_(True)
+    check("ragged unaligned fp32 rate=0.5", view, None, 0.5,
+          torch.randn(999, 37, generator=gen, device="cuda"))
+
+    pre = torch.randn(64, 8, generator=gen, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for label, args in (("fp64", (pre.double(), None)),
+                        ("bf16 addend to fp32", (pre, pre.bfloat16())),
+                        ("addend of another shape", (pre, pre[:32]))):
+        try:
+            relu_dropout(args[0], 0.5, g, addend=args[1])
+        except ValueError:
+            continue
+        raise AssertionError(f"relu_dropout {label}: no ValueError")
+    fwd = load_library("relu_dropout")
+    bwd = load_library("relu_dropout", "llp_relu_dropout_backward")
+    out, mask = torch.empty_like(pre), torch.empty(pre.shape, dtype=torch.uint8, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    rc = (fwd(pre.data_ptr() + 4, None, pre.data_ptr(), out.data_ptr(), mask.data_ptr(),
+              pre.numel() - 1, 0.5, 2.0, 0, stream),
+          bwd(pre.data_ptr(), mask.data_ptr() + 1, out.data_ptr(), pre.numel() - 1, 2.0, 0,
+              stream))
+    if rc != (1, 1):
+        raise AssertionError(f"relu_dropout: unaligned pointers gave {rc}, expected "
+                             f"cudaErrorInvalidValue (1) from both entry points")
+    log("kernel_check", {"kernel": "relu_dropout", "refused": ["fp64", "bf16 addend",
+                                                               "addend shape", "unaligned"]})
+    return {"relu_dropout": 0.0}
+
+
+def relu_dropout_launch_check() -> dict:
+    """The ReLU-dropout kernel's launches through the trainers on cora: 2
+    forward and 2 backward a step of the SAGE teacher with an 'mlp' head at
+    dropout 0.5 (the encoder's hidden layer and the head's), none in its
+    eval; none a step of the MLP student at dropout 0 (the benchmark's
+    student), nor in its eval."""
+    import torch
+
+    from llp_tpu_torch.ops.rng import relu_dropout
+    from llp_tpu_torch.serve.engine import encode_graph_nodes
+    from llp_tpu_torch.train.loop import evaluate_student, evaluate_teacher, prepare_transductive
+    from llp_tpu_torch.train.student import StudentTrainer, init_student
+    from llp_tpu_torch.train.teacher import TeacherTrainer, init_teacher
+    from llp_tpu_torch.utils.config import TeacherConfig
+
+    dev = torch.device("cuda")
+    data = prepare_transductive(TeacherConfig(datasets="cora", dataset_dir=STANDINS), dev)
+    din = data["x"].shape[1]
+
+    def launches(fn):
+        before = relu_dropout.launches, relu_dropout.backward_launches
+        fn()
+        torch.cuda.synchronize()
+        return relu_dropout.launches - before[0], relu_dropout.backward_launches - before[1]
+
+    teacher = init_teacher(encoder="sage", in_channels=din, hidden_channels=256, num_layers=2,
+                           predictor_mode="mlp", dropout=0.5,
+                           generator=torch.Generator().manual_seed(0)).to(dev)
+    trainer = TeacherTrainer(teacher, data["graph"], data["x"], data["pos_edges"],
+                             batch_size=1024, neg_mode="uniform")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    counts = {"teacher_steps": trainer.steps,
+              "teacher_epoch": launches(lambda: trainer.epoch(gen)),
+              "teacher_eval": launches(lambda: evaluate_teacher(teacher, data, hits_ks=(50,),
+                                                                x_aggs={}))}
+    t_h = encode_graph_nodes(teacher["encoder"].eval(), data["graph"], data["x"])
+    student = init_student(in_channels=din, hidden_channels=256, num_layers=2,
+                           predictor_mode="mlp", dropout=0.0,
+                           generator=torch.Generator().manual_seed(1)).to(dev)
+    st = StudentTrainer(student, data["graph"], data["x"], t_h, teacher["predictor"],
+                        data["pos_edges"], link_batch_size=1024, node_batch_size=256,
+                        neg_mode="uniform", minibatch=True)
+    counts.update(student_steps=st.steps, student_epoch=launches(lambda: st.epoch(gen)),
+                  student_eval=launches(lambda: evaluate_student(student, data,
+                                                                 hits_ks=(50,))))
+    expected = {"teacher_epoch": (2 * trainer.steps, 2 * trainer.steps),
+                "teacher_eval": (0, 0), "student_epoch": (0, 0), "student_eval": (0, 0)}
+    wrong = {k: (counts[k], v) for k, v in expected.items() if counts[k] != v}
+    if wrong:
+        raise AssertionError(f"relu_dropout launches (read, expected): {wrong}")
+    log("kernel_check", {"kernel": "relu_dropout_launches", **counts})
+    return counts
 
 
 def _check_route_refusals(head, gen) -> None:
@@ -1504,6 +1671,7 @@ def _train(argv, student: bool = False) -> tuple[dict, dict, list]:
 def _counts() -> dict:
     """A snapshot of every launch counter."""
     from llp_tpu_torch.ops.gather import gather_rows
+    from llp_tpu_torch.ops.rng import relu_dropout
     from llp_tpu_torch.ops.sddmm import sddmm_mlp_score
     from llp_tpu_torch.ops.segsum import segsum
     from llp_tpu_torch.ops.spmm import spmm
@@ -1516,7 +1684,8 @@ def _counts() -> dict:
             "backward": spmm.backward_launches,
             "weighted_backward": spmm.weighted_backward_launches,
             "sddmm": sddmm_mlp_score.launches,
-            "sddmm_routes": dict(sddmm_mlp_score.launch_counts)}
+            "sddmm_routes": dict(sddmm_mlp_score.launch_counts),
+            "relu_dropout": (relu_dropout.launches, relu_dropout.backward_launches)}
 
 
 def _reset_gather_counts() -> None:
@@ -1560,6 +1729,8 @@ def _delta(after: dict, before: dict) -> dict:
             "weighted": weighted,
             "weighted_backward": after["weighted_backward"] - before["weighted_backward"],
             "sddmm": after["sddmm"] - before["sddmm"],
+            "relu_dropout": [a - b for a, b in zip(after["relu_dropout"],
+                                                   before["relu_dropout"])],
             "by_shape": by_shape,
             "routes": {k: v for k, v in routes.items() if v},
             "sddmm_routes": {k: v for k, v in sddmm_routes.items() if v}}
@@ -1842,6 +2013,24 @@ def _check_student_gathers(label: str, counts: dict, report: dict) -> None:
                              f"those, at least one a step)")
 
 
+# The train-mode dropout sites a step of the train and student phases' CLI
+# runs (2 layers, an 'mlp' head of 2 layers, dropout 0.5): the teacher's
+# encoder hidden layer and head; the student's encoder hidden layer and
+# its head over the context pairs and over the link pairs.
+TEACHER_DROPOUT_SITES = 2
+STUDENT_DROPOUT_SITES = 3
+
+
+def _check_relu_dropout_launches(label: str, counts: dict, steps: int, sites: int) -> None:
+    """The ReLU-dropout kernel ran forward and backward at each of a step's
+    ``sites`` dropout sites, and never in an eval."""
+    expected = [sites * steps, sites * steps]
+    if list(counts["relu_dropout"]) != expected:
+        raise AssertionError(f"{label}: {counts['relu_dropout']} ReLU-dropout launches "
+                             f"(forward, backward) in {steps} steps and their evals, "
+                             f"expected {expected}")
+
+
 def _check_valedges_launches(label: str, variant: str, counts: dict, steps: int,
                              evals: int, in_dim: int) -> None:
     """With the validation edges as input, segsum runs over both graphs: the
@@ -1893,6 +2082,7 @@ def phase_train() -> dict:
     against the CPU; returns each run's launches and the profiles."""
     import numpy as np
 
+    from llp_tpu_torch.ops.rng import relu_dropout
     from llp_tpu_torch.ops.segsum import segsum
     from llp_tpu_torch.ops.sddmm import sddmm_mlp_score
     from llp_tpu_torch.ops.spmm import spmm
@@ -1903,6 +2093,7 @@ def phase_train() -> dict:
     _reset_gather_counts()
     segsum.launches = spmm.backward_launches = sddmm_mlp_score.launches = 0
     spmm.weighted_backward_launches = 0
+    relu_dropout.launches = relu_dropout.backward_launches = 0
     segsum.launch_counts.clear()
     segsum.route_counts.clear()
     segsum.heavy_first_launches = 0
@@ -1920,6 +2111,7 @@ def phase_train() -> dict:
         if line["losses"][-1] >= line["losses"][0]:
             raise AssertionError(f"{label}: the loss did not fall: {line['losses']}")
         _check_train_launches(label, variant, dtype, counts, steps)
+        _check_relu_dropout_launches(label, counts, steps, TEACHER_DROPOUT_SITES)
         if "valedges" in variant:
             _check_valedges_launches(label, variant, counts, steps, len(report["eval_s"]),
                                      1433 if name == "cora" else 128)
@@ -2052,6 +2244,7 @@ def phase_student() -> dict:
     import torch
 
     from llp_tpu_torch.ops.mlp_topk import mlp_block_logits
+    from llp_tpu_torch.ops.rng import relu_dropout
     from llp_tpu_torch.ops.sddmm import sddmm_mlp_score
     from llp_tpu_torch.ops.segsum import segsum
     from llp_tpu_torch.ops.spmm import spmm
@@ -2065,6 +2258,7 @@ def phase_student() -> dict:
     _reset_gather_counts()
     segsum.launches = spmm.backward_launches = sddmm_mlp_score.launches = 0
     spmm.weighted_backward_launches = mlp_block_logits.launches = 0
+    relu_dropout.launches = relu_dropout.backward_launches = 0
     segsum.launch_counts.clear()
     segsum.route_counts.clear()
     segsum.heavy_first_launches = 0
@@ -2087,6 +2281,9 @@ def phase_student() -> dict:
                                  f"(expected 4 each)")
         _check_student_gathers(label, counts, report)
         _check_sddmm_route(label, counts)
+        _check_relu_dropout_launches(label, counts,
+                                     report["steps_per_epoch"] * len(report["epoch_s"]),
+                                     STUDENT_DROPOUT_SITES)
         runs[(name, dtype, flags)] = {"line": line, "counts": counts}
         if i == 0:
             # the default cora student serves on the card (the top-K through
@@ -2099,7 +2296,8 @@ def phase_student() -> dict:
     launches = {"sddmm": sddmm_mlp_score.launches,
                 "heavy_first": segsum.heavy_first_launches,
                 "sddmm_routes": _sddmm_routes(),
-                "mlp_topk": dict(mlp_block_logits.launch_counts)}
+                "mlp_topk": dict(mlp_block_logits.launch_counts),
+                "relu_dropout": (relu_dropout.launches, relu_dropout.backward_launches)}
     log("student_launches", {"sddmm": launches["sddmm"],
                              "mlp_topk": {f"{dt} {kind}": n for (dt, kind), n
                                           in launches["mlp_topk"].items()}})
@@ -3429,6 +3627,89 @@ def _mlp_topk_entries(gen, launches: dict, worst: dict) -> list:
     ]
 
 
+def _relu_dropout_entries(gen, train: dict, student: dict, worst: dict) -> list:
+    """The ReLU-dropout kernel at :data:`RELU_DROPOUT_SHAPES`, rate 0.5: the
+    encoder's site with the addend (the SAGE conv's two terms), the head's
+    without, in fp32 (the kernels line's entries) and bf16 (``relu_dropout:``
+    lines). ``ms`` is the kernel's forward and backward, ``bound_ms`` their
+    bytes at the HBM rate; ``plain_ms`` is the plain composition's forward
+    and backward with its draw, against ``site_ms``, the kernel's with the
+    same draw."""
+    import torch
+
+    from llp_tpu_torch.ops.build import load_library
+    from llp_tpu_torch.ops.rng import relu_dropout_plain
+
+    fwd = load_library("relu_dropout")
+    bwd = load_library("relu_dropout", "llp_relu_dropout_backward")
+    stream = torch.cuda.current_stream().cuda_stream
+    paths = {"train": list(train["launches"]["relu_dropout"]),
+             "student": list(student["launches"]["relu_dropout"])}
+    keep = 0.5
+    entries = []
+    for (label, n, d), with_addend in zip(RELU_DROPOUT_SHAPES, (True, False)):
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).removeprefix("torch.")
+            pre, add, cot = (torch.randn(n, d, generator=gen, device="cuda").to(dtype)
+                             for _ in range(3))
+            pre.requires_grad_(True)
+            if with_addend:
+                add.requires_grad_(True)
+            else:
+                add = None
+            sgen = torch.Generator(device="cuda").manual_seed(1)
+            draw = torch.rand(pre.shape, generator=sgen, device="cuda")
+            out, dx = torch.empty_like(pre), torch.empty_like(pre)
+            mask = torch.empty(pre.shape, dtype=torch.uint8, device="cuda")
+            code = 0 if dtype == torch.float32 else 1
+            forward_ms = time_ms(lambda: fwd(pre.data_ptr(), add.data_ptr() if with_addend
+                                             else None, draw.data_ptr(), out.data_ptr(),
+                                             mask.data_ptr(), pre.numel(), keep, 1 / keep, code,
+                                             stream))
+            backward_ms = time_ms(lambda: bwd(cot.data_ptr(), mask.data_ptr(), dx.data_ptr(),
+                                              pre.numel(), 1 / keep, code, stream))
+            draw_ms = time_ms(lambda: torch.rand(pre.shape, generator=sgen, device="cuda"))
+            inputs = [t for t in (pre, add) if t is not None]
+            plain_out = relu_dropout_plain(pre, 1 - keep, sgen, addend=add)
+            plain_fwd = time_ms(lambda: relu_dropout_plain(pre, 1 - keep, sgen, addend=add))
+            plain_bwd = time_ms(lambda: torch.autograd.grad(plain_out, inputs, cot,
+                                                            retain_graph=True))
+            es = pre.element_size()
+            fwd_bytes = pre.numel() * (es * (3 if with_addend else 2) + 4 + 1)
+            bwd_bytes = pre.numel() * (2 * es + 1)
+            t = {"site": label, "rows": n, "d": d, "dtype": name, "addend": with_addend,
+                 "forward_ms": forward_ms,
+                 "forward_bound_ms": fwd_bytes / HBM_BYTES_PER_S * 1e3,
+                 "backward_ms": backward_ms,
+                 "backward_bound_ms": bwd_bytes / HBM_BYTES_PER_S * 1e3,
+                 "draw_ms": draw_ms, "site_ms": draw_ms + forward_ms + backward_ms,
+                 "plain_forward_ms": plain_fwd, "plain_backward_ms": plain_bwd,
+                 "plain_site_ms": plain_fwd + plain_bwd}
+            log("relu_dropout", t)
+            del pre, add, cot, draw, out, dx, mask, plain_out, inputs
+            if dtype != torch.float32:
+                continue
+            entries.append({
+                "name": f"relu_dropout.{label}", "route": "cuda",
+                "source": "llp_tpu_torch/csrc/relu_dropout.cu",
+                "replaces": None,
+                "replaces_note": "the JAX package leaves ReLU and dropout to XLA",
+                "launches": sum(v[0] for v in paths.values()),
+                "launches_by_path": paths,
+                "launches_note": ("forward, backward on the train (2 sites a step) and "
+                                  "student (3 a step) paths, both sites summed"),
+                "max_abs_err": worst["relu_dropout"],
+                "ms": forward_ms + backward_ms, "forward_ms": forward_ms,
+                "backward_ms": backward_ms,
+                "bound_ms": (fwd_bytes + bwd_bytes) / HBM_BYTES_PER_S * 1e3,
+                "bound_by": "bytes", "plain_ms": t["plain_site_ms"], "site_ms": t["site_ms"],
+                "draw_ms": draw_ms, "library_ms": None,
+                "library_note": "no single PyTorch call",
+                "shapes": (f"collab teacher {label} site: {n} x {d}, fp32, rate 0.5"
+                           f"{', with the addend' if with_addend else ''}")})
+    return entries
+
+
 def phase_kernels(gen, launches: dict, train: dict, student: dict, production: dict,
                   tooling: dict, scale10m: dict, reorder: dict, worst: dict) -> list:
     """Times at the collab serving and training shapes; returns the kernels
@@ -3606,7 +3887,8 @@ def phase_kernels(gen, launches: dict, train: dict, student: dict, production: d
     log("timing", {"kernel": "segsum.fwd.bf16->f32", "n": tn, "e": te, "d": 256, **t})
     _segsum_design_timing(gen, tg)
     return (entries + _gather_entries(gen, train, student, scale10m, worst)
-            + _weighted_entries(gen, train, worst) + reorder["entries"] + scale10m["entries"])
+            + _weighted_entries(gen, train, worst) + reorder["entries"] + scale10m["entries"]
+            + _relu_dropout_entries(gen, train, student, worst))
 
 
 def _gather_entries(gen, train: dict, student: dict, scale10m: dict, worst: dict) -> list:

@@ -32,7 +32,7 @@ from torch import nn
 from llp_tpu_torch.core.graph import Graph
 from llp_tpu_torch.models.init import glorot
 from llp_tpu_torch.ops.gather import gather_rows
-from llp_tpu_torch.ops.rng import inverted_dropout
+from llp_tpu_torch.ops.rng import relu_dropout
 from llp_tpu_torch.ops.spmm import spmm
 
 
@@ -84,7 +84,5 @@ class GCN(nn.Module):
                 return conv.rows(graph, x, last_rows, x_agg if i == 0 else None)
             x = conv(graph, x, x_agg if i == 0 else None)
             if i != last:
-                x = torch.relu(x)
-                if self.training:
-                    x = inverted_dropout(x, self.dropout, generator)
+                x = relu_dropout(x, self.dropout if self.training else 0.0, generator)
         return x

@@ -15,7 +15,7 @@ from torch import nn
 from llp_tpu_torch.models.init import linear
 from llp_tpu_torch.models.norms import make_norms
 from llp_tpu_torch.ops.gather import gather_rows
-from llp_tpu_torch.ops.rng import inverted_dropout
+from llp_tpu_torch.ops.rng import relu_dropout
 
 
 class MLP(nn.Module):
@@ -42,7 +42,5 @@ class MLP(nn.Module):
             if i != last:
                 if len(self.norms):
                     x = self.norms[i](x)
-                x = torch.relu(x)
-                if self.training:
-                    x = inverted_dropout(x, self.dropout, generator)
+                x = relu_dropout(x, self.dropout if self.training else 0.0, generator)
         return x

@@ -7,7 +7,9 @@
   0, so ``lin_l``'s bias drops there.
 
 The stack: convs with norm (optional), ReLU and, in train mode, dropout
-between them, nothing after the last.  ``x_agg`` is layer 1's aggregation of
+between them (:func:`llp_tpu_torch.ops.rng.relu_dropout`, which takes a
+conv's two terms unsummed where no norm comes between), nothing after the
+last.  ``x_agg`` is layer 1's aggregation of
 the input, computed once outside the step (the weights do not enter it:
 :func:`llp_tpu_torch.models.encoder.precompute_first_aggregation`).  For
 ``sage_updated`` it enters by linearity: ``mean_j(W x_j + b) = W mean_j(x_j)
@@ -34,7 +36,7 @@ from llp_tpu_torch.core.graph import Graph
 from llp_tpu_torch.models.init import linear
 from llp_tpu_torch.models.norms import make_norms
 from llp_tpu_torch.ops.gather import gather_rows
-from llp_tpu_torch.ops.rng import inverted_dropout
+from llp_tpu_torch.ops.rng import relu_dropout
 from llp_tpu_torch.ops.spmm import mean_aggregate
 
 CONVS = ("sage", "sage_updated")
@@ -52,13 +54,21 @@ class SAGEConv(nn.Module):
 
     def forward(self, graph: Graph, x: torch.Tensor,
                 x_agg: Optional[torch.Tensor] = None) -> torch.Tensor:
+        nbr, own = self.terms(graph, x, x_agg)
+        return nbr + own
+
+    def terms(self, graph: Graph, x: torch.Tensor,
+              x_agg: Optional[torch.Tensor] = None) -> tuple:
+        """The conv's two terms, unsummed: the neighbours' (``lin_l(agg)``,
+        or for ``sage_updated`` the mean of ``lin_l(x_j)``) and the node's
+        own ``lin_r(x)``; the conv is their sum."""
         if self.conv == "sage":
             agg = mean_aggregate(graph, x) if x_agg is None else x_agg
-            return self.lin_l(agg) + self.lin_r(x)
+            return self.lin_l(agg), self.lin_r(x)
         if x_agg is None:
-            return mean_aggregate(graph, self.lin_l(x)) + self.lin_r(x)
-        out = F.linear(x_agg, self.lin_l.weight) + self.lin_l.bias * _has_nbr(graph, x.dtype)
-        return out + self.lin_r(x)
+            return mean_aggregate(graph, self.lin_l(x)), self.lin_r(x)
+        nbr = F.linear(x_agg, self.lin_l.weight) + self.lin_l.bias * _has_nbr(graph, x.dtype)
+        return nbr, self.lin_r(x)
 
     def rows(self, graph: Graph, h: torch.Tensor, idx: torch.Tensor,
              x_agg: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -103,13 +113,16 @@ class SAGE(nn.Module):
         norm updates its running buffers."""
         last = len(self.convs) - 1
         for i, conv in enumerate(self.convs):
+            agg = x_agg if i == 0 else None
             if i == last and last_rows is not None:
-                return conv.rows(graph, x, last_rows, x_agg if i == 0 else None)
-            x = conv(graph, x, x_agg if i == 0 else None)
-            if i != last:
-                if len(self.norms):
-                    x = self.norms[i](x)
-                x = torch.relu(x)
-                if self.training:
-                    x = inverted_dropout(x, self.dropout, generator)
+                return conv.rows(graph, x, last_rows, agg)
+            if i == last:
+                return conv(graph, x, agg)
+            # the two terms go into the ReLU-dropout kernel unsummed, unless
+            # a norm comes between
+            nbr, own = conv.terms(graph, x, agg)
+            if len(self.norms):
+                nbr, own = self.norms[i](nbr + own), None
+            x = relu_dropout(nbr, self.dropout if self.training else 0.0, generator,
+                             addend=own)
         return x

@@ -29,10 +29,10 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-_P, _I64, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_P, _I64, _INT, _F32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
 # argtypes of each library's entry point: pointers and the stream as
 # c_void_p (a bare Python int would be cut to 32 bits), sizes as int64,
-# type codes as int.
+# type codes as int, fp32 scalars as float.
 SIGNATURES = {
     "segsum": ("llp_segsum",
                [_P, _P, _P, _P, _P, _P, _I64, _I64, _INT, _INT, _INT, _P, _I64, _I64, _P]),
@@ -41,12 +41,15 @@ SIGNATURES = {
     "mlp_topk": ("llp_mlp_topk",
                  [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P, _INT, _INT, _P]),
     "spmm_tiles": ("llp_spmm_tiles", [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _INT, _P]),
+    "relu_dropout": ("llp_relu_dropout",
+                     [_P, _P, _P, _P, _P, _I64, _F32, _F32, _INT, _P]),
 }
 # argtypes of further entry points (``load_library(name, entry)``).
 ENTRY_POINTS = {
     "llp_sddmm_split_w1": [_P, _P, _I64, _I64, _P],
     "llp_mlp_topk_mma": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P, _INT, _I64, _I64, _P],
     "llp_trace_marker": [_P, _P],
+    "llp_relu_dropout_backward": [_P, _P, _P, _I64, _F32, _INT, _P],
 }
 
 

@@ -12,7 +12,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from llp_tpu_torch.ops.rng import inverted_dropout
+from llp_tpu_torch.ops.rng import relu_dropout
 from llp_tpu_torch.ops.sddmm import fused_supported, head_weights, sddmm_mlp_score
 
 
@@ -30,7 +30,7 @@ def hadamard_mlp_score(lins: Sequence[nn.Linear], hi: torch.Tensor,
     last layer and the sigmoid run fp32, as in the JAX package."""
     z = hi * hj
     for lin in lins[:-1]:
-        z = inverted_dropout(torch.relu(lin(z)), dropout, generator)
+        z = relu_dropout(lin(z), dropout, generator)
     last = lins[-1]
     logit = F.linear(z.float(), last.weight.float(),
                      None if last.bias is None else last.bias.float())
