@@ -57,5 +57,16 @@ def altered_metric(run) -> None:
     run.evaluate = altered
 
 
+def other_positives(run) -> None:
+    """The program trains on other positives than the epoch's: as many
+    training pairs, taken from the row after the epoch's last (or half-way
+    round, where the epoch takes them all), wrapping round."""
+    pos = run.trainer.pos_edges
+    train = torch.from_numpy(run.graph_data.train).to(pos.device)
+    count, total = pos.shape[0], train.shape[0]
+    start = count if count < total else total // 2
+    run.trainer.pos_edges = train[(torch.arange(count, device=pos.device) + start) % total]
+
+
 TRAIN = {"frozen_step": frozen_step, "half_batch": half_batch, "stale_eval": stale_eval,
-         "altered_metric": altered_metric}
+         "altered_metric": altered_metric, "other_positives": other_positives}

@@ -21,9 +21,14 @@ from typing import Callable, Dict, Optional
 import torch
 
 from llpbench import roofline, spec, train
-from llpbench.trace import Tracer
+from llpbench.trace import SLICE_START, Tracer
 
 BANNED = ("jax", "jaxlib", "flax", "llp_tpu")
+
+
+class NoResult(RuntimeError):
+    """A run that has no result to print: ``main`` exits non-zero and says
+    why on standard error."""
 
 
 def process_age() -> float:
@@ -71,6 +76,13 @@ def run_cell(bench: dict, cell: spec.Cell, seed: int, seconds: float, trace: boo
                        segsum_bytes_step=run.segsum_bytes_step,
                        segsum_bytes_eval=run.segsum_bytes_eval)
     out = train.window(run, seconds, tracer)
+    if trace and not (tracer.slice and tracer.slice.work.get("steps")):
+        raise NoResult(
+            f"the traced slice holds no step: an epoch with its evaluation took "
+            f"{out['window_s'] / out['epochs']:.3f} s ({out['epochs']} in the "
+            f"{out['window_s']:.3f} s window), and no epoch ended between "
+            f"{SLICE_START * seconds:g} s and the window's end; cut the epoch with a smaller "
+            f"epoch_pairs")
     dev = device_block(device, cell.chips)
     lines = {"window": {k: out[k] for k in ("epochs", "window_s", "train_pairs_per_s")}}
     run.trainer = run.evaluate = None  # the program's state goes before the reference
@@ -128,8 +140,12 @@ def main(argv=None) -> int:
     from llp_tpu_torch.ops.build import build_all
 
     build_all()
-    result = run_cell(bench, cell, args.seed, args.seconds, bool(args.trace),
-                      torch.device("cuda"), root=root, t_start=t_start)
+    try:
+        result = run_cell(bench, cell, args.seed, args.seconds, bool(args.trace),
+                          torch.device("cuda"), root=root, t_start=t_start)
+    except NoResult as e:
+        print(f"no result: {e}", file=sys.stderr)
+        return 4
     found = banned_modules()
     if found:
         print(f"no result: modules of JAX or the JAX package were loaded: {found}",

@@ -36,34 +36,64 @@ def mlp_head_flops(pairs: int, hidden: int, layers: int) -> float:
     return pairs * (hidden + (layers - 1) * 2.0 * hidden * hidden + 2.0 * hidden)
 
 
-def sage_teacher_step(n: int, e: int, din: int, hidden: int, pairs: int) -> float:
-    """Operations of one 2-layer SAGE teacher step with layer 1's
-    aggregation hoisted: forward, and backward without recompute (no
-    gradient into the features), plus the head on ``pairs`` pairs."""
+def sage_teacher_step(n: int, e: int, din: int, hidden: int, pairs: int, *, layers: int = 2,
+                      head_layers: int = 2) -> float:
+    """Operations of one SAGE teacher step of ``layers`` layers, layer 1's
+    aggregation hoisted, and the 'mlp' head of ``head_layers`` layers on
+    ``pairs`` pairs: forward, and backward without recompute.  Layer 1 is
+    its two products; each later layer is two products and a mean over the
+    ``e`` message edges.  In the backward layer 1 has only its weights'
+    products (no gradient into the features); each later layer has both
+    products' weight and input gradients and the mean's transpose."""
     l1 = 2 * gemm(n, din, hidden)                 # lin_l(x_agg) + lin_r(x)
-    l2 = 2 * gemm(n, hidden, hidden)
-    spmm = e * hidden                             # the layer-2 mean's adds
-    head = mlp_head_flops(pairs, hidden, 2)
-    return (l1 + l2 + spmm + head) + (l1 + 2 * l2 + spmm + 2 * head)
+    l2 = 2 * gemm(n, hidden, hidden)              # each later layer's products
+    spmm = e * hidden                             # each later layer's mean's adds
+    k = layers - 1
+    head = mlp_head_flops(pairs, hidden, head_layers)
+    return (l1 + k * l2 + k * spmm + head) + (l1 + 2 * k * l2 + k * spmm + 2 * head)
 
 
-def sage_teacher_eval(n: int, e: int, din: int, hidden: int, pairs: int) -> float:
-    return 2 * gemm(n, din, hidden) + 2 * gemm(n, hidden, hidden) + e * hidden + \
-        mlp_head_flops(pairs, hidden, 2)
+def sage_teacher_eval(n: int, e: int, din: int, hidden: int, pairs: int, *, layers: int = 2,
+                      head_layers: int = 2) -> float:
+    """Operations of an evaluation: the step's forward over every node, the
+    head on ``pairs`` pairs."""
+    k = layers - 1
+    return 2 * gemm(n, din, hidden) + k * (2 * gemm(n, hidden, hidden)) + k * (e * hidden) + \
+        mlp_head_flops(pairs, hidden, head_layers)
 
 
-def mlp_student_step(rows: int, din: int, hidden: int, ctx_pairs: int, link_pairs: int) -> float:
-    """Operations of one 2-layer MLP student step (minibatch): the MLP over
-    ``rows`` gathered rows (no gradient into the features), the student
-    head on the context and link pairs forward and backward, the frozen
-    teacher head on the context pairs forward."""
+def sage_teacher_segsum(n: int, e: int, hidden: int, batch: int, *,
+                        layers: int = 2) -> tuple:
+    """``(step, eval)`` bytes of a SAGE teacher's B1 sums (``segsum_bytes``)
+    with layer 1's aggregation hoisted: a step has each later layer's mean
+    forward (scaled) and backward, and the gathers' backward of its ``4 *
+    batch`` pair rows; an evaluation each later layer's mean forward."""
+    k = layers - 1
+    fwd = segsum_bytes(n, n, hidden, e, True)
+    step = (k * fwd + k * segsum_bytes(n, n, hidden, e, False)
+            + segsum_bytes(4 * batch, n, hidden, 4 * batch, False))
+    return step, k * fwd
+
+
+def mlp_student_step(rows: int, din: int, hidden: int, ctx_pairs: int, link_pairs: int, *,
+                     layers: int = 2, head_layers: int = 2,
+                     teacher_head_layers: int = 2) -> float:
+    """Operations of one MLP student step of ``layers`` layers (minibatch):
+    the MLP over ``rows`` gathered rows (no gradient into the features),
+    the student head of ``head_layers`` layers on the context and link
+    pairs forward and backward, the frozen teacher head of
+    ``teacher_head_layers`` layers on the context pairs forward."""
     l1, l2 = gemm(rows, din, hidden), gemm(rows, hidden, hidden)
-    head = mlp_head_flops(ctx_pairs + link_pairs, hidden, 2)
-    return (l1 + l2 + head) + (l1 + 2 * l2 + 2 * head) + mlp_head_flops(ctx_pairs, hidden, 2)
+    k = layers - 1
+    head = mlp_head_flops(ctx_pairs + link_pairs, hidden, head_layers)
+    return ((l1 + k * l2 + head) + (l1 + 2 * k * l2 + 2 * head)
+            + mlp_head_flops(ctx_pairs, hidden, teacher_head_layers))
 
 
-def mlp_student_eval(n: int, din: int, hidden: int, pairs: int) -> float:
-    return gemm(n, din, hidden) + gemm(n, hidden, hidden) + mlp_head_flops(pairs, hidden, 2)
+def mlp_student_eval(n: int, din: int, hidden: int, pairs: int, *, layers: int = 2,
+                     head_layers: int = 2) -> float:
+    return gemm(n, din, hidden) + (layers - 1) * gemm(n, hidden, hidden) + \
+        mlp_head_flops(pairs, hidden, head_layers)
 
 
 def segsum_bytes(rows_in: int, rows_out: int, width: int, nnz: int, scaled: bool) -> float:

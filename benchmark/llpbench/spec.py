@@ -49,6 +49,10 @@ def load_cell(bench: dict, name: str, root: Path, bench_dir: Path = BENCH_DIR) -
     w = cells[name]
     configs = {c["name"]: c for c in bench["configs"]}
     config = load_json(root / configs[w["config"]]["file"])
+    # epoch_pairs cuts a configuration from its source, so its entry says so
+    if "epoch_pairs" in config and "epoch_pairs" not in configs[w["config"]]["reduced"]:
+        raise SystemExit(f"configuration {w['config']!r} states epoch_pairs; its "
+                         f"BENCHMARK.json entry has to list 'epoch_pairs' under 'reduced'")
     traffic = load_json(bench_dir / "traffic" / f"{w['traffic']}.json")
     e2e = [m for m in bench["end_to_end"] if _applies(m, name)]
     reported = {m["name"] for m in e2e}

@@ -4,7 +4,9 @@ its evaluation every ``eval_steps`` epochs, as ``run_teacher`` /
 
 Set-up applies what the configuration states about precision (``tf32``),
 builds the inputs from the seed, the program's graph, model and
-trainer (one object), and runs the first epoch (and its evaluation, where
+trainer (one object; its epoch runs over the training positives, or over
+the first ``epoch_pairs`` of them, while its message graph holds them
+all), and runs the first epoch (and its evaluation, where
 ``eval_steps`` owes one) through the window's own calls: that warms every
 shape, and its first steps are the
 ones the plain reference replays (Adam's state after step 1 and the
@@ -52,11 +54,14 @@ from reference import student as ref_student
 from reference import teacher as ref_teacher
 
 # The keys a training configuration may hold; any other is refused, so that
-# a configuration never states something the harness does not apply.
+# a configuration never states something the harness does not apply.  Only
+# the teacher takes ``epoch_pairs``: the student's coupled node batch reads
+# the training count.
 COMMON_KEYS = {"name", "source", "model", "graph", "num_layers", "hidden_channels",
                "predictor", "dropout", "lr", "compute_dtype", "tf32", "eval_steps",
                "hits_ks", "neg_mode", "compare_steps", "limits", "assumed"}
-KEYS = {"sage-teacher": COMMON_KEYS | {"encoder", "predictor_layers", "batch_size"},
+KEYS = {"sage-teacher": COMMON_KEYS | {"encoder", "predictor_layers", "batch_size",
+                                       "epoch_pairs"},
         "mlp-student": COMMON_KEYS | {"teacher", "link_batch_size", "true_label", "llp_d",
                                       "llp_r", "margin", "rw_step", "hops", "ns_rate",
                                       "ps_method", "minibatch"}}
@@ -151,6 +156,18 @@ def check_keys(cfg: dict) -> None:
                          f"apply: {extra}")
     if int(cfg["eval_steps"]) < 1:
         raise ValueError("eval_steps is at least 1")
+    if "epoch_pairs" in cfg and not 1 <= int(cfg["epoch_pairs"]) <= int(
+            cfg["graph"]["train_pairs"]):
+        raise ValueError(f"epoch_pairs is 1 to graph.train_pairs "
+                         f"({cfg['graph']['train_pairs']}); got {cfg['epoch_pairs']}")
+
+
+def positives(cfg: dict, g: CollabGraph) -> np.ndarray:
+    """The training positives an epoch runs over: the first ``epoch_pairs``
+    training pairs where the configuration states it (``make_graph`` puts
+    them in a seeded random order, so this is a seeded uniform sample), or
+    all of them.  The message graph holds every training pair either way."""
+    return g.train[:int(cfg.get("epoch_pairs", g.train.shape[0]))]
 
 
 def apply_precision(cfg: dict) -> None:
@@ -219,7 +236,7 @@ def prepare(cfg: dict, seed: int, device, *, teacher_cfg: Optional[dict] = None,
     t = time.perf_counter()
     graph = build_graph(g.message_edges, n, device=device)
     x = torch.from_numpy(g.x).to(device)
-    pos = torch.from_numpy(g.train).to(device)
+    pos = torch.from_numpy(positives(cfg, g)).to(device)
     edges = _eval_edges(g, device)
     _sync(device)
     spans["graph_build"] = time.perf_counter() - t
@@ -242,13 +259,11 @@ def prepare(cfg: dict, seed: int, device, *, teacher_cfg: Optional[dict] = None,
                                                       graph, x, edges, hits_ks=hits, x_agg=x_agg)
 
         batch = trainer.batch
-        flops_step = roofline.sage_teacher_step(n, e_msg, din, hidden, 2 * batch)
-        flops_eval = roofline.sage_teacher_eval(n, e_msg, din, hidden, eval_pairs)
-        # the layer-2 mean forward (scaled) and backward, the gathers' backward
-        seg_step = (roofline.segsum_bytes(n, n, hidden, e_msg, True)
-                    + roofline.segsum_bytes(n, n, hidden, e_msg, False)
-                    + roofline.segsum_bytes(4 * batch, n, hidden, 4 * batch, False))
-        seg_eval = roofline.segsum_bytes(n, n, hidden, e_msg, True)
+        depth = dict(layers=cfg["num_layers"], head_layers=cfg["predictor_layers"])
+        flops_step = roofline.sage_teacher_step(n, e_msg, din, hidden, 2 * batch, **depth)
+        flops_eval = roofline.sage_teacher_eval(n, e_msg, din, hidden, eval_pairs, **depth)
+        seg_step, seg_eval = roofline.sage_teacher_segsum(n, e_msg, hidden, batch,
+                                                          layers=cfg["num_layers"])
     elif cfg["model"] == "mlp-student":
         tcfg = teacher_cfg
         twts = make_weights(sage_leaves(din, tcfg["hidden_channels"], tcfg["num_layers"],
@@ -276,8 +291,11 @@ def prepare(cfg: dict, seed: int, device, *, teacher_cfg: Optional[dict] = None,
 
         batch, bn, c = trainer.batch, trainer.node_batch, trainer.num_contexts
         rows = bn * (1 + c) + 4 * batch
-        flops_step = roofline.mlp_student_step(rows, din, hidden, bn * c, 2 * batch)
-        flops_eval = roofline.mlp_student_eval(n, din, hidden, eval_pairs)
+        depth = dict(layers=cfg["num_layers"], head_layers=cfg["num_layers"])
+        flops_step = roofline.mlp_student_step(rows, din, hidden, bn * c, 2 * batch,
+                                               teacher_head_layers=tcfg["predictor_layers"],
+                                               **depth)
+        flops_eval = roofline.mlp_student_eval(n, din, hidden, eval_pairs, **depth)
         # the gathers' backward: the rank loss's context columns are tiny
         seg_step = seg_eval = 0.0
     else:
@@ -378,7 +396,7 @@ def reference_replay(run: TrainRun, prec: Precision) -> dict:
 def _replay(run: TrainRun, prec: Precision) -> dict:
     cfg, dev, g = run.cfg, run.device, run.graph_data
     x = torch.from_numpy(g.x).to(dev)
-    pos = torch.from_numpy(g.train).to(dev)
+    pos = torch.from_numpy(positives(cfg, g)).to(dev)
     steps = int(cfg["compare_steps"])
     graph = _mean_graph(run, prec)
     if cfg["model"] == "sage-teacher":

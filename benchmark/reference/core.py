@@ -25,6 +25,7 @@ ADAM_BETAS = (0.9, 0.999)
 ADAM_EPS = 1e-8
 CLIP_NORM = 1.0
 LOG_EPS = 1e-12
+MEAN_BLOCK = 1 << 30
 
 
 def to_tf32(t: torch.Tensor) -> torch.Tensor:
@@ -97,9 +98,37 @@ class MeanGraph:
         return MeanGraph(torch.stack([self.src[order], self.dst[order]]), self.num_nodes)
 
     def mean(self, x: torch.Tensor) -> torch.Tensor:
-        out = torch.zeros((self.num_nodes, x.shape[1]), dtype=x.dtype, device=x.device)
-        out = out.index_add(0, self.dst, x.index_select(0, self.src))
-        return out * self.inv_deg[:, None]
+        return _EdgeSum.apply(x, self.src, self.dst, self.num_nodes) * self.inv_deg[:, None]
+
+
+def edge_sum(x: torch.Tensor, src: torch.Tensor, dst: torch.Tensor, rows: int) -> torch.Tensor:
+    """``(rows, D)``: ``index_add`` of the rows ``x[src]`` into ``dst``,
+    over the edges in order, in blocks of at most ``MEAN_BLOCK`` gathered
+    elements, so that a graph of tens of millions of edges fits beside the
+    activations; ogbl-collab's graphs take one block."""
+    out = torch.zeros((rows, x.shape[1]), dtype=x.dtype, device=x.device)
+    step = max(1, MEAN_BLOCK // max(x.shape[1], 1))
+    for i in range(0, src.shape[0], step):
+        out = out.index_add(0, dst[i:i + step], x.index_select(0, src[i:i + step]))
+    return out
+
+
+class _EdgeSum(torch.autograd.Function):
+    """:func:`edge_sum` with its transpose as the backward: the sums
+    autograd would run for ``index_add`` and ``index_select``, in the same
+    order, without keeping each gathered block for the backward as
+    autograd's ``index_add`` does."""
+
+    @staticmethod
+    def forward(ctx, x, src, dst, rows):
+        ctx.save_for_backward(src, dst)
+        ctx.rows_in = x.shape[0]
+        return edge_sum(x, src, dst, rows)
+
+    @staticmethod
+    def backward(ctx, g):
+        src, dst = ctx.saved_tensors
+        return edge_sum(g, dst, src, ctx.rows_in), None, None, None
 
 
 def dropout(h: torch.Tensor, rate: float, gen: Optional[torch.Generator]) -> torch.Tensor:

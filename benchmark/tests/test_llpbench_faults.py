@@ -27,7 +27,7 @@ def _correct(cell, checks):
 
 @pytest.mark.parametrize("name", TRAIN_CELLS)
 @pytest.mark.parametrize("fault", [None, "frozen_step", "half_batch", "stale_eval",
-                                   "altered_metric"])
+                                   "altered_metric", "other_positives"])
 def test_training_faults(tiny_cell, bench, name, fault):
     r = _run(bench, tiny_cell(name), faults.TRAIN.get(fault))
     assert r["correct"] is (fault is None), r["checks"]
@@ -64,6 +64,13 @@ def test_unknown_configuration_keys_are_refused(tiny_cell):
     cell = tiny_cell("mlp-student-distill-collab", daemon_max_queue=8)
     with pytest.raises(ValueError, match="daemon_max_queue"):
         train.prepare(cell.config, 1, CPU)
+
+
+def test_a_traced_slice_with_no_step_is_no_result(tiny_cell, bench):
+    # the first epoch outlasts the 10 ms window, so the slice opens after it
+    with pytest.raises(M.NoResult, match="epoch_pairs"):
+        M.run_cell(bench, tiny_cell("sage-teacher-train-collab"), 2**31 + 17, 0.01, True, CPU,
+                   root=ROOT, t_start=0.0, log=lambda s: None)
 
 
 def test_a_changed_precision_is_not_correct(tiny_cell, bench):

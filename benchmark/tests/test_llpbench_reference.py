@@ -18,6 +18,36 @@ def test_neighbour_mean_by_hand():
     assert out.tolist() == [[3.0, 4.0], [3.0, 5.0], [0.0, 0.0]]
 
 
+def test_neighbour_mean_is_autograds_index_add_bit_for_bit():
+    g = torch.Generator().manual_seed(3)
+    edges = torch.randint(0, 50, (2, 700), generator=g)
+    x = torch.randn(50, 8, generator=g, requires_grad=True)
+    graph = MeanGraph(edges, 50)
+    plain = torch.zeros(50, 8).index_add(0, edges[1], x.index_select(0, edges[0])) * \
+        graph.inv_deg[:, None]
+    mine = graph.mean(x)
+    w = torch.randn(50, 8, generator=g)
+    (gp,) = torch.autograd.grad((plain * w).sum(), x)
+    (gm,) = torch.autograd.grad((mine * w).sum(), x)
+    assert torch.equal(mine, plain) and torch.equal(gm, gp)
+
+
+def test_neighbour_mean_in_blocks_equals_one_block(monkeypatch):
+    from reference import core
+
+    g = torch.Generator().manual_seed(3)
+    edges = torch.randint(0, 50, (2, 700), generator=g)
+    x = torch.randn(50, 8, generator=g, requires_grad=True)
+    w = torch.randn(50, 8, generator=g)
+    whole = MeanGraph(edges, 50).mean(x)
+    (gw,) = torch.autograd.grad((whole * w).sum(), x)
+    monkeypatch.setattr(core, "MEAN_BLOCK", 8 * 64)  # 11 blocks of 64 edges
+    blocks = MeanGraph(edges, 50).mean(x)
+    (gb,) = torch.autograd.grad((blocks * w).sum(), x)
+    torch.testing.assert_close(blocks, whole, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(gb, gw, rtol=1e-6, atol=1e-6)
+
+
 def test_tf32_rounds_to_ten_bits_nearest_even():
     one = 1.0
     vals = torch.tensor([one + 2**-10, one + 2**-11, one + 3 * 2**-11, one + 2**-12, -(one + 3 * 2**-11)])
