@@ -107,10 +107,11 @@ def score_pairs(predictor: LinkPredictor, h: TableLike, src, dst, *,
     when ``h`` lies on the card, and the unfused PyTorch expression
     otherwise; ``fused=False`` always takes the unfused expression.  (The
     JAX package defaults to unfused from a TPU measurement that does not
-    carry over; PERF.md records both times on the H100.)  On a dense table
-    the kernel scores all pairs in one launch, since it gathers the rows
-    itself; a quantized table is gathered and dequantized ``block`` pairs at
-    a time, and each block is scored by the kernel or the expression."""
+    carry over; PERF.md records both times on the H100.)  A dense table is
+    scored in one call of :func:`score_edges`: in one launch of the kernel,
+    which gathers the rows itself, or in its own pair blocks; a quantized
+    table is gathered and dequantized ``block`` pairs at a time, and each
+    block is scored by the kernel or the expression."""
     src = torch.as_tensor(src, dtype=torch.int64, device=h.device).contiguous()
     dst = torch.as_tensor(dst, dtype=torch.int64, device=h.device).contiguous()
     if fused is None:
@@ -118,20 +119,15 @@ def score_pairs(predictor: LinkPredictor, h: TableLike, src, dst, *,
     lins = predictor.lins if predictor.mode == "mlp" else None
     fused = bool(fused) and lins is not None
     if not isinstance(h, QuantTable):
-        if fused and fused_supported(lins, h):
-            return sddmm_mlp_score(h, h, src, dst, *head_weights(lins))
-        parts = [score_edges(h, src[i:i + block], dst[i:i + block],
-                             mode=predictor.mode, lins=lins)
-                 for i in range(0, src.shape[0], block)]
-    else:
-        parts = []
-        for i in range(0, src.shape[0], block):
-            hi, hj = _take_rows(h, src[i:i + block]), _take_rows(h, dst[i:i + block])
-            if fused and fused_supported(lins, hi):
-                rows = torch.arange(hi.shape[0], device=h.device)
-                parts.append(sddmm_mlp_score(hi, hj, rows, rows, *head_weights(lins)))
-            else:
-                parts.append(predictor(hi, hj))
+        return score_edges(h, src, dst, mode=predictor.mode, lins=lins, fused=fused)
+    parts = []
+    for i in range(0, src.shape[0], block):
+        hi, hj = _take_rows(h, src[i:i + block]), _take_rows(h, dst[i:i + block])
+        if fused and fused_supported(lins, hi):
+            rows = torch.arange(hi.shape[0], device=h.device)
+            parts.append(sddmm_mlp_score(hi, hj, rows, rows, *head_weights(lins)))
+        else:
+            parts.append(predictor(hi, hj))
     if not parts:
         return torch.zeros((0,), dtype=torch.float32, device=h.device)
     return torch.cat(parts)

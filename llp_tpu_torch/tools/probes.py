@@ -46,6 +46,15 @@
         Python stacks fail inside checkpoint's recompute, a SystemError
         from the interpreter.)
 
+    python llp_tpu_torch/tools/probes.py pair_blocks [--pairs N]
+        The unfused pair scorer (``ops/edge_score.py::score_edges``) at
+        ogbl-citation2's shapes: a 2,927,963 × 256 fp32 table, N random
+        pairs (default 8,659,600, a tenth of one negative set) and a
+        3-layer 'mlp' head of width 256, without TF32, for each block
+        length of ``BLOCKS`` set into ``PAIR_BLOCK``: device ms of the call
+        (mean of 3 after a warm-up), ns a pair, and the peak bytes the call
+        allocated above what was live before it.
+
 Each prints one JSON line per reading.  Nothing runs at import.
 """
 
@@ -428,6 +437,47 @@ def cmd_w1(_args) -> None:
             "split_w1_ms": _events_ms(lambda: split_w1(w1))})
 
 
+BLOCKS = tuple(1 << k for k in range(15, 22))
+
+
+def cmd_pair_blocks(args) -> None:
+    sys.path.insert(0, str(HERE))
+    import torch
+    from torch import nn
+
+    from llp_tpu_torch.ops import edge_score
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    n, width = 2_927_963, 256
+    h = torch.randn(n, width, device="cuda", generator=gen)
+    src = torch.randint(0, n, (args.pairs,), device="cuda", generator=gen)
+    dst = torch.randint(0, n, (args.pairs,), device="cuda", generator=gen)
+    torch.manual_seed(0)
+    lins = nn.ModuleList([nn.Linear(width, width), nn.Linear(width, width),
+                          nn.Linear(width, 1)]).cuda()
+    shipped = edge_score.PAIR_BLOCK
+    with torch.no_grad():
+        want = edge_score.score_edges(h, src, dst, mode="mlp", lins=lins)
+        for block in BLOCKS:
+            edge_score.PAIR_BLOCK = block
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            got = edge_score.score_edges(h, src, dst, mode="mlp", lins=lins)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            ms = _events_ms(lambda: edge_score.score_edges(h, src, dst, mode="mlp", lins=lins),
+                            reps=3, warmup=1)
+            _log("pair_blocks", {"block": block, "pairs": args.pairs, "ms": ms,
+                                 "ns_per_pair": ms * 1e6 / args.pairs,
+                                 "peak_above_live_bytes": peak,
+                                 "max_abs_diff_vs_shipped": float((got - want).abs().max()),
+                                 "shipped": block == shipped})
+            del got
+    edge_score.PAIR_BLOCK = shipped
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -447,9 +497,12 @@ def main(argv=None) -> None:
     det.add_argument("--out", default="")
     det.add_argument("--standins", default=str(HERE / "build" / "chip_smoke" / "standins"))
     sub.add_parser("peak10m")
+    pb = sub.add_parser("pair_blocks")
+    pb.add_argument("--pairs", type=int, default=8_659_600)
     args = ap.parse_args(argv)
     {"prepare": cmd_prepare, "host": cmd_host, "w1": cmd_w1,
-     "determinism": cmd_determinism, "peak10m": cmd_peak10m}[args.cmd](args)
+     "determinism": cmd_determinism, "peak10m": cmd_peak10m,
+     "pair_blocks": cmd_pair_blocks}[args.cmd](args)
 
 
 if __name__ == "__main__":
