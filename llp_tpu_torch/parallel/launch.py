@@ -54,6 +54,10 @@ def _worker(fn, rank, devices, rank0, world_size, init_method, backend, timeout,
         world = init_world(rank0 + rank, world_size, device, init_method=init_method,
                            backend=backend, timeout=timeout)
         try:
+            # A rank is through gloo's join once its own side of each pair is
+            # connected; one that left the world at once (``fn`` with no
+            # collective) would close a pair its peer is still joining.
+            world.barrier()
             out = fn(*args, **kwargs, world=world)
         finally:
             close_world()

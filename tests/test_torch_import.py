@@ -113,6 +113,28 @@ def test_a_failing_worker_raises_its_traceback(tmp_path):
                init_method=f"file://{tmp_path / 'store'}", timeout=60, join_timeout=300)
 
 
+def test_a_rank_runs_its_function_only_once_every_rank_has_joined(monkeypatch):
+    # gloo's join returns on a rank once its own side of each pair is
+    # connected: a rank whose function has no collective, leaving at once,
+    # closed a pair its peer was still joining ("Connection closed by peer")
+    from llp_tpu_torch.parallel import launch as launch_mod
+
+    calls = []
+
+    class World:
+        def barrier(self):
+            calls.append("barrier")
+
+    monkeypatch.setattr(launch_mod, "init_world", lambda *a, **kw: World())
+    monkeypatch.setattr(launch_mod, "close_world", lambda: calls.append("close"))
+    monkeypatch.setattr(torch, "set_num_threads", lambda n: None)
+    results = launch_mod.queue_mod.Queue()
+    launch_mod._worker(lambda *, world: calls.append("fn") or 7, 0, ["cpu", "cpu"], 0, 2,
+                       "file://unused", None, 60, (), {}, results)
+    assert calls == ["barrier", "fn", "close"]
+    assert results.get_nowait() == (0, None, 7)
+
+
 def test_setup_device_refuses_a_missing_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert setup_device("cpu") == torch.device("cpu")

@@ -34,16 +34,6 @@ TEACHERS = ["cora-sage_transductive", "cora-gcn_transductive", "collab-sage_tran
             "cora-sage_production", "coauthor-cs-sage_production"]
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """Graphs this small gain nothing from intra-op threads, which contend
-    with the other test workers' for the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def gold(*parts):
     return os.path.join(GOLD, *parts)
 

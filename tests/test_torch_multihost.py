@@ -144,7 +144,7 @@ def test_two_hosts_train_as_one_launch_of_four_bit_for_bit(started, job, name):
 
 
 def test_measure_scaling_returns_jaxs_keys(started):
-    res = started[0]["scaling"].result()
+    res = started[0]["scaling"].result(timeout=RUN_TIMEOUT)  # its launch has no join_timeout
     assert set(res) == {1, 2}
     for r in res.values():
         assert set(r) == {"step_ms", "edges_per_sec", "efficiency"}

@@ -97,12 +97,11 @@ def dp(tmp_path_factory):
 
 @pytest.fixture(scope="module", autouse=True)
 def single(dp, tmp_path_factory):
-    """The one-process runs, in a spawned process of two threads beside the
-    world (their CLIs print into their own buffers there)."""
+    """The one-process runs, in a spawned process beside the world (their
+    CLIs print into their own buffers there)."""
     root = tmp_path_factory.mktemp("single")
     jobs = {key: job for key, job in _jobs(root).items() if len(key) >= 2}
-    pool = ProcessPoolExecutor(1, mp_context=mp.get_context("spawn"),
-                               initializer=torch.set_num_threads, initargs=(2,))
+    pool = ProcessPoolExecutor(1, mp_context=mp.get_context("spawn"))
     future = pool.submit(run_jobs, [("cli", job) for job in jobs.values()])
     pool.shutdown(wait=False)
     return root, jobs, future

@@ -9,7 +9,6 @@ import json
 
 import numpy as np
 import pytest
-import torch
 
 from llp_tpu.cli import parity as jax_parity
 from llp_tpu.data.synthetic import community_features, sbm_graph
@@ -18,16 +17,6 @@ from llp_tpu_torch.data.io import save_dataset_npz
 from test_torch_registry_raw import write_gnn_benchmark, write_planetoid
 
 SMOKE = dict(runs=1, epochs=2, patience=5, eval_steps=1, hidden_channels=16, num_layers=2)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """Graphs this small gain nothing from intra-op threads, which contend
-    with the other test workers' for the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _real_data_dir(root):

@@ -29,16 +29,6 @@ from llp_tpu_torch.utils.config import StudentConfig, TeacherConfig
 DATASET = "synthetic:sbm:200:3:6.0:11"
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """Graphs this small gain nothing from intra-op threads, which contend
-    with the other test workers' for the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _cfg(cls, root, **kw):
     base = dict(datasets=DATASET, dataset_dir=str(root / "data"),
                 save_dir=str(root / "saved"), results_dir=str(root / "results"), runs=1,

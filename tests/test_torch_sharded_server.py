@@ -30,9 +30,11 @@ collectives (5 s in the idle world; the rendezvous waits at least
 
 import json
 import os
+import queue
 import signal
 import subprocess
 import sys
+import threading
 import time
 import urllib.error
 import urllib.request
@@ -327,17 +329,27 @@ def test_a_killed_follower_gets_an_error_status_and_rank0_exits(started):
         os.kill(out["rank0_pid"], 0)
 
 
+def _read(stream, lines: queue.Queue):
+    for line in stream:
+        lines.put(line)
+    lines.put(None)
+
+
 def _ready(proc) -> tuple:
-    """``(summary, port)`` from a daemon's stdout."""
+    """``(summary, port)`` from a daemon's stdout, read on a thread, so that
+    a silent daemon cannot hold the test past ``WAIT_S``."""
+    lines: queue.Queue = queue.Queue()
+    threading.Thread(target=_read, args=(proc.stdout, lines), daemon=True).start()
     summary = None
     deadline = time.monotonic() + WAIT_S
     while time.monotonic() < deadline:
-        line = proc.stdout.readline()
-        if not line:
-            if proc.poll() is not None:
-                raise AssertionError(f"the daemon exited: {proc.stderr.read()[-3000:]}")
-            time.sleep(0.1)
-            continue
+        try:
+            line = lines.get(timeout=max(0.0, deadline - time.monotonic()))
+        except queue.Empty:
+            break
+        if line is None:
+            proc.wait(timeout=30)
+            raise AssertionError(f"the daemon exited: {proc.stderr.read()[-3000:]}")
         msg = json.loads(line)
         if "serving" in msg:
             return summary, int(msg["serving"].rsplit(":", 1)[1])

@@ -10,21 +10,10 @@ import json
 import random
 
 import pytest
-import torch
 
 from llp_tpu.cli import sweep as jax_sweep
 from llp_tpu_torch.cli import sweep
 from llp_tpu_torch.utils.config import StudentConfig, TeacherConfig
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """Graphs this small gain nothing from intra-op threads, which contend
-    with the other test workers' for the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 SPECS = {
