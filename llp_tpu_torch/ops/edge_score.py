@@ -10,12 +10,15 @@ gather 88.7 GB of fp32 rows of width 256 for each endpoint).  Under a
 profiler each such call records the span ``edge_score.unfused`` with its
 ``pairs``, ``blocks`` and ``head_layers`` (0 for 'inner'); the module
 counter :data:`unfused_blocks` counts the blocks scored, as the kernels'
-``launches`` count launches.
+``launches`` count launches.  A table whose rows are taken by a function,
+such as a quantized serving table that dequantizes the rows it gathers, is
+scored in the same blocks, by the kernel too.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import contextlib
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -56,30 +59,44 @@ def hadamard_mlp_score(lins: Sequence[nn.Linear], hi: torch.Tensor,
     return torch.sigmoid(logit.squeeze(-1))
 
 
-def score_edges(h: torch.Tensor, src: torch.Tensor, dst: torch.Tensor, *,
+def score_edges(h, src: torch.Tensor, dst: torch.Tensor, *,
                 mode: str = "inner", lins: Sequence[nn.Linear] | None = None,
-                fused: bool = False) -> torch.Tensor:
+                fused: bool = False,
+                take: Optional[Callable[[torch.Tensor], torch.Tensor]] = None) -> torch.Tensor:
     """fp32 scores of the (src, dst) pairs of rows of ``h``.  ``fused=True``
     routes a supported 'mlp' head through the fused SDDMM kernel, which
-    gathers the rows itself; every other head is scored in blocks of
-    :data:`PAIR_BLOCK` pairs into one output."""
+    gathers the rows itself, in one launch over the whole set; every other
+    head is scored in blocks of :data:`PAIR_BLOCK` pairs into one output.
+
+    ``take``, a function from ids to the fp32 rows of ``h`` (then anything
+    with the ``shape`` and ``device`` of a 2-D table), gathers each block's
+    rows in place of ``index_select``; the kernel then scores each block
+    over its own rows."""
     global unfused_blocks
     if mode not in ("inner", "mlp"):
         raise ValueError(f"unknown predictor mode {mode!r}")
-    if mode == "mlp":
-        if lins is None:
-            raise ValueError("mode='mlp' requires predictor parameters")
-        if fused and fused_supported(lins, h):
-            return sddmm_mlp_score(h, h, src, dst, *head_weights(lins))
+    if mode == "mlp" and lins is None:
+        raise ValueError("mode='mlp' requires predictor parameters")
+    fused = mode == "mlp" and fused and fused_supported(lins, h)
+    if fused:
+        weights = head_weights(lins)
+        if take is None:
+            return sddmm_mlp_score(h, h, src, dst, *weights)
+    take = take or (lambda ids: h.index_select(0, ids))
     pairs = src.shape[0]
     blocks = -(-pairs // PAIR_BLOCK)
     out = torch.empty(pairs, dtype=torch.float32, device=h.device)
-    with span("edge_score.unfused", pairs=pairs, blocks=blocks,
-              head_layers=len(lins) if mode == "mlp" else 0):
+    with (contextlib.nullcontext() if fused else
+          span("edge_score.unfused", pairs=pairs, blocks=blocks,
+               head_layers=len(lins) if mode == "mlp" else 0)):
         for i in range(0, pairs, PAIR_BLOCK):
-            hi = h.index_select(0, src[i:i + PAIR_BLOCK])
-            hj = h.index_select(0, dst[i:i + PAIR_BLOCK])
-            out[i:i + PAIR_BLOCK] = (hadamard_inner_score(hi, hj) if mode == "inner"
-                                     else hadamard_mlp_score(lins, hi, hj))
-    unfused_blocks += blocks
+            hi, hj = take(src[i:i + PAIR_BLOCK]), take(dst[i:i + PAIR_BLOCK])
+            if fused:
+                rows = torch.arange(hi.shape[0], device=hi.device)
+                out[i:i + PAIR_BLOCK] = sddmm_mlp_score(hi, hj, rows, rows, *weights)
+            else:
+                out[i:i + PAIR_BLOCK] = (hadamard_inner_score(hi, hj) if mode == "inner"
+                                         else hadamard_mlp_score(lins, hi, hj))
+    if not fused:
+        unfused_blocks += blocks
     return out

@@ -24,15 +24,15 @@ import torch
 from llp_tpu_torch.ops.build import load_library
 
 
-def fused_supported(lins, hi: torch.Tensor) -> bool:
+def fused_supported(lins, hi) -> bool:
     """Whether the kernel takes this head and input: a 2-layer head with
-    biases and a scalar output over 2-D rows.  The JAX gate also asked for D
-    and H to be multiples of 128, the TPU's lane width; this kernel takes any
-    width."""
+    biases and a scalar output over 2-D rows (``hi`` a tensor, or any table
+    with a ``shape``).  The JAX gate also asked for D and H to be multiples
+    of 128, the TPU's lane width; this kernel takes any width."""
     if len(lins) != 2 or lins[0].bias is None or lins[1].bias is None:
         return False
     return (
-        hi.dim() == 2
+        len(hi.shape) == 2
         and hi.shape[-1] == lins[0].in_features
         and lins[1].out_features == 1
     )

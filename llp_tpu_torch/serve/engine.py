@@ -6,8 +6,9 @@ retrieval (counterpart of ``llp_tpu/serve/engine.py``).
 * :func:`encode_nodes` embeds features with an MLP (student) encoder;
   :func:`encode_graph_nodes` runs a GNN teacher's full-graph forward (SAGE
   or GCN), whose aggregations are the segment-sum kernel on the card.
-* :func:`score_pairs` scores (src, dst) pairs; on the card a supported 'mlp'
-  head goes through the fused SDDMM kernel.
+* :func:`score_pairs` scores (src, dst) pairs by
+  :func:`~llp_tpu_torch.ops.edge_score.score_edges`; on the card a supported
+  'mlp' head goes through the fused SDDMM kernel.
 * :func:`top_k_partners` is the exact blocked top-K over the whole table;
   on the card a supported 'mlp' head scores its candidates with the fused
   retrieval kernel (:mod:`llp_tpu_torch.ops.mlp_topk`).
@@ -33,7 +34,6 @@ from llp_tpu_torch.models.encoder import apply_encoder
 from llp_tpu_torch.models.predictor import LinkPredictor
 from llp_tpu_torch.ops.edge_score import score_edges
 from llp_tpu_torch.ops.mlp_topk import fused_mlp_supported, head_layers, mlp_block_logits
-from llp_tpu_torch.ops.sddmm import fused_supported, head_weights, sddmm_mlp_score
 from llp_tpu_torch.serve.quant import (
     QuantTable,
     TableLike,
@@ -100,37 +100,26 @@ def _take_rows(h: TableLike, idx: torch.Tensor, dtype=None) -> torch.Tensor:
 
 @torch.no_grad()
 def score_pairs(predictor: LinkPredictor, h: TableLike, src, dst, *,
-                block: int = 131072, fused: Optional[bool] = None) -> torch.Tensor:
+                fused: Optional[bool] = None) -> torch.Tensor:
     """Probabilities (B,) for candidate (src, dst) pairs of rows of ``h``.
 
     ``fused=None`` takes the fused SDDMM kernel for a supported 'mlp' head
     when ``h`` lies on the card, and the unfused PyTorch expression
     otherwise; ``fused=False`` always takes the unfused expression.  (The
     JAX package defaults to unfused from a TPU measurement that does not
-    carry over; PERF.md records both times on the H100.)  A dense table is
-    scored in one call of :func:`score_edges`: in one launch of the kernel,
-    which gathers the rows itself, or in its own pair blocks; a quantized
-    table is gathered and dequantized ``block`` pairs at a time, and each
-    block is scored by the kernel or the expression."""
+    carry over; PERF.md records both times on the H100.)  One call of
+    :func:`score_edges`: a dense table in one launch of the kernel, which
+    gathers the rows itself, or in its pair blocks; a quantized table in
+    those blocks, each gathered and dequantized, then scored by the kernel
+    or the expression."""
     src = torch.as_tensor(src, dtype=torch.int64, device=h.device).contiguous()
     dst = torch.as_tensor(dst, dtype=torch.int64, device=h.device).contiguous()
     if fused is None:
         fused = h.device.type == "cuda"
     lins = predictor.lins if predictor.mode == "mlp" else None
-    fused = bool(fused) and lins is not None
-    if not isinstance(h, QuantTable):
-        return score_edges(h, src, dst, mode=predictor.mode, lins=lins, fused=fused)
-    parts = []
-    for i in range(0, src.shape[0], block):
-        hi, hj = _take_rows(h, src[i:i + block]), _take_rows(h, dst[i:i + block])
-        if fused and fused_supported(lins, hi):
-            rows = torch.arange(hi.shape[0], device=h.device)
-            parts.append(sddmm_mlp_score(hi, hj, rows, rows, *head_weights(lins)))
-        else:
-            parts.append(predictor(hi, hj))
-    if not parts:
-        return torch.zeros((0,), dtype=torch.float32, device=h.device)
-    return torch.cat(parts)
+    return score_edges(h, src, dst, mode=predictor.mode, lins=lins, fused=fused,
+                       take=(lambda ids: _take_rows(h, ids)) if isinstance(h, QuantTable)
+                       else None)
 
 
 def auto_topk_block(predictor: LinkPredictor, q_count: int, width: int,

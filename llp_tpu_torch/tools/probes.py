@@ -55,6 +55,17 @@
         (mean of 3 after a warm-up), ns a pair, and the peak bytes the call
         allocated above what was live before it.
 
+    python llp_tpu_torch/tools/probes.py quant_pairs --root DIR [--label NAME]
+            [--pairs N]
+        ``serve/engine.py::score_pairs`` of the checkout at DIR on int8 and
+        int4 tables of a 2,927,963 × 256 fp32 table (ogbl-citation2's nodes),
+        N random pairs (default 2^22) and a 2-layer 'mlp' head of width 256,
+        without TF32, fused and unfused: device ms of the call (mean of 3
+        after a warm-up), the peak bytes it allocated above what was live
+        before it, and the largest gap from the dequantized table's rows
+        scored whole by the head.  Run it for the parent and the change
+        alternately (a, b, b, a).
+
 Each prints one JSON line per reading.  Nothing runs at import.
 """
 
@@ -478,6 +489,51 @@ def cmd_pair_blocks(args) -> None:
     edge_score.PAIR_BLOCK = shipped
 
 
+def cmd_quant_pairs(args) -> None:
+    root = Path(args.root).resolve()
+    sys.path.insert(0, str(root))
+    import torch
+
+    import llp_tpu_torch
+    from llp_tpu_torch.models.predictor import LinkPredictor
+    from llp_tpu_torch.serve.engine import score_pairs
+    from llp_tpu_torch.serve.quant import dequantize_rows, quantize_table
+
+    if Path(llp_tpu_torch.__file__).resolve().parents[1] != root:
+        raise SystemExit(f"imported {llp_tpu_torch.__file__}, not the checkout at {root}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    n, width = 2_927_963, 256
+    h = torch.randn(n, width, device="cuda", generator=gen)
+    src = torch.randint(0, n, (args.pairs,), device="cuda", generator=gen)
+    dst = torch.randint(0, n, (args.pairs,), device="cuda", generator=gen)
+    pred = LinkPredictor("mlp", width, width, num_layers=2,
+                         generator=torch.Generator().manual_seed(0)).cuda().eval()
+    with torch.no_grad():
+        for bits in (8, 4):
+            table = quantize_table(h, bits)
+            whole = dequantize_rows(table, torch.arange(n, device="cuda"))
+            want = pred(whole.index_select(0, src), whole.index_select(0, dst))
+            del whole
+            for fused in (True, False):
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                got = score_pairs(pred, table, src, dst, fused=fused)
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated() - base
+                ms = _events_ms(lambda: score_pairs(pred, table, src, dst, fused=fused),
+                                reps=3, warmup=1)
+                _log("quant_pairs", {"label": args.label, "bits": bits, "fused": fused,
+                                     "pairs": args.pairs, "ms": ms,
+                                     "ns_per_pair": ms * 1e6 / args.pairs,
+                                     "peak_above_live_bytes": peak,
+                                     "max_abs_diff_vs_whole": float((got - want).abs().max()),
+                                     "device": torch.cuda.get_device_name()})
+                del got
+            del table, want
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -499,10 +555,14 @@ def main(argv=None) -> None:
     sub.add_parser("peak10m")
     pb = sub.add_parser("pair_blocks")
     pb.add_argument("--pairs", type=int, default=8_659_600)
+    qp = sub.add_parser("quant_pairs")
+    qp.add_argument("--root", default=str(HERE))
+    qp.add_argument("--label", default="")
+    qp.add_argument("--pairs", type=int, default=1 << 22)
     args = ap.parse_args(argv)
     {"prepare": cmd_prepare, "host": cmd_host, "w1": cmd_w1,
      "determinism": cmd_determinism, "peak10m": cmd_peak10m,
-     "pair_blocks": cmd_pair_blocks}[args.cmd](args)
+     "pair_blocks": cmd_pair_blocks, "quant_pairs": cmd_quant_pairs}[args.cmd](args)
 
 
 if __name__ == "__main__":

@@ -102,8 +102,8 @@ from __future__ import annotations
 import contextlib
 import os
 import time
-from dataclasses import asdict
-from typing import Optional
+from dataclasses import asdict, dataclass, field
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -169,18 +169,6 @@ def refuse_unported(cfg) -> None:
             f"device (the segsum kernel on the card, its plain version on the "
             f"CPU); pass one of {SPMM_IMPLS}"
         )
-
-
-def _check_world(cfg, world: Optional[World]) -> None:
-    if world is not None and world.size != cfg.num_devices:
-        raise ValueError(f"num_devices={cfg.num_devices} in a world of {world.size} ranks")
-
-
-def _launch_ranks(fn, cfg, device, **kw):
-    """``fn(cfg, **kw)`` in ``cfg.num_devices`` worker processes, one world;
-    rank 0's result.  Raises ``SystemExit`` before any work when the
-    devices are not there (:func:`rank_devices`)."""
-    return launch(fn, rank_devices(device, cfg.num_devices), cfg, **kw)[0]
 
 
 @contextlib.contextmanager
@@ -419,12 +407,6 @@ def prepare_production(cfg, device) -> dict:
     )
 
 
-def _prepare(cfg, device) -> dict:
-    if cfg.transductive == "production":
-        return prepare_production(cfg, device)
-    return prepare_transductive(cfg, device)
-
-
 def _is_production(data: dict) -> bool:
     return "inf_graph" in data
 
@@ -529,11 +511,12 @@ def evaluate_student(model, data: dict, *, hits_ks, world: Optional[World] = Non
 
 
 def _data_report(data: dict) -> dict:
-    """The sizes a run's report carries: the training graph's nodes and
-    message edges; in production also the inference graph's and the size of
-    every evaluated edge set."""
+    """The sizes a run's report carries: the positives, the split's name,
+    the training graph's nodes and message edges; in production also the
+    inference graph's and the size of every evaluated edge set."""
     g = data["graph"]
-    out = dict(num_nodes=g.num_nodes, message_edges=g.num_edges)
+    out = dict(num_pos=data["num_pos"], split_name=data["split_name"],
+               num_nodes=g.num_nodes, message_edges=g.num_edges)
     if _is_production(data):
         ig = data["inf_graph"]
         out.update(inference_nodes=ig.num_nodes, inference_edges=ig.num_edges,
@@ -547,32 +530,138 @@ def _teacher_ckpt_path(cfg) -> str:
     return os.path.join(cfg.save_dir, f"{cfg.datasets}-{cfg.encoder}_{cfg.transductive}")
 
 
-def _student_ckpt_path(cfg) -> str:
-    return os.path.join(cfg.save_dir, f"{cfg.datasets}-student_{cfg.transductive}")
+@dataclass
+class _Role:
+    """What the teacher and the student do their own way in :func:`_drive`."""
+
+    name: str  # "teacher" or "student", in the printed lines
+    path: str  # the artifact's path, and its snapshots'
+    build: Callable  # seed -> (model, trainer)
+    evaluate: Callable  # model -> (results, the encode an artifact keeps, or None)
+    keep: Callable  # (val, val_max, model, encode) -> (val_max, an artifact to keep or None)
+    write: Callable  # artifact -> None, on rank 0
+    results: tuple  # the results file's kind and method line
+    seed: int = 0  # run r seeds r + seed_offset + seed
+    report: dict = field(default_factory=dict)  # the report's own sizes
 
 
-def _results_path(cfg, kind: str) -> str:
-    return os.path.join(cfg.results_dir, f"{cfg.datasets}_{kind}_{cfg.transductive}.txt")
+def _drive(fn, make_role, cfg, max_epochs, verbose, device, world):
+    """The run loop of :func:`run_teacher` and :func:`run_student` (``fn``):
+    the world, the data, the runs with their snapshots, evals, early stop and
+    best-validation artifact, the results file and the report;
+    ``make_role(cfg, data, device, world)`` gives what the model does its
+    own way, built inside the rank."""
+    refuse_unported(cfg)
+    cfg.finalize()
+    if world is not None and world.size != cfg.num_devices:
+        raise ValueError(f"num_devices={cfg.num_devices} in a world of {world.size} ranks")
+    if cfg.num_devices > 1 and world is None:
+        # rank 0's result; rank_devices exits first if the devices are not there
+        return launch(fn, rank_devices(device, cfg.num_devices), cfg, max_epochs=max_epochs,
+                      verbose=verbose)[0]
+    device = setup_device(device) if world is None else world.device
+    lead = world is None or world.rank == 0
+    verbose = verbose and lead
+    production = cfg.transductive == "production"
+    with _rank_zero_first(world):
+        data = (prepare_production if production else prepare_transductive)(cfg, device)
+    sizes = _data_report(data)
+    role = make_role(cfg, data, device, world)
+    del data  # a node-sharded rank's role holds only its rows: drop the whole ones
 
+    logger = ProductionRunLogger if production else RunLogger
+    loggers = {f"Hits@{k}": logger(cfg.runs) for k in cfg.hits_ks}
+    loggers["AUC"] = logger(cfg.runs)
+    snaps = RunSnapshots(role.path, every=cfg.checkpoint_every, resume=cfg.resume,
+                         loggers=loggers, verbose=verbose, write=lead)
+    epochs = max_epochs if max_epochs is not None else cfg.epochs
+    # the best validation, shared across runs
+    val_max = snaps.meta.get("val_max", 0.0)
+    pending = None  # the best-validation artifact not yet written
+    meter = ThroughputMeter(device, edges_per_epoch=2 * sizes["num_pos"])
+    profile_dir = cfg.profile_dir if lead else ""
+    epochs_run = 0
+    losses = snaps.losses()
+    steps = 0
+    t0 = time.time()
 
-def _write_results(cfg, kind: str, label: str, split_name: str, stats: dict,
-                   perf: dict) -> None:
-    os.makedirs(cfg.results_dir, exist_ok=True)
-    with open(_results_path(cfg, kind), "a") as f:
-        f.write(str(asdict(cfg)) + "\n")
-        if label:
-            f.write(label + "\n")
-        f.write(f"split: {split_name}\n")
-        for k, s in stats.items():
-            f.write(f"{k}: {s}\n")
-        f.write(f"perf: {perf}\n")
+    def flush():
+        nonlocal pending
+        if pending is not None and lead:
+            role.write(pending)
+        pending = None
 
+    for run in range(snaps.run, cfg.runs):
+        seed = run + cfg.seed_offset + role.seed
+        model, trainer = role.build(seed)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        steps = trainer.steps
+        best_val, cnt_wait, first = snaps.restore(run, model, trainer.optimizer, gen)
+        if run == len(losses):
+            losses.append([])
+        run_losses = losses[run]
 
-def _loggers(cfg) -> dict:
-    cls = ProductionRunLogger if cfg.transductive == "production" else RunLogger
-    loggers = {f"Hits@{k}": cls(cfg.runs) for k in cfg.hits_ks}
-    loggers["AUC"] = cls(cfg.runs)
-    return loggers
+        def snapshot(epoch):
+            snaps.maybe_save(epoch, flush, model=model, optimizer=trainer.optimizer,
+                             generator=gen, run=run, best_val=best_val, cnt_wait=cnt_wait,
+                             val_max=val_max, losses=losses)
+
+        for epoch in range(first, epochs + 1):
+            evaluates = epoch % max(cfg.eval_steps, 1) == 0
+            with trace(profile_dir if epochs_run == 1 else "", device):
+                meter.start()
+                loss = trainer.epoch(gen)
+                meter.end_epoch()
+                if evaluates:
+                    meter.start()
+                    results, encode = role.evaluate(model)
+                    meter.end_eval()
+            epochs_run += 1
+            run_losses.append(float(loss))
+            if not evaluates:
+                snapshot(epoch)
+                continue
+            val = results[cfg.metric][0]
+            val_max, kept = role.keep(val, val_max, model, encode)
+            pending = pending if kept is None else kept
+            if val >= best_val:
+                best_val, cnt_wait = val, 0
+            else:
+                cnt_wait += 1
+            for k, v in results.items():
+                loggers[k].add_result(run, v)
+            if verbose and epoch % max(cfg.log_steps, 1) == 0:
+                print(
+                    f"[{role.name} run {run} epoch {epoch}] loss={run_losses[-1]:.4f} "
+                    f"{cfg.metric} valid={val:.4f} test={results[cfg.metric][1]:.4f} "
+                    f"({meter.edges_per_sec:.0f} edges/s)"
+                )
+            snapshot(epoch)
+            if cnt_wait >= cfg.patience:
+                break
+
+    flush()
+    stats = {k: lg.statistics() for k, lg in loggers.items()}
+    perf = meter.summary()
+    if cfg.results_dir and lead:
+        kind, label = role.results
+        os.makedirs(cfg.results_dir, exist_ok=True)
+        with open(os.path.join(cfg.results_dir,
+                               f"{cfg.datasets}_{kind}_{cfg.transductive}.txt"), "a") as f:
+            f.write(str(asdict(cfg)) + "\n")
+            if label:
+                f.write(label + "\n")
+            f.write(f"split: {sizes['split_name']}\n")
+            for k, s in stats.items():
+                f.write(f"{k}: {s}\n")
+            f.write(f"perf: {perf}\n")
+    if verbose:
+        print(f"{role.name} done in {time.time() - t0:.1f}s: {stats.get(cfg.metric)} "
+              f"perf={perf}")
+    report = dict(epoch_s=list(meter.epoch_s), eval_s=list(meter.eval_s), perf=perf,
+                  losses=losses, steps_per_epoch=steps, **role.report,
+                  snapshot_s=snaps.seconds, **sizes)
+    return stats, loggers, report
 
 
 def run_teacher(cfg: TeacherConfig, *, max_epochs: Optional[int] = None,
@@ -587,139 +676,61 @@ def run_teacher(cfg: TeacherConfig, *, max_epochs: Optional[int] = None,
     losses (a resumed run's from its first epoch), steps per epoch, split
     and graph sizes.  With ``cfg.num_devices`` > 1 it trains data-parallel
     (the module's docstring); ``world`` is a worker's own rank."""
-    refuse_unported(cfg)
-    cfg.finalize()
-    _check_world(cfg, world)
-    if cfg.num_devices > 1 and world is None:
-        return _launch_ranks(run_teacher, cfg, device, max_epochs=max_epochs, verbose=verbose)
-    device = setup_device(device) if world is None else world.device
-    lead = world is None or world.rank == 0
-    verbose = verbose and lead
-    with _rank_zero_first(world):
-        data = _prepare(cfg, device)
-    sizes = _data_report(data)
+    return _drive(run_teacher, _teacher_role, cfg, max_epochs, verbose, device, world)
+
+
+def _teacher_role(cfg, data, device, world) -> _Role:
     if world is not None and cfg.sharding == "halo":
         data = _halo_data(data, world)
-    graph, x = data["graph"], data["x"]
     conv = _conv_variant(cfg)
-    in_dim = int(x.shape[1])
     x_aggs = eval_first_aggregations(cfg.encoder, conv, data)
+    path = _teacher_ckpt_path(cfg)
 
-    loggers = _loggers(cfg)
-    snaps = RunSnapshots(_teacher_ckpt_path(cfg), every=cfg.checkpoint_every,
-                         resume=cfg.resume, loggers=loggers, verbose=verbose, write=lead)
-    epochs = max_epochs if max_epochs is not None else cfg.epochs
-    # shared across runs (reference train_teacher_gnn.py:420)
-    val_max = snaps.meta.get("val_max", 0.0)
-    best_artifact = None  # the best-validation artifact not yet written
-    meter = ThroughputMeter(device, edges_per_epoch=2 * data["num_pos"])
-    profile_dir = cfg.profile_dir if lead else ""
-    epochs_run = 0
-    losses = snaps.losses()
-    steps = 0
-    t0 = time.time()
+    def build(seed):
+        model = init_teacher(
+            encoder=cfg.encoder, in_channels=int(data["x"].shape[1]),
+            hidden_channels=cfg.hidden_channels, num_layers=cfg.num_layers,
+            predictor_mode=cfg.predictor, norm_type=cfg.norm_type, conv=conv,
+            dropout=cfg.dropout, generator=torch.Generator().manual_seed(seed),
+        ).to(device)
+        return model, TeacherTrainer(
+            model, data["graph"], data["x"], data["pos_edges"], encoder=cfg.encoder,
+            conv=conv, batch_size=cfg.batch_size, lr=cfg.lr, neg_mode=cfg.neg_mode,
+            neg_keys=data["neg_keys"], compute_dtype=cfg.compute_dtype, world=world,
+            sharding=cfg.sharding,
+        )
 
-    def flush_artifact():
-        nonlocal best_artifact
-        if best_artifact is None:
-            return
-        params, h, meta = best_artifact
-        best_artifact = None
-        if not lead:
-            return
+    def keep(val, val_max, model, h):
+        # a strictly higher validation moves the best whether or not an
+        # artifact is kept (reference train_teacher_gnn.py:420); the MLP
+        # teacher exports none
+        if not val > val_max:
+            return val_max, None
+        if cfg.encoder == "mlp" or not cfg.save_dir:
+            return val, None
+        return val, (
+            to_jax(model),
+            h,  # a fresh tensor from this eval; nothing writes it later
+            # The JAX trainer's meta keys, plus norm_type: the JAX serving
+            # CLI reads it (default "none") to apply norms.
+            dict(encoder=cfg.encoder, conv=conv, predictor=cfg.predictor,
+                 hidden_channels=cfg.hidden_channels, num_layers=cfg.num_layers,
+                 predictor_layers=2, dataset=cfg.datasets, setting=cfg.transductive,
+                 val=val, norm_type=cfg.norm_type),
+        )
+
+    def write(kept):
+        params, h, meta = kept
         if data["node_inverse"] is not None:
             # the table goes out in the dataset's original ids (row j of the
             # export is original node j, new node node_inverse[j])
             h = h.index_select(0, torch.from_numpy(data["node_inverse"]).to(h.device))
-        save_checkpoint(_teacher_ckpt_path(cfg),
-                        {"params": params, "features": h.cpu().numpy()}, meta=meta)
+        save_checkpoint(path, {"params": params, "features": h.cpu().numpy()}, meta=meta)
 
-    for run in range(snaps.run, cfg.runs):
-        seed = run + cfg.seed_offset
-        model = init_teacher(
-            encoder=cfg.encoder, in_channels=in_dim, hidden_channels=cfg.hidden_channels,
-            num_layers=cfg.num_layers, predictor_mode=cfg.predictor,
-            norm_type=cfg.norm_type, conv=conv, dropout=cfg.dropout,
-            generator=torch.Generator().manual_seed(seed),
-        ).to(device)
-        gen = torch.Generator(device=device).manual_seed(seed)
-        trainer = TeacherTrainer(
-            model, graph, x, data["pos_edges"], encoder=cfg.encoder, conv=conv,
-            batch_size=cfg.batch_size, lr=cfg.lr, neg_mode=cfg.neg_mode,
-            neg_keys=data["neg_keys"], compute_dtype=cfg.compute_dtype, world=world,
-            sharding=cfg.sharding,
-        )
-        steps = trainer.steps
-        best_val, cnt_wait, first = snaps.restore(run, model, trainer.optimizer, gen)
-        if run == len(losses):
-            losses.append([])
-        run_losses = losses[run]
-
-        def snapshot(epoch):
-            snaps.maybe_save(epoch, flush_artifact, model=model, optimizer=trainer.optimizer,
-                             generator=gen, run=run, best_val=best_val, cnt_wait=cnt_wait,
-                             val_max=val_max, losses=losses)
-
-        for epoch in range(first, epochs + 1):
-            evaluates = epoch % max(cfg.eval_steps, 1) == 0
-            with trace(profile_dir if epochs_run == 1 else "", device):
-                meter.start()
-                loss = trainer.epoch(gen)
-                meter.end_epoch()
-                if evaluates:
-                    meter.start()
-                    results, h = evaluate_teacher(model, data, hits_ks=cfg.hits_ks,
-                                                  x_aggs=x_aggs)
-                    meter.end_eval()
-            epochs_run += 1
-            run_losses.append(float(loss))
-            if not evaluates:
-                snapshot(epoch)
-                continue
-            val = results[cfg.metric][0]
-            if val > val_max:
-                val_max = val
-                if cfg.encoder != "mlp" and cfg.save_dir:
-                    best_artifact = (
-                        to_jax(model),
-                        h,  # a fresh tensor from this eval; nothing writes it later
-                        # The JAX trainer's meta keys, plus norm_type: the JAX
-                        # serving CLI reads it (default "none") to apply norms.
-                        dict(encoder=cfg.encoder, conv=conv, predictor=cfg.predictor,
-                             hidden_channels=cfg.hidden_channels,
-                             num_layers=cfg.num_layers, predictor_layers=2,
-                             dataset=cfg.datasets, setting=cfg.transductive, val=val,
-                             norm_type=cfg.norm_type),
-                    )
-            if val >= best_val:
-                best_val, cnt_wait = val, 0
-            else:
-                cnt_wait += 1
-            for k, v in results.items():
-                loggers[k].add_result(run, v)
-            if verbose and epoch % max(cfg.log_steps, 1) == 0:
-                print(
-                    f"[teacher run {run} epoch {epoch}] loss={run_losses[-1]:.4f} "
-                    f"{cfg.metric} valid={val:.4f} test={results[cfg.metric][1]:.4f} "
-                    f"({meter.edges_per_sec:.0f} edges/s)"
-                )
-            snapshot(epoch)
-            if cnt_wait >= cfg.patience:
-                break
-
-    flush_artifact()
-    stats = {k: lg.statistics() for k, lg in loggers.items()}
-    perf = meter.summary()
-    if cfg.results_dir and lead:
-        _write_results(cfg, "supervised", f"{cfg.encoder} as the encoder", data["split_name"],
-                       stats, perf)
-    if verbose:
-        print(f"teacher done in {time.time() - t0:.1f}s: {stats.get(cfg.metric)} "
-              f"perf={perf}")
-    report = dict(epoch_s=list(meter.epoch_s), eval_s=list(meter.eval_s), perf=perf,
-                  losses=losses, steps_per_epoch=steps, num_pos=data["num_pos"],
-                  split_name=data["split_name"], snapshot_s=snaps.seconds, **sizes)
-    return stats, loggers, report
+    return _Role("teacher", path, build,
+                 lambda model: evaluate_teacher(model, data, hits_ks=cfg.hits_ks,
+                                                x_aggs=x_aggs),
+                 keep, write, ("supervised", f"{cfg.encoder} as the encoder"))
 
 
 def _kd_label(cfg) -> str:
@@ -746,19 +757,12 @@ def run_student(cfg: StudentConfig, *, max_epochs: Optional[int] = None,
     loggers, report)`` as :func:`run_teacher` does; the report adds the node
     batch.  With ``cfg.num_devices`` > 1 it trains data-parallel (the
     module's docstring); ``world`` is a worker's own rank."""
-    refuse_unported(cfg)
-    cfg.finalize()
-    _check_world(cfg, world)
-    if cfg.num_devices > 1 and world is None:
-        return _launch_ranks(run_student, cfg, device, max_epochs=max_epochs, verbose=verbose)
-    device = setup_device(device) if world is None else world.device
-    lead = world is None or world.rank == 0
-    verbose = verbose and lead
-    with _rank_zero_first(world):
-        data = _prepare(cfg, device)
+    return _drive(run_student, _student_role, cfg, max_epochs, verbose, device, world)
+
+
+def _student_role(cfg, data, device, world) -> _Role:
     x = data["x"]
     n, in_dim = x.shape
-    sizes = _data_report(data)
     table = world is not None and cfg.sharding == "halo"
 
     ckpt, _ = load_checkpoint(_teacher_ckpt_path(cfg))
@@ -782,44 +786,16 @@ def run_student(cfg: StudentConfig, *, max_epochs: Optional[int] = None,
             data["inf_x"] = data["inf_x"][ilo:ihi].clone()
     teacher_pred = from_jax(ckpt["params"]["predictor"]).to(device)
     node_bs = cfg.coupled_node_batch_size(n, data["num_pos"])
+    path = os.path.join(cfg.save_dir, f"{cfg.datasets}-student_{cfg.transductive}")
 
-    loggers = _loggers(cfg)
-    snaps = RunSnapshots(_student_ckpt_path(cfg), every=cfg.checkpoint_every,
-                         resume=cfg.resume, loggers=loggers, verbose=verbose, write=lead)
-    epochs = max_epochs if max_epochs is not None else cfg.epochs
-    meter = ThroughputMeter(device, edges_per_epoch=2 * data["num_pos"])
-    profile_dir = cfg.profile_dir if lead else ""
-    epochs_run = 0
-    losses = snaps.losses()
-    steps = 0
-    t0 = time.time()
-    # The best-validation student across runs, the deployable graph-free
-    # MLP (the reference's student saves only text results, main.py:465-513),
-    # while it is not yet written.
-    best_student = None
-    val_smax = snaps.meta.get("val_max", 0.0)
-    student_meta = dict(encoder="mlp", predictor=cfg.predictor,
-                        hidden_channels=cfg.hidden_channels, num_layers=cfg.num_layers,
-                        norm_type=cfg.norm_type, in_channels=int(in_dim))
-
-    def flush_student():
-        nonlocal best_student
-        if best_student is not None and lead:
-            os.makedirs(cfg.save_dir, exist_ok=True)
-            save_checkpoint(_student_ckpt_path(cfg), {"params": best_student},
-                            meta=student_meta)
-        best_student = None
-
-    for run in range(snaps.run, cfg.runs):
-        seed = run + 1 + cfg.seed_offset  # the student seeds run + 1
+    def build(seed):
         model = init_student(
             in_channels=in_dim, hidden_channels=cfg.hidden_channels,
             num_layers=cfg.num_layers, predictor_mode=cfg.predictor,
             norm_type=cfg.norm_type, dropout=cfg.dropout,
             generator=torch.Generator().manual_seed(seed),
         ).to(device)
-        gen = torch.Generator(device=device).manual_seed(seed)
-        trainer = StudentTrainer(
+        return model, StudentTrainer(
             model, data["graph"], x, t_h, teacher_pred, data["pos_edges"],
             link_batch_size=cfg.link_batch_size, node_batch_size=node_bs, lr=cfg.lr,
             true_label=cfg.true_label, kd_rm=cfg.kd_rm, kd_lm=cfg.kd_lm,
@@ -829,63 +805,26 @@ def run_student(cfg: StudentConfig, *, max_epochs: Optional[int] = None,
             compute_dtype=cfg.compute_dtype, llp_r_chunk=cfg.llp_r_chunk, world=world,
             table=table,
         )
-        steps = trainer.steps
-        best_val, cnt_wait, first = snaps.restore(run, model, trainer.optimizer, gen)
-        if run == len(losses):
-            losses.append([])
-        run_losses = losses[run]
 
-        def snapshot(epoch):
-            snaps.maybe_save(epoch, flush_student, model=model, optimizer=trainer.optimizer,
-                             generator=gen, run=run, best_val=best_val, cnt_wait=cnt_wait,
-                             val_max=val_smax, losses=losses)
+    def keep(val, val_max, model, _):
+        # The best-validation student across runs, the deployable graph-free
+        # MLP (the reference's student saves only text results,
+        # main.py:465-513): a validation that reaches the best so far, and
+        # the best moves only when an artifact is kept.
+        if cfg.save_dir and val >= val_max:
+            return val, to_jax(model)
+        return val_max, None
 
-        for epoch in range(first, epochs + 1):
-            evaluates = epoch % max(cfg.eval_steps, 1) == 0
-            with trace(profile_dir if epochs_run == 1 else "", device):
-                meter.start()
-                loss = trainer.epoch(gen)
-                meter.end_epoch()
-                if evaluates:
-                    meter.start()
-                    results = evaluate_student(model, data, hits_ks=cfg.hits_ks,
-                                               world=world if table else None)
-                    meter.end_eval()
-            epochs_run += 1
-            run_losses.append(float(loss))
-            if not evaluates:
-                snapshot(epoch)
-                continue
-            val = results[cfg.metric][0]
-            if val >= best_val:
-                best_val, cnt_wait = val, 0
-            else:
-                cnt_wait += 1
-            if cfg.save_dir and val >= val_smax:
-                val_smax = val
-                best_student = to_jax(model)
-            for k, v in results.items():
-                loggers[k].add_result(run, v)
-            if verbose and epoch % max(cfg.log_steps, 1) == 0:
-                print(
-                    f"[student run {run} epoch {epoch}] loss={run_losses[-1]:.4f} "
-                    f"{cfg.metric} valid={val:.4f} test={results[cfg.metric][1]:.4f} "
-                    f"({meter.edges_per_sec:.0f} edges/s)"
-                )
-            snapshot(epoch)
-            if cnt_wait >= cfg.patience:
-                break
+    def write(params):
+        os.makedirs(cfg.save_dir, exist_ok=True)
+        save_checkpoint(path, {"params": params},
+                        meta=dict(encoder="mlp", predictor=cfg.predictor,
+                                  hidden_channels=cfg.hidden_channels,
+                                  num_layers=cfg.num_layers, norm_type=cfg.norm_type,
+                                  in_channels=int(in_dim)))
 
-    flush_student()
-    stats = {k: lg.statistics() for k, lg in loggers.items()}
-    perf = meter.summary()
-    if cfg.results_dir and lead:
-        _write_results(cfg, "KD", _kd_label(cfg), data["split_name"], stats, perf)
-    if verbose:
-        print(f"student done in {time.time() - t0:.1f}s: {stats.get(cfg.metric)} "
-              f"perf={perf}")
-    report = dict(epoch_s=list(meter.epoch_s), eval_s=list(meter.eval_s), perf=perf,
-                  losses=losses, steps_per_epoch=steps, node_batch=min(node_bs, n),
-                  num_pos=data["num_pos"], split_name=data["split_name"],
-                  snapshot_s=snaps.seconds, **sizes)
-    return stats, loggers, report
+    return _Role("student", path, build,
+                 lambda model: (evaluate_student(model, data, hits_ks=cfg.hits_ks,
+                                                 world=world if table else None), None),
+                 keep, write, ("KD", _kd_label(cfg)), seed=1,  # reference main.py:396
+                 report=dict(node_batch=min(node_bs, n)))

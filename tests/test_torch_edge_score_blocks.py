@@ -3,7 +3,10 @@ every head that the fused SDDMM kernel does not take ('inner', an 'mlp'
 head of another depth, any 'mlp' head on the CPU) is scored PAIR_BLOCK
 pairs at a time into one output.  With the block made small: the scores
 equal the unblocked expression and the JAX package's ``score_edges``,
-every set size from empty to several blocks and a ragged tail; the evaluator still calls ``score`` once per
+every set size from empty to several blocks and a ragged tail; a quantized
+table's rows, taken and dequantized a block at a time, score as its
+dequantized table does whole, through the fused head and the unfused one;
+the evaluator still calls ``score`` once per
 edge set; the span and the block counter; and a 3-layer SAGE teacher with
 a 3-layer head against the benchmark's plain reference at the
 ``sage-teacher-citation2`` configuration's limits."""
@@ -20,6 +23,8 @@ from torch import nn
 from llp_tpu.ops.edge_score import score_edges as jax_score_edges
 import llp_tpu_torch.evaln.transductive as transductive
 from llp_tpu_torch.ops import edge_score
+from llp_tpu_torch.ops.sddmm import head_weights, sddmm_mlp_score
+from llp_tpu_torch.serve.quant import dequantize_rows, quantize_table
 from llp_tpu_torch.utils import profiling
 
 BLOCK = 8
@@ -81,6 +86,27 @@ def test_blocks_equal_the_unblocked_expression(small_block, head, count):
                           lins=None if lins is None else _jax_lins(lins))
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
     assert edge_score.unfused_blocks - before == -(-count // BLOCK)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantized_blocks_equal_the_dequantized_table_scored_whole(small_block, bits, fused):
+    table = quantize_table(torch.randn(50, 16, generator=torch.Generator().manual_seed(2)),
+                           bits=bits)
+    dense = dequantize_rows(table, torch.arange(50))
+    count = 3 * BLOCK + 5
+    src, dst = _pairs(50, count)
+    lins = _head(2)
+    before = edge_score.unfused_blocks
+    with torch.no_grad():
+        got = edge_score.score_edges(table, src, dst, mode="mlp", lins=lins, fused=fused,
+                                     take=lambda ids: dequantize_rows(table, ids))
+        whole = (sddmm_mlp_score(dense, dense, src, dst, *head_weights(lins)) if fused
+                 else _expression(dense, src, dst, lins))
+    assert got.dtype == torch.float32 and got.shape == (count,)
+    torch.testing.assert_close(got, whole, rtol=1e-6, atol=1e-7)
+    # the unfused blocks count; the kernel's do not
+    assert edge_score.unfused_blocks - before == (0 if fused else -(-count // BLOCK))
 
 
 def test_the_fused_route_takes_no_blocks(small_block):

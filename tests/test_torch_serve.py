@@ -17,6 +17,7 @@ from llp_tpu.serve import engine as jax_engine
 from llp_tpu.utils.checkpoint import save_checkpoint
 from llp_tpu_torch.cli import serve as torch_serve
 from llp_tpu_torch.models.predictor import LinkPredictor
+from llp_tpu_torch.ops import edge_score
 from llp_tpu_torch.serve import engine
 from llp_tpu_torch.utils.params import from_jax
 
@@ -164,7 +165,8 @@ def test_top_k_partners_clamps_k_and_takes_bf16():
     assert torch.equal(fi, ids)
 
 
-def test_score_pairs_and_encode_nodes_match_jax():
+def test_score_pairs_and_encode_nodes_match_jax(monkeypatch):
+    monkeypatch.setattr(edge_score, "PAIR_BLOCK", 50)  # several blocks and a ragged tail
     tree = jax.tree_util.tree_map(
         np.asarray, init_link_predictor(jax.random.PRNGKey(2), "mlp", 16, 24, 1, 2))
     h = _table(seed=3)
@@ -173,7 +175,7 @@ def test_score_pairs_and_encode_nodes_match_jax():
     ref = jax_engine.score_pairs(tree, jnp.asarray(h), src, dst, mode="mlp")
     pred = from_jax(tree)
     for fused in (None, True, False):
-        out = engine.score_pairs(pred, torch.from_numpy(h), src, dst, block=50, fused=fused)
+        out = engine.score_pairs(pred, torch.from_numpy(h), src, dst, fused=fused)
         np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL, rtol=0)
     assert engine.score_pairs(pred, torch.from_numpy(h), [], []).shape == (0,)
 

@@ -22,6 +22,7 @@ import torch
 from llp_tpu.models.predictor import init_link_predictor
 from llp_tpu.serve import engine as jax_engine
 from llp_tpu.serve.quant import quantize_table as jax_quantize
+from llp_tpu_torch.ops import edge_score
 from llp_tpu_torch.ops.mlp_topk import bf16_tolerance, head_layers
 from llp_tpu_torch.serve import engine
 from llp_tpu_torch.serve.quant import QuantTable, dequantize_slice, quantize_table
@@ -167,13 +168,14 @@ def test_bf16_inner_dots_accumulate_in_fp32(table):
 @pytest.mark.parametrize("bits", [8, 4])
 @pytest.mark.parametrize("mode", ["mlp", "inner"])
 @pytest.mark.parametrize("fused", [None, True, False])
-def test_score_pairs_on_quantized_tables_matches_jax(bits, mode, fused, table):
+def test_score_pairs_on_quantized_tables_matches_jax(bits, mode, fused, table, monkeypatch):
+    monkeypatch.setattr(edge_score, "PAIR_BLOCK", 100)  # several blocks and a ragged tail
     tree = _tree(mode)
     jt, tt = _tables(_for(mode, table), bits)
     rng = np.random.default_rng(6)
     src, dst = rng.integers(0, N, 333), rng.integers(0, N, 333)
     want = jax_engine.score_pairs(tree, jt, src, dst, mode=mode)
-    got = engine.score_pairs(from_jax(tree), tt, src, dst, block=100, fused=fused)
+    got = engine.score_pairs(from_jax(tree), tt, src, dst, fused=fused)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6, rtol=0)
 
 
