@@ -172,7 +172,10 @@ failure exits non-zero.
                    Gaussian features, seed 5; SAGE 2 layers, hidden 128,
                    mlp head, dropout 0, bf16, uniform negatives, batch
                    2^19), built on the host with the port's own
-                   ``sbm_graph`` (its time printed apart): one fp32 epoch
+                   ``sbm_graph`` (its time printed apart), the locality
+                   orders of its two CSRs (B1 walks them: a 128-byte slice
+                   of 10^7 rows outgrows L2; seconds and peak as in
+                   ``locality``): one fp32 epoch
                    with ``gather_last`` off and on (the first 20 steps'
                    losses within 1e-4 of each other), then one bf16 epoch
                    in each setting of ``gather_last`` and ``remat`` (epoch
@@ -185,7 +188,9 @@ failure exits non-zero.
                    'inner' at Q=256 and the bf16 'mlp' head at Q=128
                    through mlp_topk (recall@10 and times); then segsum
                    bf16 -> bf16 at D=128 forward and backward over the
-                   10M CSR beside ``torch.sparse.mm`` and its bound.
+                   10M CSR beside ``torch.sparse.mm`` and its bound, with
+                   the locality order and without it (bit for bit), and
+                   held whole against the plain version (BF16_TOL).
 12. reorder     -- ``--reorder rcm|locality`` and the tile SpMM: the
                    orders of the collab stand-in (their host time) and the
                    tile fill under each (min_tile_edges 16 and 0); on the
@@ -276,7 +281,26 @@ failure exits non-zero.
                    blocked scan over rank 1's half (global ids, the self
                    pairs masked) against a plain top-K, entries of the
                    kernels line.
-16. kernels     -- one JSON line: each kernel's launches on the serving,
+16. locality    -- B1 past L2, at the ogbl-citation2 stand-in's shape
+                   (``benchmark/llpbench/graphgen.py`` at the
+                   ``sage-teacher-citation2`` configuration's graph: 2,927,963
+                   rows, 60,775,990 message edges): the locality orders of
+                   its receiver and sender CSRs (host seconds with their
+                   ``locality_share``, the identity order's share, the
+                   temporaries' peak), derived again through ``spmm`` on
+                   copies of the CSRs (a forward that a backward can
+                   follow derives the backward's order, one under no_grad
+                   does not) and equal; then B1 with the order against B1
+                   without it (the heavy-first block order), bit for bit,
+                   and against the plain version (fp32 within SEGSUM_TOL,
+                   bf16 within BF16_TOL): the fp32 forward at D = 256 and
+                   128, the fp32 backward over the sender CSR (on values
+                   that fp32 sums exactly), bf16 -> bf16 and the weighted
+                   fp32 forward, each timed beside its byte bound, the
+                   plain version (16 blocks of rows) and ``torch.sparse.mm``
+                   (``locality_order:``, ``locality_segsum:`` lines; the
+                   launches walked counted by ``segsum.locality_launches``).
+17. kernels     -- one JSON line: each kernel's launches on the serving,
                    training, student, production, tooling, reorder, dp, halo and shard paths, its
                    time at the collab shapes, the plain version's time, a
                    library call's time where one exists, and the least time
@@ -398,6 +422,22 @@ def compare_bf16(got, ref, *, ulps: int, atol: float, what: str) -> dict:
         raise AssertionError(f"{what}: past {ulps} bf16 ulp + {atol} "
                              f"(max abs {float(err.max()):.3g}, {used:.3g}x the tolerance)")
     return {"max_abs": float(err.max()), "tol_used": used}
+
+
+def compare_rows(got, ref, check, *, what: str, blocks: int = 16) -> dict:
+    """``check`` (:func:`compare` or :func:`compare_bf16` with its
+    tolerance bound) over ``blocks`` runs of rows in turn, so that no
+    float64 copy of a whole large output is made; the largest error and
+    share of the tolerance of any run."""
+    n = got.shape[0]
+    if ref.shape != got.shape:
+        raise AssertionError(f"{what}: shape {tuple(got.shape)} != {tuple(ref.shape)}")
+    step = max(1, -(-n // blocks))
+    worst = {"max_abs": 0.0, "tol_used": 0.0}
+    for r0 in range(0, n, step):
+        err = check(got[r0:r0 + step], ref[r0:r0 + step], what=f"{what} rows {r0}+")
+        worst = {k: max(worst[k], err[k]) for k in worst}
+    return worst
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -1072,9 +1112,18 @@ def _check_route_refusals(head, gen) -> None:
         x = torch.randn(n, d, generator=gen, device="cuda")
         out = torch.empty_like(x)
         rc = seg(x.data_ptr(), index_int32(send).data_ptr(), ptr.data_ptr(), None, None,
-                 out.data_ptr(), n, d, 0, 0, vec, None, 0, 0, stream)
+                 out.data_ptr(), n, d, 0, 0, vec, None, 0, 0, None, stream)
         if rc != 1:
             raise AssertionError(f"segsum d={d}: the entry took vec={vec} (rc {rc})")
+    # a heavy-first block order and a row order at once
+    blocks = torch.zeros(n // 32, dtype=torch.int32, device="cuda")
+    rows = torch.arange(n, dtype=torch.int32, device="cuda")
+    x = torch.randn(n, 256, generator=gen, device="cuda")
+    out = torch.empty_like(x)
+    rc = seg(x.data_ptr(), index_int32(send).data_ptr(), ptr.data_ptr(), None, None,
+             out.data_ptr(), n, 256, 0, 0, 1, blocks.data_ptr(), 1, 32, rows.data_ptr(), stream)
+    if rc != 1:
+        raise AssertionError(f"segsum: the entry took a block order and a row order (rc {rc})")
     sd = load_library("sddmm")
     w1, b1, w2, b2 = (t.cuda() for t in head_weights(head.lins))
     ws = split_w1(w1)
@@ -1086,7 +1135,7 @@ def _check_route_refusals(head, gen) -> None:
     if rc != 1:
         raise AssertionError(f"sddmm: the entry took 4-byte gathers at D=256 (rc {rc})")
     torch.cuda.synchronize()
-    log("kernel_check", {"kernel": "route_refusals", "segsum": 2, "sddmm": 1})
+    log("kernel_check", {"kernel": "route_refusals", "segsum": 3, "sddmm": 1})
 
 
 def _mlp_head(dims, seed: int) -> list:
@@ -1681,6 +1730,7 @@ def _counts() -> dict:
             "gather_by_width": dict(gather_rows.launch_counts),
             "routes": dict(segsum.route_counts),
             "heavy_first": segsum.heavy_first_launches,
+            "locality": segsum.locality_launches,
             "backward": spmm.backward_launches,
             "weighted_backward": spmm.weighted_backward_launches,
             "sddmm": sddmm_mlp_score.launches,
@@ -1721,6 +1771,7 @@ def _delta(after: dict, before: dict) -> dict:
                     for (route, d, h), n in after["sddmm_routes"].items()}
     return {"segsum": after["segsum"] - before["segsum"],
             "heavy_first": after["heavy_first"] - before["heavy_first"],
+            "locality": after["locality"] - before["locality"],
             "backward": after["backward"] - before["backward"],
             "gather": after["gather"] - before["gather"],
             "gather_by_width": {k: v for k, v in (
@@ -1971,6 +2022,9 @@ def _check_train_launches(label: str, variant: str, dtype: str, counts: dict,
                              f"a step")
     if counts["sddmm"] == 0:
         raise AssertionError(f"{label}: eval did not launch the sddmm kernel")
+    if counts["locality"]:  # a collab-sized table's 128-byte slice fits L2
+        raise AssertionError(f"{label}: {counts['locality']} segsum launches walked a "
+                             f"locality order")
     _check_sddmm_route(label, counts)
     # the steps' 256-wide aggregations, forward and backward, gather
     # 128-byte feature slices that stay in L2
@@ -2834,6 +2888,205 @@ SCALE10M_FP32_STEPS = 20
 SCALE10M_FP32_RTOL = 1e-4
 
 
+CITATION2_CONFIG = ROOT / "benchmark" / "configs" / "sage-teacher-citation2.json"
+CITATION2_SEED = 3230000001
+
+
+def _standin_graph(spec: dict, seed: int):
+    """The benchmark generator's message graph at ``spec`` (a configuration's
+    ``graph`` group; one eval negative a set, as the pairs do not depend on
+    them) as a :class:`Graph` on the card, its CSRs as ``build_graph`` sorts
+    them (stably, by receiver and by sender), and the host seconds of the
+    generator."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT / "benchmark"))
+    from llpbench import graphgen
+
+    spec = dict(spec, valid_negatives=1, test_negatives=1)
+    t = time.perf_counter()
+    edges = graphgen.make_graph(spec, seed).message_edges
+    host_s = time.perf_counter() - t
+    send, recv = torch.from_numpy(np.ascontiguousarray(edges)).cuda()
+    return _device_graph(send, recv, int(spec["nodes"])), host_s
+
+
+def _device_graph(send, recv, n: int):
+    """The :class:`Graph` of the message edges ``send`` -> ``recv`` (int64
+    on the card) over ``n`` nodes, its CSRs sorted on the card as
+    ``build_graph`` sorts them on the host."""
+    import torch
+
+    from llp_tpu_torch.core.graph import Graph
+
+    def csr(key, other):
+        order = torch.sort(key, stable=True).indices
+        ptr = torch.zeros(n + 1, dtype=torch.int64, device="cuda")
+        ptr[1:] = torch.cumsum(torch.bincount(key, minlength=n), 0)
+        return other[order], key[order], ptr
+
+    senders, receivers, in_ptr = csr(recv, send)
+    col, csr_row, row_ptr = csr(send, recv)
+    return Graph(senders=senders, receivers=receivers, in_ptr=in_ptr, row_ptr=row_ptr, col=col,
+                 csr_row=csr_row, in_degree=in_ptr[1:] - in_ptr[:-1],
+                 out_degree=row_ptr[1:] - row_ptr[:-1], num_nodes=n, num_edges=senders.numel())
+
+
+def _csr_copy(g):
+    """``g`` with new CSR tensors (no cached order on them)."""
+    import dataclasses
+
+    return dataclasses.replace(g, senders=g.senders.clone(), in_ptr=g.in_ptr.clone(),
+                               col=g.col.clone(), row_ptr=g.row_ptr.clone())
+
+
+def _without_locality(fn):
+    """``fn`` run as B1 ran before the locality order: with an L2 taken to
+    hold any slice, so in the heavy-first block order, slice-major."""
+    from llp_tpu_torch.ops import segsum as segsum_mod
+
+    def run():
+        kept = segsum_mod._l2_bytes
+        segsum_mod._l2_bytes = lambda index: 1 << 62
+        try:
+            return fn()
+        finally:
+            segsum_mod._l2_bytes = kept
+    return run
+
+
+def _derive_orders(g, phase: str) -> dict:
+    """The locality orders of ``g``'s receiver and sender CSRs, each derived
+    alone and logged (``locality_order:``) with its record in
+    ``segsum.locality_orders``, the identity order's share and the
+    temporaries' peak above what was live."""
+    import torch
+
+    from llp_tpu_torch.ops import segsum as segsum_mod
+
+    segsum = segsum_mod.segsum
+    orders = {}
+    for name, senders, ptr in (("receiver", g.senders, g.in_ptr), ("sender", g.col, g.row_ptr)):
+        torch.cuda.synchronize()
+        live = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        before = len(segsum.locality_orders)
+        orders[name] = segsum_mod.locality_order(senders, ptr)
+        peak = torch.cuda.max_memory_allocated() - live
+        (rec,) = segsum.locality_orders[before:]
+        log("locality_order", {"phase": phase, "csr": name, **rec,
+                               "identity_share": segsum_mod.locality_share(
+                                   senders, ptr, torch.arange(g.num_nodes, device="cuda")),
+                               "peak_above_live_bytes": peak,
+                               "order_bytes": orders[name].numel() * 4})
+    return orders
+
+
+def phase_locality(gen) -> dict:
+    """(16) of the module's docstring."""
+    import torch
+
+    from llp_tpu_torch.ops import segsum as segsum_mod
+    from llp_tpu_torch.ops.spmm import spmm
+
+    segsum = segsum_mod.segsum
+    l2 = segsum_mod._l2_bytes(torch.cuda.current_device())
+    if 235_868 * segsum_mod.SLICE_BYTES > l2:
+        raise AssertionError(f"locality: the collab stand-in's slice outgrows L2 ({l2} B)")
+    g, host_s = _standin_graph(json.loads(CITATION2_CONFIG.read_text())["graph"],
+                               CITATION2_SEED)
+    n, e = g.num_nodes, g.num_edges
+    if n * segsum_mod.SLICE_BYTES <= l2:
+        raise AssertionError(f"locality: a {n}-row slice fits L2 ({l2} B)")
+    log("locality_graph", {"n": n, "e": e, "host_generator_s": host_s, "l2_bytes": l2,
+                           "max_in_degree": int(g.in_degree.max()),
+                           "heavy_rows": int((g.in_degree > segsum_mod.HEAVY_EDGES).sum())})
+    orders = _derive_orders(g, "locality")
+
+    # through spmm on copies: a forward that a backward can follow derives
+    # both orders, the backward none; one under no_grad only its own
+    x = torch.randn(n, 256, generator=gen, device="cuda")
+    gc = _csr_copy(g)
+    derived, walked = len(segsum.locality_orders), segsum.locality_launches
+    xg = x.clone().requires_grad_()
+    out = spmm(gc, xg, "mean")
+    in_forward = len(segsum.locality_orders) - derived
+    out.backward(torch.randn(n, 256, generator=gen, device="cuda"))
+    if (in_forward != 2 or len(segsum.locality_orders) - derived != 2
+            or segsum.locality_launches - walked != 2):
+        raise AssertionError(f"locality: spmm's forward derived {in_forward} orders, and its "
+                             f"forward and backward did not walk two orders derived then")
+    for name, senders, ptr in (("receiver", gc.senders, gc.in_ptr),
+                               ("sender", gc.col, gc.row_ptr)):
+        if not torch.equal(segsum_mod.locality_order(senders, ptr), orders[name]):
+            raise AssertionError(f"locality: the {name} CSR's order differs when derived again")
+    del xg, out, gc
+    gc, derived = _csr_copy(g), len(segsum.locality_orders)
+    with torch.no_grad():
+        spmm(gc, x.clone().requires_grad_(), "mean")
+    if len(segsum.locality_orders) - derived != 1:
+        raise AssertionError("locality: spmm under no_grad derived the backward's order")
+    del gc
+
+    scale = g.inv_in_degree
+    w = torch.randn(e, generator=gen, device="cuda")
+    adj_fwd = torch.sparse_csr_tensor(g.in_ptr, g.senders, scale[g.receivers], (n, n))
+    adj_bwd = torch.sparse_csr_tensor(g.row_ptr, g.col, torch.ones(e, device="cuda"), (n, n))
+    adj_w = torch.sparse_csr_tensor(g.in_ptr, g.senders, w * scale[g.receivers], (n, n))
+    # the backward sums up to thousands of unscaled edges a row: multiples of
+    # 1/256 in [-4, 4], which fp32 sums exactly in any order, as kernel_check
+    # holds ba_graph's hubs
+    exact = torch.randint(-1024, 1025, (n, 256), generator=gen, device="cuda").float() / 256
+    cases = [
+        ("forward fp32", x, g.senders, g.in_ptr, scale, None, adj_fwd),
+        ("forward fp32, D=128", x[:, :128].contiguous(), g.senders, g.in_ptr, scale, None,
+         adj_fwd),
+        ("backward fp32", exact, g.col, g.row_ptr, None, None, adj_bwd),
+        ("bf16 -> bf16 forward", x.bfloat16(), g.senders, g.in_ptr, scale, None, adj_fwd),
+        ("weighted fp32 forward", x, g.senders, g.in_ptr, scale, w, adj_w),
+    ]
+    entries = []
+    for what, t, senders, ptr, sc, wt, adj in cases:
+        def call(t=t, senders=senders, ptr=ptr, sc=sc, wt=wt):
+            return segsum(t, senders, ptr, sc, weights=wt)
+
+        def plain(t=t, senders=senders, ptr=ptr, sc=sc, wt=wt):
+            return _segsum_plain_blocks(t, senders, ptr, sc, wt)
+        walked, heavy = segsum.locality_launches, segsum.heavy_first_launches
+        got, ref = call(), _without_locality(call)()
+        has_heavy = bool(((ptr[1:] - ptr[:-1]) > segsum_mod.HEAVY_EDGES).any())
+        if (segsum.locality_launches - walked != 1
+                or segsum.heavy_first_launches - heavy != has_heavy):
+            raise AssertionError(f"locality {what}: the launches did not walk the locality "
+                                 f"order, then the parent's block order")
+        if not torch.equal(got, ref):
+            raise AssertionError(f"locality {what}: B1 with the order differs from B1 "
+                                 f"without it")
+        del ref
+        check = (functools.partial(compare, **SEGSUM_TOL) if got.dtype == torch.float32
+                 else functools.partial(compare_bf16, **BF16_TOL))
+        err = compare_rows(got, plain(), check, what=f"locality {what}")
+        del got
+        out_bytes = t.element_size()
+        nbytes = (n * t.shape[1] * (t.element_size() + out_bytes) + e * 4 + (n + 1) * 8
+                  + (0 if sc is None else n * 4) + (0 if wt is None else e * 4))
+        entry = {"case": what, "n": n, "e": e, "d": t.shape[1], "dtype": str(t.dtype),
+                 "bit_equal": True, "max_abs_err": err["max_abs"], "tol_used": err["tol_used"],
+                 "ms": time_ms(call), "ms_without": time_ms(_without_locality(call)),
+                 "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                 "plain_ms": time_ms(plain, reps=2, warmup=1)}
+        try:
+            a = adj.to(t.dtype)
+            entry["library_ms"] = time_ms(lambda: torch.sparse.mm(a, t), reps=5, warmup=1)
+        except RuntimeError as exc:
+            entry["library_ms"] = None
+            entry["library_note"] = f"torch.sparse.mm refuses {t.dtype} here: {str(exc)[:120]}"
+        log("locality_segsum", entry)
+        entries.append(entry)
+    return {"entries": entries, "launches": segsum.locality_launches}
+
+
 def _scale10m_data():
     """The host graph (seeded, nothing downloaded), split into the training
     pairs and the held-out ones; returns the arrays and the host seconds."""
@@ -2867,7 +3120,7 @@ def _scale10m_data():
             "pairs": pairs.shape[1], "host_graph_s": time.perf_counter() - t}
 
 
-def _segsum_plain_blocks(x, senders, in_ptr, scale, blocks: int = 16):
+def _segsum_plain_blocks(x, senders, in_ptr, scale, weights=None, blocks: int = 16):
     """``segsum_plain`` over ``blocks`` runs of receiver rows in turn (the
     plain version at once would hold the (E, D) fp32 messages)."""
     import torch
@@ -2880,7 +3133,8 @@ def _segsum_plain_blocks(x, senders, in_ptr, scale, blocks: int = 16):
     for r0, r1 in zip(cuts[:-1], cuts[1:]):
         e0, e1 = int(in_ptr[r0]), int(in_ptr[r1])
         parts.append(segsum_plain(x, senders[e0:e1], in_ptr[r0:r1 + 1] - e0,
-                                  None if scale is None else scale[r0:r1]))
+                                  None if scale is None else scale[r0:r1],
+                                  weights=None if weights is None else weights[e0:e1]))
     return torch.cat(parts)
 
 
@@ -2893,6 +3147,7 @@ def phase_scale10m(gen) -> dict:
     scorer, B3), the table in int4, and top-10 retrieval from it against the
     same model's fp32 table: 'inner' at Q=256 and the bf16 'mlp' head at
     Q=128 through the retrieval kernel (B4). Then B1 at the table's size.
+    The two locality orders are derived before the first epoch.
     Returns the kernels line's entries and the path's launches."""
     import numpy as np
     import torch
@@ -2902,7 +3157,7 @@ def phase_scale10m(gen) -> dict:
     from llp_tpu_torch.ops.metrics import roc_auc
     from llp_tpu_torch.ops.mlp_topk import mlp_block_logits
     from llp_tpu_torch.ops.sddmm import sddmm_mlp_score
-    from llp_tpu_torch.ops.segsum import segsum, segsum_plain
+    from llp_tpu_torch.ops.segsum import segsum
     from llp_tpu_torch.ops.spmm import spmm
     from llp_tpu_torch.serve import quantize_table, score_pairs, top_k_partners
     from llp_tpu_torch.train.teacher import TeacherTrainer, init_teacher
@@ -2922,6 +3177,7 @@ def phase_scale10m(gen) -> dict:
                      "held_out": c["held_out"], "host_graph_s": data["host_graph_s"],
                      "build_graph_s": build_s})
     del data["messages"]
+    _derive_orders(g, "scale10m")
 
     # the 10M path starts here
     _reset_gather_counts()
@@ -2965,6 +3221,11 @@ def phase_scale10m(gen) -> dict:
             raise AssertionError(f"scale10m {dtype} {gather_last} {remat}: {fwd} forward, "
                                  f"{counts['backward']} backward and {counts['gather']} gather "
                                  f"segsum launches in {steps} steps, expected each a step")
+        # all but the gathers' backward (a CSR made per call) walk an order
+        if counts["locality"] != counts["segsum"] - counts["gather"]:
+            raise AssertionError(f"scale10m {dtype} {gather_last} {remat}: "
+                                 f"{counts['locality']} of {counts['segsum']} segsum launches "
+                                 f"walked a locality order, {counts['gather']} gathers'")
         runs.append(run)
         if (dtype, gather_last, remat) != SCALE10M_KNOBS[-1]:
             del trainer, model
@@ -3082,8 +3343,27 @@ def phase_scale10m(gen) -> dict:
             senders, ptr, sc = g.col, g.row_ptr, None
             adj = torch.sparse_csr_tensor(g.row_ptr, g.col, torch.ones(e, device="cuda"),
                                           (n, n))
-        ms = time_ms(lambda: segsum(xb, senders, ptr, sc), reps=5)
-        plain_ms = time_ms(lambda: _segsum_plain_blocks(xb, senders, ptr, sc), reps=1, warmup=1)
+
+        def call(xb=xb, senders=senders, ptr=ptr, sc=sc):
+            return segsum(xb, senders, ptr, sc)
+
+        def plain(xb=xb, senders=senders, ptr=ptr, sc=sc):
+            return _segsum_plain_blocks(xb, senders, ptr, sc)
+        walked = segsum.locality_launches
+        got = call()
+        if segsum.locality_launches - walked != 1:
+            raise AssertionError(f"segsum 10M {direction}: the launch did not walk the "
+                                 f"locality order")
+        if not torch.equal(got, _without_locality(call)()):
+            raise AssertionError(f"segsum 10M {direction}: B1 with the order differs from "
+                                 f"B1 without it")
+        # held whole against the plain version
+        err = compare_rows(got, plain(), functools.partial(compare_bf16, **BF16_TOL),
+                           what=f"segsum 10M {direction}")
+        del got
+        ms = time_ms(call, reps=5)
+        ms_without = time_ms(_without_locality(call), reps=5)
+        plain_ms = time_ms(plain, reps=1, warmup=1)
         try:
             adj = adj.to(torch.bfloat16)
             library_ms = time_ms(lambda: torch.sparse.mm(adj, xb), reps=3, warmup=1)
@@ -3097,24 +3377,16 @@ def phase_scale10m(gen) -> dict:
                  "source": "llp_tpu_torch/csrc/segsum.cu",
                  "replaces": "llp_tpu/ops/pallas/segsum_kernel.py:191",
                  "launches": launches[key], "launches_per_step": launches[key] / steps,
-                 "max_abs_err": 0.0, "ms": ms,
+                 "max_abs_err": err["max_abs"], "ms": ms, "ms_without_locality": ms_without,
                  "plain_ms": plain_ms, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
                  "bound_by": "bytes", "library_ms": library_ms,
                  "plain_note": "segsum_plain over 16 blocks of receiver rows in turn",
                  "shapes": f"10M SBM {'receiver' if direction == 'fwd' else 'sender'} CSR: "
                            f"n={n} e={e}, d=128, bfloat16->bfloat16"}
-        # held against the plain version on the first 200,000 rows
-        r1 = min(200_000, n)
-        e1 = int(ptr[r1])
-        got = segsum(xb, senders[:e1], ptr[:r1 + 1].contiguous(),
-                     None if sc is None else sc[:r1].contiguous())
-        ref = segsum_plain(xb.float(), senders[:e1], ptr[:r1 + 1],
-                           None if sc is None else sc[:r1])
-        err = compare_bf16(got, ref, **BF16_TOL, what=f"segsum 10M {direction}")
-        entry["max_abs_err"] = err["max_abs"]
         entries.append(entry)
         log("timing", {"kernel": entry["name"], "n": n, "e": e, "d": c["hidden"],
-                       "bytes": nbytes, "ms": ms, "plain_ms": plain_ms,
+                       "bytes": nbytes, "ms": ms, "ms_without_locality": ms_without,
+                       "plain_ms": plain_ms,
                        "library_ms": library_ms, "bound_ms": entry["bound_ms"],
                        "max_abs_err": err["max_abs"]})
     log("scale10m_launches", launches)
@@ -5331,6 +5603,7 @@ def main() -> int:
     dp = timed("dp", phase_dp, gen, train)
     halo = timed("halo", phase_halo, gen, train)
     shard = timed("shard", phase_shard, gen)
+    timed("locality", phase_locality, gen)
     kernels = (timed("kernels", phase_kernels, gen, launches, train, student, production,
                      tooling, scale10m, reorder, worst) + dp["entries"] + halo["entries"]
                + shard["entries"])

@@ -51,10 +51,22 @@
 //   sees x about once, out once, and the index arrays once a slice; the
 //   gathers (E x D values in all) are served from L2, whose rate now bounds
 //   the fp32 instances.  The width is fixed: 64- and 32-byte slices read
-//   1.3x and 2.7x slower on the collab stand-in, and no graph of the
-//   repository has more than the 262,144 rows past which a 128-byte slice
-//   outgrows 32 MB of L2.  Stores, index and weight loads stream (evict
-//   first), so they do not push the slice out of L2.
+//   1.3x and 2.7x slower on the collab stand-in.  Stores, index and weight
+//   loads stream (evict first), so they do not push the slice out of L2.
+// * Past L2 the slice does not stay: on the ogbl-citation2 stand-in
+//   (2,927,963 rows) one slice is 375 MB, 7.5x the H100's 50 MB, and
+//   slice-major gathers came from HBM (~21 ms a D = 256 pass, 10 % of the
+//   byte bound).  No narrower slice fits at that height (even one 16-byte
+//   vector a row is 47 MB, and it reads half of each 32-byte sector for
+//   nothing).  There the wrapper passes a locality order of the rows
+//   (ops/segsum.py::locality_order: rows that share senders next to each
+//   other) and the blocks run row-block-major: the slices of one block of
+//   rows are dispatched together, row slot i of row block p owning row
+//   rows[p * rows_per_block + i].  The blocks in flight then cover a few
+//   clusters of rows, whose senders' rows HBM sends once and L2 serves to
+//   the other edges and slices (slice-major over the same order read 11 %
+//   slower; index loads cached in place of streamed, 24 % slower).  Only
+//   the rows a block sums change: each row's sum is the same, bit for bit.
 // * A group of kL lanes owns one row of a slice, one 16-byte vector a lane,
 //   and a warp 32 / kL = 4 rows (a whole warp per (row, slice) made 1.9 M
 //   warps of a few loads each on the collab stand-in, bound by load latency
@@ -69,13 +81,12 @@
 // * Heavy rows (more than ops/segsum.py::HEAVY_EDGES edges) run first: the
 //   blocks that hold one are dispatched before all others, every slice of
 //   them at once (ops/segsum.py::heavy_first derives the order once per
-//   CSR).  A hub row walked by one group takes as long as its edges, so on a
-//   power-law graph (ba_graph(235_868, 5), rows up to 1,610 edges) the
-//   slice-major order would leave it running alone at the end of the
-//   kernel; first, it overlaps all the rest.  No graph that the port trains
-//   on or serves has such a row (chip_smoke.py counts no heavy-first launch
-//   on any path): the order serves power-law graphs, checked and timed on
-//   ba_graph.
+//   CSR; the locality order lists heavy rows first).  A hub row walked by
+//   one group takes as long as its edges, so on a power-law graph
+//   (ba_graph(235_868, 5), rows up to 1,610 edges; the citation2 stand-in's
+//   hubs) the slice-major order would leave it running alone at the end of
+//   the kernel; first, it overlaps all the rest.  The collab graphs have no
+//   such row.
 // * Senders are int32 (the wrapper caches the copy once per index tensor):
 //   a slice pass reads 4 bytes an edge, not 8.
 // * Launch bounds ask for 4 blocks of 8 warps an SM (64 registers a
@@ -236,17 +247,25 @@ __device__ __forceinline__ void load_chunk(const int32_t* __restrict__ senders,
 }
 
 // The order blocks run in: block b is (feature slice, block of rows).
-// Blocks holding a heavy row (order[0 .. n_heavy), every slice of each)
-// come first; then the others, slice-major (order[n_heavy ...]).  Without
-// heavy rows (order null) block b is slice b / row_blocks, row block
-// b % row_blocks.
+// With a row order (rows), row-block-major: block b is row block
+// b / n_slices, slice b % n_slices, and row slot i holds row rows[i].
+// Else blocks holding a heavy row (order[0 .. n_heavy), every slice of
+// each) come first; then the others, slice-major (order[n_heavy ...]).
+// Without either (order and rows null) block b is slice b / row_blocks,
+// row block b % row_blocks.
 struct Schedule {
   const int32_t* order;  // row blocks, heavy ones first; or null
+  const int32_t* rows;   // the row of each row slot (locality order); or null
   int64_t n_heavy, row_blocks, n_slices;
 };
 
 __device__ __forceinline__ void block_cell(const Schedule& sc, int64_t& slice, int64_t& rb) {
   const int64_t b = blockIdx.x;
+  if (sc.rows != nullptr) {
+    rb = b / sc.n_slices;
+    slice = b - rb * sc.n_slices;
+    return;
+  }
   if (sc.order == nullptr) {
     slice = b / sc.row_blocks;
     rb = b - slice * sc.row_blocks;
@@ -261,6 +280,11 @@ __device__ __forceinline__ void block_cell(const Schedule& sc, int64_t& slice, i
     slice = (b - first) / n_light;
     rb = __ldg(sc.order + sc.n_heavy + (b - first) % n_light);
   }
+}
+
+// The row that row slot `slot` (< n_rows) holds.
+__device__ __forceinline__ int64_t slot_row(const Schedule& sc, int64_t slot) {
+  return sc.rows != nullptr ? __ldg(sc.rows + slot) : slot;
 }
 
 // Block b holds a block of kWarps * (32 / kL) rows of one feature slice
@@ -282,10 +306,11 @@ segsum_vec_kernel(const TIn* __restrict__ x, const int32_t* __restrict__ senders
   const int grp = lane / kL, sub = lane % kL;
   int64_t slice, rb;
   block_cell(sc, slice, rb);
-  const int64_t row = (rb * kWarps + (threadIdx.x >> 5)) * kG + grp;
+  const int64_t slot = (rb * kWarps + (threadIdx.x >> 5)) * kG + grp;
   const int64_t f = slice * (kL * kN) + sub * kN;
   const bool on = f < d;  // d % kN == 0: f < d means all kN features exist
-  const bool live = row < n_rows;
+  const bool live = slot < n_rows;
+  const int64_t row = live ? slot_row(sc, slot) : 0;
   const int64_t e0 = live ? load_index(in_ptr + row) : 0;
   const int64_t e1 = live ? load_index(in_ptr + row + 1) : 0;
   // the warp walks as many chunks as its longest row needs (warp-uniform)
@@ -337,8 +362,9 @@ segsum_scalar_kernel(const TIn* __restrict__ x, const int32_t* __restrict__ send
   const int lane = threadIdx.x & 31;
   int64_t slice, rb;
   block_cell(sc, slice, rb);
-  const int64_t row = rb * kWarps + (threadIdx.x >> 5);
-  if (row >= n_rows) return;  // warp-uniform
+  const int64_t slot = rb * kWarps + (threadIdx.x >> 5);
+  if (slot >= n_rows) return;  // warp-uniform
+  const int64_t row = slot_row(sc, slot);
   const int64_t f = slice * 32 + lane;
   const bool on = f < d;
   const int64_t e0 = load_index(in_ptr + row);
@@ -375,22 +401,25 @@ segsum_scalar_kernel(const TIn* __restrict__ x, const int32_t* __restrict__ send
 
 // vec: the vector path, as the caller picked it (refused where the shape
 // does not allow it, and where it does but the scalar path was asked for).
-// The heavy-first order, when given, lists row blocks of order_rows rows.
+// The heavy-first order, when given, lists row blocks of order_rows rows;
+// the row order (rows) is a permutation of the n_rows rows, and excludes it.
 template <typename TIn, typename TOut, bool kW>
 int launch(const void* x, const int32_t* senders, const int64_t* in_ptr, const float* scale,
            const float* w, void* out, int64_t n_rows, int64_t d, int vec,
-           const int32_t* order, int64_t n_heavy, int64_t order_rows, cudaStream_t s) {
+           const int32_t* order, int64_t n_heavy, int64_t order_rows, const int32_t* rows,
+           cudaStream_t s) {
   const bool vec_ok = d % Vec<TIn>::kN == 0 &&
                       reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                       reinterpret_cast<uintptr_t>(out) % 16 == 0;
   if (vec != (int)vec_ok) return (int)cudaErrorInvalidValue;
   const int64_t width = vec ? (int64_t)kL * Vec<TIn>::kN : 32;  // features a slice
   const int64_t rows_per_block = vec ? kWarps * (32 / kL) : kWarps;
-  if (order && (order_rows != rows_per_block || n_heavy < 0)) {
+  if (order && (rows || order_rows != rows_per_block || n_heavy < 0)) {
     return (int)cudaErrorInvalidValue;
   }
   Schedule sc;
   sc.order = order;
+  sc.rows = rows;
   sc.row_blocks = (n_rows + rows_per_block - 1) / rows_per_block;
   sc.n_heavy = order ? n_heavy : 0;
   sc.n_slices = (d + width - 1) / width;
@@ -417,7 +446,9 @@ int launch(const void* x, const int32_t* senders, const int64_t* in_ptr, const f
 // fp32 or null; w (E,) fp32 per-edge weights in the order of senders, or
 // null; out (n_rows, d), fp32 (out_type 0) or bf16 (out_type 1); vec 1 for
 // the vector path, 0 for the scalar one; order (row blocks of order_rows
-// rows, the n_heavy that hold a heavy row first) or null.  Instances:
+// rows, the n_heavy that hold a heavy row first) or null; rows (n_rows,)
+// int32, a permutation of the rows that row slots walk, or null (not both
+// order and rows).  Instances:
 // unweighted fp32->fp32, bf16->fp32, bf16->bf16; weighted fp32->fp32,
 // bf16->fp32, bf16->bf16; any other combination is refused.  The caller picks the path
 // (ops/segsum.py::_route) and this entry refuses a pick that disagrees with
@@ -428,11 +459,11 @@ extern "C" int llp_segsum(const void* x, const int32_t* senders, const int64_t* 
                           const float* scale, const float* w, void* out, int64_t n_rows,
                           int64_t d, int in_type, int out_type, int vec,
                           const int32_t* order, int64_t n_heavy, int64_t order_rows,
-                          void* stream) {
+                          const int32_t* rows, void* stream) {
   if (n_rows <= 0 || d <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define LLP_SEGSUM_ARGS x, senders, in_ptr, scale, w, out, n_rows, d, vec, order, n_heavy, \
-                        order_rows, s
+                        order_rows, rows, s
   if (w) {
     if (in_type == 0 && out_type == 0) return launch<float, float, true>(LLP_SEGSUM_ARGS);
     if (in_type == 1 && out_type == 0) return launch<bf16, float, true>(LLP_SEGSUM_ARGS);

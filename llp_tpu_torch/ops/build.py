@@ -35,7 +35,8 @@ _P, _I64, _INT, _F32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.
 # type codes as int, fp32 scalars as float.
 SIGNATURES = {
     "segsum": ("llp_segsum",
-               [_P, _P, _P, _P, _P, _P, _I64, _I64, _INT, _INT, _INT, _P, _I64, _I64, _P]),
+               [_P, _P, _P, _P, _P, _P, _I64, _I64, _INT, _INT, _INT, _P, _I64, _I64, _P,
+                _P]),
     "sddmm": ("llp_sddmm_mlp_f32",
               [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _INT, _P]),
     "mlp_topk": ("llp_mlp_topk",

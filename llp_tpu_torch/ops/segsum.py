@@ -26,18 +26,30 @@ and the weight itself, so no (E, D) message tensor exists and the TPU's
 chunked message stream (``_CHUNK_MSG_BYTES``) has no counterpart here.
 
 The kernel walks the features in 128-byte slices, slowest-varying, so that
-the slice of ``x`` being gathered stays in L2, reads int32 senders (:func:`index_int32`, one copy per index tensor), and
-runs the blocks that hold a row of more than ``HEAVY_EDGES`` edges first
-(:func:`heavy_first`, one order per CSR), so that no hub row is left
-running alone at the end.  Only power-law graphs have such rows: none of
-the graphs the port trains on or serves does.
+the slice of ``x`` being gathered stays in L2, reads int32 senders
+(:func:`index_int32`, one copy per index tensor), and runs the blocks that
+hold a row of more than ``HEAVY_EDGES`` edges first (:func:`heavy_first`,
+one order per CSR), so that no hub row is left running alone at the end.
+A slice stays in L2 only while ``x`` has few enough rows: in the H100's
+50 MiB, up to 409,600 (the collab stand-in's 235,868 rows make a 30 MB
+slice; the ogbl-citation2 stand-in's 2,927,963 make 375 MB).  Past that,
+for a graph's cached CSR, the kernel walks the rows in a locality order
+instead (:func:`locality_order`: label propagation over the CSR, heavy
+rows first, a cluster's rows by their edges), all slices of a block of rows
+together, so that rows sharing senders run together and L2 serves what
+they share (:func:`schedule` decides, by shape alone).  Each row's sum is
+the same either way, bit for bit.
 """
 
 from __future__ import annotations
 
+import functools
+import time
+import weakref
 from collections import Counter
 from typing import Optional
 
+import numpy as np
 import torch
 
 from llp_tpu_torch.ops.build import load_library
@@ -61,11 +73,20 @@ HEAVY_EDGES = 256
 # 16-byte vectors), one on the scalar path.
 BLOCK_WARPS = 8
 ROWS_PER_WARP = {"vector128B": 4, "scalar": 1}
+# The bytes of a row in one feature slice (csrc/segsum.cu: kL 16-byte
+# vectors): past L2 / SLICE_BYTES rows of x, a slice no longer stays in L2.
+SLICE_BYTES = 128
+# The locality order: rounds of label propagation, edges a round sorts at a
+# time (its temporaries: a few arrays of that many int64), and the window of
+# its quality counter (``locality_share``), in positions of the order.
+LOCALITY_ROUNDS = 10
+LOCALITY_CHUNK_EDGES = 1 << 22
+LOCALITY_WINDOW = 4096
 
 # The attributes that hold, on an index tensor itself, its int32 copy and
-# (on a CSR's offsets) its heavy-first orders: freed with the tensor, and
-# one attribute read on the wrapper's path, which a weak dictionary's
-# lookup costs several times over.
+# (on a CSR's offsets) its heavy-first and locality orders: freed with the
+# tensor, and one attribute read on the wrapper's path, which a weak
+# dictionary's lookup costs several times over.
 _INDEX32_ATTR = "_llp_segsum_int32"
 _ORDERS_ATTR = "_llp_segsum_orders"
 
@@ -84,6 +105,15 @@ def index_int32(index: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _orders(in_ptr: torch.Tensor) -> dict:
+    """The orders cached on ``in_ptr``, emptied if it was written in place
+    since they were derived."""
+    cache = in_ptr.__dict__.get(_ORDERS_ATTR)
+    if cache is None or cache[0] != in_ptr._version:
+        cache = in_ptr.__dict__[_ORDERS_ATTR] = (in_ptr._version, {})
+    return cache[1]
+
+
 def heavy_first(in_ptr: torch.Tensor, rows_per_block: int):
     """``(order, n_heavy)``: the kernel's blocks of ``rows_per_block`` rows
     of the CSR ``in_ptr``, those that hold a row of more than
@@ -93,11 +123,9 @@ def heavy_first(in_ptr: torch.Tensor, rows_per_block: int):
     block size and threshold (one host read of ``n_heavy``), cached on
     ``in_ptr`` and freed with it; a tensor written in place since is derived
     anew."""
-    cache = in_ptr.__dict__.get(_ORDERS_ATTR)
-    if cache is None or cache[0] != in_ptr._version:
-        cache = in_ptr.__dict__[_ORDERS_ATTR] = (in_ptr._version, {})
+    cache = _orders(in_ptr)
     key = (rows_per_block, HEAVY_EDGES)
-    hit = cache[1].get(key)
+    hit = cache.get(key)
     if hit is not None:
         return hit
     n = in_ptr.numel() - 1
@@ -109,8 +137,153 @@ def heavy_first(in_ptr: torch.Tensor, rows_per_block: int):
     order = None
     if n_heavy:
         order = torch.sort((~heavy_block).to(torch.int8), stable=True).indices.to(torch.int32)
-    hit = cache[1][key] = (order, n_heavy)
+    hit = cache[key] = (order, n_heavy)
     return hit
+
+
+def _row_chunks(in_ptr: torch.Tensor):
+    """``(r0, r1, e0, e1)``: runs of whole rows of the CSR, each of at most
+    ``LOCALITY_CHUNK_EDGES`` edges or a single row (one host read of the
+    offsets)."""
+    ptr = in_ptr.cpu().numpy()
+    n, r0 = ptr.shape[0] - 1, 0
+    while r0 < n:
+        r1 = int(np.searchsorted(ptr, ptr[r0] + LOCALITY_CHUNK_EDGES, side="right")) - 1
+        r1 = min(max(r1, r0 + 1), n)
+        yield r0, r1, int(ptr[r0]), int(ptr[r1])
+        r0 = r1
+
+
+def _chunk_rows(in_ptr: torch.Tensor, r0: int, r1: int, e0: int, e1: int) -> torch.Tensor:
+    """The row of each edge of ``[e0, e1)``, rows ``[r0, r1)``."""
+    return torch.repeat_interleave(torch.arange(r0, r1, device=in_ptr.device),
+                                   in_ptr[r0 + 1:r1 + 1] - in_ptr[r0:r1], output_size=e1 - e0)
+
+
+def _mix(v: torch.Tensor, k: int) -> torch.Tensor:
+    """A 31-bit hash of the low 32 bits of ``v`` (int64) and round ``k``;
+    each product stays below 2^63."""
+    h = ((v & 0xFFFFFFFF) * 0x5BD1E995 + (k + 1) * 0x3C6EF372) & 0xFFFFFFFF
+    h = ((h ^ (h >> 15)) * 0x27D4EB2D) & 0xFFFFFFFF
+    return (h ^ (h >> 13)) & 0x7FFFFFFF
+
+
+def _propagate(senders: torch.Tensor, in_ptr: torch.Tensor, rounds: int) -> torch.Tensor:
+    """(N,) int64 cluster labels of the square CSR's rows: ``rounds`` rounds
+    of synchronous label propagation from every row's own id.  A round gives
+    each row with edges the label most frequent among its senders' labels;
+    a tie goes to the least hash of (row, label, round), so that rows do not
+    all break ties toward one label and merge into one cluster.  Rows sort
+    their (row, label) keys ``LOCALITY_CHUNK_EDGES`` edges at a time."""
+    n = in_ptr.numel() - 1
+    dev = in_ptr.device
+    label = torch.arange(n, device=dev)
+    chunks = list(_row_chunks(in_ptr))
+    big = torch.iinfo(torch.int64).max
+    for k in range(rounds):
+        new = label.clone()
+        for r0, r1, e0, e1 in chunks:
+            if e1 == e0:
+                continue
+            rows = _chunk_rows(in_ptr, r0, r1, e0, e1) - r0
+            keys = torch.sort(rows * n + label[senders[e0:e1]]).values
+            keys, count = torch.unique_consecutive(keys, return_counts=True)
+            row = keys // n
+            lab = keys - row * n
+            most = torch.zeros(r1 - r0, dtype=torch.int64, device=dev)
+            most.scatter_reduce_(0, row, count, "amax")
+            top = count == most[row]
+            tie = (_mix(_mix(row + r0, k) ^ lab, k) << 32) | lab
+            pick = torch.full((r1 - r0,), big, dtype=torch.int64, device=dev)
+            pick.scatter_reduce_(0, row[top], tie[top], "amin")
+            has = in_ptr[r0 + 1:r1 + 1] > in_ptr[r0:r1]
+            new[r0:r1] = torch.where(has, pick & 0xFFFFFFFF, label[r0:r1])
+        label = new
+    return label
+
+
+def locality_share(senders: torch.Tensor, in_ptr: torch.Tensor, order: torch.Tensor,
+                   window: int = LOCALITY_WINDOW) -> float:
+    """The share of the square CSR's edges whose row and sender sit fewer
+    than ``window`` positions apart in ``order`` (a permutation of the
+    rows).  The identity order reads about ``2 * window / N`` on a graph
+    with no locality in its ids."""
+    n = in_ptr.numel() - 1
+    pos = torch.empty(n, dtype=torch.int64, device=in_ptr.device)
+    pos[order.long()] = torch.arange(n, device=in_ptr.device)
+    near = 0
+    for r0, r1, e0, e1 in _row_chunks(in_ptr):
+        rows = _chunk_rows(in_ptr, r0, r1, e0, e1)
+        near += int(((pos[rows] - pos[senders[e0:e1]]).abs() < window).sum())
+    edges = int(in_ptr[-1])
+    return near / edges if edges else 0.0
+
+
+def locality_order(senders: torch.Tensor, in_ptr: torch.Tensor) -> torch.Tensor:
+    """(N,) int32: the rows of the square CSR (``senders`` index the same
+    rows), in the order the kernel walks them past L2: rows with more than
+    ``HEAVY_EDGES`` edges first, then by cluster (:func:`_propagate`), then
+    by edges, most first, then by id.  Rows sharing senders sit together,
+    so that the blocks in flight gather from the same rows; and the rows of
+    a warp have about as many edges, so that its short rows' lanes do not
+    idle while its longest row is walked (at the ogbl-citation2 stand-in's
+    shape a D = 256 pass took 28 % less time than by cluster and id).
+    Derived on ``in_ptr``'s device once per CSR (deterministic, the same on
+    the CPU), cached on ``in_ptr`` for this ``senders`` and freed with it; a
+    tensor written in place since is derived anew.  Each derivation appends
+    its rows, edges, host seconds and :func:`locality_share` to
+    ``segsum.locality_orders``."""
+    cache = _orders(in_ptr)
+    key = ("locality", HEAVY_EDGES)
+    hit = cache.get(key)
+    if hit is not None and hit[0]() is senders and hit[1] == senders._version:
+        return hit[2]
+    t = time.perf_counter()
+    label = _propagate(senders, in_ptr, LOCALITY_ROUNDS)
+    deg = in_ptr[1:] - in_ptr[:-1]
+    by_edges = torch.sort(-deg, stable=True).indices  # most edges first, then by id
+    rank = ((deg[by_edges] <= HEAVY_EDGES).to(torch.int64) << 32) | label[by_edges]
+    order = by_edges[torch.sort(rank, stable=True).indices].to(torch.int32)
+    share = locality_share(senders, in_ptr, order)  # reads the host: the order is done
+    segsum.locality_orders.append({"rows": in_ptr.numel() - 1, "edges": int(in_ptr[-1]),
+                                   "seconds": time.perf_counter() - t,
+                                   "locality_share": share})
+    cache[key] = (weakref.ref(senders), senders._version, order)
+    return order
+
+
+def schedule(senders: torch.Tensor, in_ptr: torch.Tensor, n_src: int, rows_per_block: int, *,
+             order_heavy: bool, l2_bytes: int):
+    """``(rows, order, n_heavy)``: how the kernel walks this CSR over a table
+    of ``n_src`` rows, on a card of ``l2_bytes`` of L2.  ``rows`` is the
+    :func:`locality_order` where the CSR is cached (``order_heavy``), square
+    (``n_src`` rows, each a row of the output) and a 128-byte slice of the
+    table outgrows L2; ``(order, n_heavy)`` is else :func:`heavy_first`'s
+    block order where ``order_heavy``; the other parts ``None`` and 0."""
+    if not order_heavy:
+        return None, None, 0
+    if _past_l2(n_src, in_ptr, l2_bytes):
+        return locality_order(senders, in_ptr), None, 0
+    return (None,) + heavy_first(in_ptr, rows_per_block)
+
+
+def _past_l2(n_src: int, in_ptr: torch.Tensor, l2_bytes: int) -> bool:
+    return n_src == in_ptr.numel() - 1 and n_src * SLICE_BYTES > l2_bytes
+
+
+@functools.lru_cache(maxsize=None)
+def _l2_bytes(index: int) -> int:
+    return torch.cuda.get_device_properties(index).L2_cache_size
+
+
+def prepare(x: torch.Tensor, senders: torch.Tensor, in_ptr: torch.Tensor) -> None:
+    """Derive now the order a later launch over this cached CSR with a table
+    shaped as ``x`` will walk (:func:`schedule`): a caller that knows the CSR
+    of its backward calls this in the forward, so that the derivation's
+    temporaries (about 460 MB at the ogbl-citation2 stand-in's shape) come
+    and go before the backward, where a step's memory peaks."""
+    if x.device.type == "cuda" and _past_l2(x.shape[0], in_ptr, _l2_bytes(x.device.index)):
+        locality_order(senders, in_ptr)
 
 
 def segsum_plain(x: torch.Tensor, senders: torch.Tensor, in_ptr: torch.Tensor,
@@ -149,8 +322,8 @@ def segsum(x: torch.Tensor, senders: torch.Tensor, in_ptr: torch.Tensor,
     multiplies each edge's message, in the order of ``senders``, or None.
     ``out_dtype`` is None (the type of ``x``) or ``torch.float32``.
     ``order_heavy=False`` runs the blocks in plain order: for a CSR made
-    anew on every call, whose :func:`heavy_first` order would cost a host
-    read each time (the sums are the same either way)."""
+    anew on every call, whose :func:`heavy_first` or :func:`locality_order`
+    would cost host reads each time (the sums are the same either way)."""
     out_dtype = out_dtype or x.dtype
     table = INSTANCES if weights is None else WEIGHTED_INSTANCES
     instance = table.get((x.dtype, out_dtype))
@@ -191,13 +364,17 @@ def segsum(x: torch.Tensor, senders: torch.Tensor, in_ptr: torch.Tensor,
     segsum.route_counts[route] += 1
     with torch.cuda.device(x.device):  # the launch runs on the current device
         idx = index_int32(senders)
-        order, n_heavy = heavy_first(in_ptr, rows) if order_heavy else (None, 0)
+        row_order, order, n_heavy = schedule(senders, in_ptr, x.shape[0], rows,
+                                             order_heavy=order_heavy,
+                                             l2_bytes=_l2_bytes(x.device.index))
         segsum.heavy_first_launches += order is not None
+        segsum.locality_launches += row_order is not None
         rc = launch(x.data_ptr(), idx.data_ptr(), in_ptr.data_ptr(),
                     None if scale is None else scale.data_ptr(),
                     None if weights is None else weights.data_ptr(), out.data_ptr(),
                     n, d, _TYPE_CODE[x.dtype], _TYPE_CODE[out_dtype], route != "scalar",
                     None if order is None else order.data_ptr(), n_heavy, rows,
+                    None if row_order is None else row_order.data_ptr(),
                     torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"segsum kernel launch failed: cudaError_t {rc}")
@@ -217,9 +394,12 @@ def _route(x: torch.Tensor, out: torch.Tensor) -> str:
 
 # Wrapper calls that launched the kernel, for proving a run went through it:
 # in all, per (instance, width, weighted), per path ("vector128B" or
-# "scalar", the path the kernel was told to take), and those that ran heavy
-# rows first.
+# "scalar", the path the kernel was told to take), those that ran the
+# heavy-first block order and those that walked a locality order (which
+# runs heavy rows first too); and each locality order derived.
 segsum.launches = 0
 segsum.launch_counts = Counter()
 segsum.route_counts = Counter()
 segsum.heavy_first_launches = 0
+segsum.locality_launches = 0
+segsum.locality_orders = []

@@ -48,7 +48,7 @@ from __future__ import annotations
 import torch
 
 from llp_tpu_torch.core.graph import Graph
-from llp_tpu_torch.ops.segsum import segsum
+from llp_tpu_torch.ops.segsum import prepare, segsum
 from llp_tpu_torch.parallel.halo import HaloGraph, halo_spmm
 from llp_tpu_torch.parallel.mesh import ShardedGraph
 
@@ -144,6 +144,10 @@ def spmm(graph: Graph, x: torch.Tensor, reduce: str = "mean", *,
         return out.scatter_reduce(0, idx, x.index_select(0, graph.senders),
                                   reduce="amax", include_self=False)
     scale = graph.inv_in_degree if reduce == "mean" else None
+    if torch.is_grad_enabled() and x.requires_grad:
+        # a backward over the sender CSR can follow: derive its order now,
+        # before a step's peak (an encode under no_grad derives none)
+        prepare(x, graph.col, graph.row_ptr)
     if edge_weight is not None:
         if edge_weight.shape != (graph.num_edges,):
             raise ValueError(f"edge_weight must be ({graph.num_edges},), one weight per "

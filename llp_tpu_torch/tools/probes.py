@@ -66,6 +66,22 @@
         scored whole by the head.  Run it for the parent and the change
         alternately (a, b, b, a).
 
+    python llp_tpu_torch/tools/probes.py walks [--nodes N ...]
+        B1's two walks of a cached square CSR, by the height of the table:
+        the heavy-first block order, slice-major (what ``ops/segsum.py``
+        runs while a 128-byte slice fits the card's L2), and the locality
+        order, row-block-major (what it runs past L2), each forced on the
+        benchmark generator's graphs (``chip_smoke.py::_standin_graph``):
+        the collab configuration's, and the citation2 configuration's at N
+        nodes (default 500,000, 1,000,000 and 1,800,000; communities and
+        pairs scaled with the nodes); and at collab's height two graphs
+        with no communities, ``ba_graph(235_868, 5)`` (hubs) and 2,358,104
+        uniform edges.  fp32, D = 256, forward over the
+        receiver CSR (the mean) and backward over the sender CSR: device ms
+        of each walk (mean of 20 after a warm-up, in turns a, b, b, a),
+        the two outputs bit for bit, and the order's derivation seconds and
+        ``locality_share``.
+
 Each prints one JSON line per reading.  Nothing runs at import.
 """
 
@@ -534,6 +550,85 @@ def cmd_quant_pairs(args) -> None:
             del table, want
 
 
+WALK_NODES = (500_000, 1_000_000, 1_800_000)
+
+
+def cmd_walks(args) -> None:
+    sys.path.insert(0, str(HERE))
+    import torch
+
+    import chip_smoke
+    from llp_tpu_torch.core.graph import build_graph
+    from llp_tpu_torch.data.synthetic import ba_graph
+    from llp_tpu_torch.ops import segsum as segsum_mod
+
+    segsum = segsum_mod.segsum
+
+    def walking(fn):
+        """``fn`` with an L2 taken to hold nothing: every cached square CSR
+        walks its locality order."""
+        def run():
+            kept = segsum_mod._l2_bytes
+            segsum_mod._l2_bytes = lambda index: 0
+            try:
+                return fn()
+            finally:
+                segsum_mod._l2_bytes = kept
+        return run
+
+    configs = HERE / "benchmark" / "configs"
+    collab = json.loads((configs / "sage-teacher-collab.json").read_text())["graph"]
+    cit = json.loads((configs / "sage-teacher-citation2.json").read_text())["graph"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def standin(spec):
+        return lambda: chip_smoke._standin_graph(spec, chip_smoke.CITATION2_SEED)
+
+    def uniform():
+        n = collab["nodes"]
+        send, recv = torch.randint(0, n, (2, 2_358_104), generator=gen, device="cuda")
+        return chip_smoke._device_graph(send, recv, n), 0.0
+
+    graphs = [("collab", standin(collab)),
+              ("ba", lambda: (build_graph(ba_graph(235_868, 5), 235_868, device="cuda"), 0.0)),
+              ("uniform", uniform)]
+    for n in args.nodes:
+        k = n / cit["nodes"]
+        graphs.append((f"citation2@{n}", standin(dict(
+            cit, nodes=n, communities=max(1, round(cit["communities"] * k)),
+            **{key: max(1, round(cit[key] * k))
+               for key in ("train_pairs", "valid_pairs", "test_pairs")}))))
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size
+    for name, make in graphs:
+        g, host_s = make()
+        n = g.num_nodes
+        x = torch.randn(n, 256, generator=gen, device="cuda")
+        cases = (("forward", lambda: segsum(x, g.senders, g.in_ptr, g.inv_in_degree)),
+                 ("backward", lambda: segsum(x, g.col, g.row_ptr)))
+        for what, call in cases:
+            before = len(segsum.locality_orders)
+            walked = segsum.locality_launches
+            equal = torch.equal(walking(call)(), chip_smoke._without_locality(call)())
+            (rec,) = segsum.locality_orders[before:]
+            if segsum.locality_launches - walked != 1:
+                raise AssertionError(f"walks {name} {what}: the locality order was not walked")
+            times = {"slice_major": [], "locality": []}
+            for key in ("slice_major", "locality", "locality", "slice_major"):
+                fn = walking(call) if key == "locality" else chip_smoke._without_locality(call)
+                times[key].append(_events_ms(fn))
+            slice_major, locality = (statistics.mean(times[k]) for k in times)
+            _log("walks", {"graph": name, "n": n, "e": g.num_edges, "case": what, "d": 256,
+                           "slice_bytes": n * segsum_mod.SLICE_BYTES, "l2_bytes": l2,
+                           "ms_slice_major": slice_major, "ms_locality": locality,
+                           "locality_over_slice_major": locality / slice_major,
+                           "runs": times, "bit_equal": equal, "order": rec,
+                           "host_generator_s": host_s,
+                           "device": torch.cuda.get_device_name()})
+            if not equal:
+                raise AssertionError(f"walks {name} {what}: the two walks' sums differ")
+        del g, x
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -555,6 +650,8 @@ def main(argv=None) -> None:
     sub.add_parser("peak10m")
     pb = sub.add_parser("pair_blocks")
     pb.add_argument("--pairs", type=int, default=8_659_600)
+    wk = sub.add_parser("walks")
+    wk.add_argument("--nodes", type=int, nargs="*", default=list(WALK_NODES))
     qp = sub.add_parser("quant_pairs")
     qp.add_argument("--root", default=str(HERE))
     qp.add_argument("--label", default="")
@@ -562,7 +659,8 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     {"prepare": cmd_prepare, "host": cmd_host, "w1": cmd_w1,
      "determinism": cmd_determinism, "peak10m": cmd_peak10m,
-     "pair_blocks": cmd_pair_blocks, "quant_pairs": cmd_quant_pairs}[args.cmd](args)
+     "pair_blocks": cmd_pair_blocks, "walks": cmd_walks,
+     "quant_pairs": cmd_quant_pairs}[args.cmd](args)
 
 
 if __name__ == "__main__":
